@@ -1,0 +1,267 @@
+"""The port's `raw` shims and `interpn()` against the JAX package's, on the
+CPU: values, in-place `out`, placement and every error string.
+
+The JAX package's shims send small numpy batches to its native C++ engine,
+which contracts multiply-adds into FMAs; these tests turn that engine off
+(INTERPN_TPU_NATIVE=0) so both sides run the gather tree. Its jitted program
+may still contract a multiply-add into an FMA, which moves a result by an
+ulp of the intermediate sums: against the JAX shims the bar is f32 rtol=1e-6
+with atol=1e-5 (results near zero, tables of magnitude ~10), f64
+rtol=atol=1e-13. Against the JAX gather tree called eagerly, which runs op
+by op, the f32 bar is rtol=atol=1e-6.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import interpn_tpu
+import interpn_tpu_torch
+import jax.numpy as jnp
+from interpn_tpu.ops import linear as jlinear
+from interpn_tpu_torch import raw as traw
+
+ROOT = Path(__file__).resolve().parent.parent
+
+TOL = {np.float32: dict(rtol=1e-6, atol=1e-6), np.float64: dict(rtol=1e-13, atol=1e-13)}
+TOL_JIT = {np.float32: dict(rtol=1e-6, atol=1e-5), np.float64: TOL[np.float64]}
+SUFFIX = {np.float32: "f32", np.float64: "f64"}
+
+
+@pytest.fixture(autouse=True)
+def _jax_gather_path(monkeypatch):
+    monkeypatch.setenv("INTERPN_TPU_NATIVE", "0")
+
+
+def _grid(dims, dtype, seed=0, n=700):
+    rng = np.random.default_rng(seed)
+    nd = len(dims)
+    starts = rng.uniform(-1, 1, nd).astype(dtype)
+    steps = rng.uniform(0.3, 1.0, nd).astype(dtype)
+    vals = rng.standard_normal(int(np.prod(dims))).astype(dtype)
+    obs = [
+        rng.uniform(starts[k] - steps[k], starts[k] + steps[k] * dims[k], n).astype(dtype)
+        for k in range(nd)
+    ]
+    return np.array(dims), starts, steps, vals, obs
+
+
+def _linear(mod, dtype):
+    return getattr(mod.raw, f"interpn_linear_regular_{SUFFIX[dtype]}")
+
+
+def _bounds(mod, dtype):
+    return getattr(mod.raw, f"check_bounds_regular_{SUFFIX[dtype]}")
+
+
+# --- values and in-place out -------------------------------------------------
+
+
+@pytest.mark.parametrize("dims", [(9,), (7, 5), (7, 5, 6), (4, 3, 4, 3, 2, 3, 2, 3)],
+                         ids=lambda d: f"{len(d)}d")
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_raw_linear_numpy_matches_jax(dims, dtype):
+    dims, starts, steps, vals, obs = _grid(dims, dtype)
+    want = np.zeros(700, dtype)
+    _linear(interpn_tpu, dtype)(dims, starts, steps, vals, obs, want)
+    out = np.zeros(700, dtype)
+    ret = _linear(interpn_tpu_torch, dtype)(dims, starts, steps, vals, obs, out)
+    assert ret is out
+    np.testing.assert_allclose(out, want, **TOL_JIT[dtype])
+    eager = jlinear.linear_regular(
+        tuple(dims), jnp.asarray(starts), jnp.asarray(steps), jnp.asarray(vals),
+        tuple(jnp.asarray(o) for o in obs),
+    )
+    np.testing.assert_allclose(out, np.asarray(eager), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_raw_linear_tensors_in_place(dtype):
+    dims, starts, steps, vals, obs = _grid((7, 5, 6), dtype, seed=1)
+    want = np.zeros(700, dtype)
+    _linear(interpn_tpu_torch, dtype)(dims, starts, steps, vals, obs, want)
+    out = torch.zeros(700, dtype=getattr(torch, np.dtype(dtype).name))
+    ret = _linear(interpn_tpu_torch, dtype)(
+        torch.from_numpy(dims), torch.from_numpy(starts), torch.from_numpy(steps),
+        torch.from_numpy(vals), [torch.from_numpy(o) for o in obs], out,
+    )
+    assert ret is out
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_raw_linear_out_shape_and_strided_obs():
+    dims, starts, steps, vals, obs = _grid((7, 5), np.float64, seed=2, n=24)
+    want = np.zeros(24)
+    traw.interpn_linear_regular_f64(dims, starts, steps, vals, obs, want)
+    out = np.zeros((4, 6))
+    strided = [torch.from_numpy(np.repeat(o, 2))[::2] for o in obs]
+    traw.interpn_linear_regular_f64(dims, starts, steps, vals, strided, out)
+    np.testing.assert_array_equal(out.ravel(), want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_raw_check_bounds_matches_jax(dtype):
+    dims, starts, steps, vals, obs = _grid((5, 6, 7), dtype, seed=3)
+    seen = set()
+    for atol in (1e-8, 0.5, 2.0):
+        want = np.zeros(3, bool)
+        _bounds(interpn_tpu, dtype)(dims, starts, steps, obs, atol, want)
+        seen.add(tuple(want))
+        out = np.zeros(3, bool)
+        assert _bounds(interpn_tpu_torch, dtype)(dims, starts, steps, obs, atol, out) is out
+        np.testing.assert_array_equal(out, want)
+        tout = torch.zeros(3, dtype=torch.bool)
+        _bounds(interpn_tpu_torch, dtype)(
+            dims, torch.from_numpy(starts), torch.from_numpy(steps),
+            [torch.from_numpy(o) for o in obs], atol, tout,
+        )
+        np.testing.assert_array_equal(tout.numpy(), want)
+    assert len(seen) > 1  # the atols straddle the queries' overshoot
+
+
+# --- placement -----------------------------------------------------------------
+
+
+def test_numpy_inputs_go_to_the_default_device():
+    assert traw._device(np.zeros(2), np.zeros(3)) == torch.get_default_device()
+    with torch.device("meta"):
+        assert traw._device(np.zeros(2)) == torch.device("meta")
+
+
+def test_tensors_must_share_a_device():
+    dims, starts, steps, vals, obs = _grid((7, 5), np.float32, n=8)
+    obs_t = [torch.from_numpy(obs[0]), torch.from_numpy(obs[1]).to("meta")]
+    with pytest.raises(ValueError, match="share a device"):
+        traw.interpn_linear_regular_f32(dims, starts, steps, vals, obs_t, np.zeros(8, np.float32))
+
+
+# --- errors: the same type and message from both packages ----------------------
+
+
+def _bad_calls():
+    """(id, call(mod)) pairs that both packages must refuse alike."""
+    f32, f64 = np.float32, np.float64
+
+    def lin(mod, dtype, *, dims=(4, 5), steps=None, vals=None, obs=None, out=None, n=6):
+        d, st, sp, v, ob = _grid(dims, dtype, seed=4, n=n)
+        return _linear(mod, dtype)(
+            d, st, sp if steps is None else steps, v if vals is None else vals,
+            ob if obs is None else obs, np.zeros(n, dtype) if out is None else out,
+        )
+
+    nan_obs = [np.array([0.5, np.nan], f32), np.array([0.5, 0.5], f32)]
+    inf_obs = [np.array([0.5, np.inf]), np.array([0.5, 0.5])]
+    return [
+        ("dims>8", lambda m: lin(m, f64, dims=(2,) * 9)),
+        ("short-axis", lambda m: lin(m, f64, dims=(4, 1))),
+        ("zero-step", lambda m: lin(m, f32, steps=np.array([0.5, 0.0], f32))),
+        ("negative-step", lambda m: lin(m, f64, steps=np.array([-0.5, 1.0]))),
+        ("vals-size", lambda m: lin(m, f64, vals=np.zeros(19))),
+        ("obs-length", lambda m: lin(m, f64, out=np.zeros(5))),
+        ("obs-count", lambda m: lin(m, f64, obs=[np.zeros(6)])),
+        ("vals-dtype", lambda m: lin(m, f32, vals=np.zeros(20))),
+        ("out-dtype", lambda m: lin(m, f64, out=np.zeros(6, f32))),
+        ("obs-list", lambda m: lin(m, f64, obs=[[0.0] * 6, np.zeros(6)])),
+        ("nan-query", lambda m: lin(m, f32, obs=nan_obs, n=2)),
+        ("inf-query", lambda m: lin(m, f64, obs=inf_obs, n=2)),
+        ("bounds-out-dtype", lambda m: _bounds(m, f64)(
+            np.array([4, 5]), np.zeros(2), np.ones(2), [np.zeros(3)] * 2, 1e-8,
+            np.zeros(2))),
+        ("bounds-out-size", lambda m: _bounds(m, f64)(
+            np.array([4, 5]), np.zeros(2), np.ones(2), [np.zeros(3)] * 2, 1e-8,
+            np.zeros(3, bool))),
+        ("bounds-obs-dtype", lambda m: _bounds(m, f32)(
+            np.array([4, 5]), np.zeros(2, f32), np.ones(2, f32), [np.zeros(3)] * 2,
+            1e-8, np.zeros(2, bool))),
+    ]
+
+
+@pytest.mark.parametrize("call", [c for _, c in _bad_calls()], ids=[i for i, _ in _bad_calls()])
+def test_errors_match_jax(call):
+    with pytest.raises((AssertionError, TypeError)) as want:
+        call(interpn_tpu)
+    with pytest.raises(want.type) as got:
+        call(interpn_tpu_torch)
+    assert str(got.value) == str(want.value)
+
+
+# --- interpn() -----------------------------------------------------------------
+
+
+def _axes(dims, dtype, seed=5):
+    rng = np.random.default_rng(seed)
+    grids = [(np.arange(d) * 0.25 * (k + 1) - 1.0).astype(dtype) for k, d in enumerate(dims)]
+    vals = rng.standard_normal(dims).astype(dtype)
+    obs = [rng.uniform(g[0] - 0.3, g[-1] + 0.3, 50).astype(dtype) for g in grids]
+    return grids, vals, obs
+
+
+@pytest.mark.parametrize("dims", [(6, 7), (5, 4, 6)], ids=str)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_interpn_matches_jax(dims, dtype):
+    grids, vals, obs = _axes(dims, dtype)
+    want = interpn_tpu.interpn(obs, grids, vals, method="linear")
+    got = interpn_tpu_torch.interpn(obs, grids, vals, method="linear")
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL_JIT[dtype])
+
+
+def test_interpn_writes_caller_out():
+    grids, vals, obs = _axes((6, 7), np.float64)
+    want = interpn_tpu.interpn([o.reshape(5, 10) for o in obs], grids, vals)
+    buf = np.zeros((10, 5)).T  # not C-contiguous: ravel() copies
+    ret = interpn_tpu_torch.interpn([o.reshape(5, 10) for o in obs], grids, vals, out=buf)
+    assert ret is buf
+    np.testing.assert_allclose(buf, want, **TOL[np.float64])
+
+
+def test_interpn_check_bounds():
+    grids, vals, obs = _axes((6, 7), np.float64)
+    for mod in (interpn_tpu, interpn_tpu_torch):
+        with pytest.raises(ValueError, match="^Observation points violate interpolator bounds$"):
+            mod.interpn(obs, grids, vals, check_bounds=True)
+    inside = [np.clip(o, g[0], g[-1]) for o, g in zip(obs, grids)]
+    np.testing.assert_allclose(
+        interpn_tpu_torch.interpn(inside, grids, vals, check_bounds=True),
+        interpn_tpu.interpn(inside, grids, vals, check_bounds=True),
+        **TOL[np.float64],
+    )
+
+
+def test_interpn_refusals():
+    grids, vals, obs = _axes((6, 7), np.float64)
+    for method in ("cubic", "nearest", "pchip", "cubic_spline", "quintic"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item"):
+            interpn_tpu_torch.interpn(obs, grids, vals, method=method)
+    rect = [np.cumsum(np.arange(1.0, 7.0)), grids[1]]
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        interpn_tpu_torch.interpn(obs, rect, vals)
+    for mod in (interpn_tpu, interpn_tpu_torch):
+        with pytest.raises(AssertionError, match="only for float32 and float64"):
+            mod.interpn(obs, grids, vals.astype(np.int64))
+    with pytest.raises(ValueError) as want:
+        interpn_tpu.interpn(obs, grids, vals, method="bogus")
+    with pytest.raises(ValueError) as got:
+        interpn_tpu_torch.interpn(obs, grids, vals, method="bogus")
+    assert str(got.value) == str(want.value)
+
+
+# --- the port never imports jax ------------------------------------------------
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import interpn_tpu_torch, interpn_tpu_torch.raw, interpn_tpu_torch.ops\n"
+        "import interpn_tpu_torch.ops.fused, interpn_tpu_torch.ops.dispatch\n"
+        "import interpn_tpu_torch.convert, interpn_tpu_torch.config\n"
+        "import interpn_tpu_torch.utils.profiling, interpn_tpu_torch._build\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'interpn_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
