@@ -1,13 +1,16 @@
 """interpn_tpu_torch: the PyTorch / CUDA port of interpn-tpu.
 
 A second package beside `interpn_tpu` (the JAX reference). It imports torch
-and numpy, never jax. Ported so far: multilinear evaluation on regular
-grids, f32 and f64, 1-8D, through a hand-written CUDA kernel for Hopper
-on CUDA tensors and the gather tree on CPU tensors.
+and numpy, never jax. Ported so far: linear, cubic and nearest evaluation on
+regular and rectilinear grids, f32 and f64, 1-8D (nearest 1-6D at the flat
+API), through hand-written CUDA kernels for Hopper on CUDA tensors and the
+gather tree on CPU tensors.
 
-* `interpn(...)`: the one-shot convenience function (linear, regular grids)
-* `interpn_tpu_torch.raw`: the ported flat functions
+* `interpn(...)`: the one-shot convenience function
+* `interpn_tpu_torch.raw`: the reference's 16 flat functions
 * `interpn_tpu_torch.ops`: the batched functions on tensors
+* `interpn_tpu_torch.config`: where numpy inputs compute (CUDA by default;
+  `config.set_device("cpu")` asks for the CPU)
 """
 
 from __future__ import annotations
@@ -25,8 +28,6 @@ __all__ = ["__version__", "raw", "interpn"]
 
 # What is not ported yet, by ROADMAP.md item.
 _NOT_PORTED = {
-    "cubic": "ROADMAP item 5",
-    "nearest": "ROADMAP item 5",
     "pchip": "ROADMAP item 13",
     "cubic_spline": "ROADMAP item 12",
     "quintic": "ROADMAP item 12",
@@ -48,12 +49,12 @@ def interpn(
     """Evaluate an N-dimensional grid at the supplied observation points.
 
     `interpn_tpu.interpn` with numpy inputs and outputs, computed on
-    `torch.get_default_device()`. Grid regularity is detected by exact
-    spacing equality; `check_bounds` raises ValueError for points outside
-    the grid. Only method="linear" on regular grids is ported; other methods
-    and rectilinear grids raise NotImplementedError naming their ROADMAP
-    item. `linearize_extrapolation` is accepted for signature parity (it
-    concerns the cubic method).
+    `config.default_device()` (the CUDA device unless the caller asked for
+    another). Grid regularity is detected by exact spacing equality;
+    `check_bounds` raises ValueError for points outside the grid. Methods
+    "linear", "cubic" (with `linearize_extrapolation`) and "nearest" are
+    ported on regular and rectilinear grids; "pchip", "cubic_spline" and
+    "quintic" raise NotImplementedError naming their ROADMAP item.
     """
     user_out = out if out is not None else np.zeros_like(obs[0])
     outshape = user_out.shape
@@ -70,36 +71,38 @@ def interpn(
     if dtype not in [np.float64, np.float32]:
         raise AssertionError("`interpn` defined only for float32 and float64 data")
     is_regular = assume_regular or _check_regular(grids)
+    if is_regular:
+        dims = np.array([len(grid) for grid in grids], dtype=int)
+        starts = np.array([grid[0] for grid in grids], dtype=dtype)
+        steps = np.array([grid[1] - grid[0] for grid in grids], dtype=dtype)
+
+    if check_bounds:
+        outb = np.zeros((len(grids),), dtype=bool)
+        f32 = dtype == np.float32
+        if is_regular:
+            bounds = raw.check_bounds_regular_f32 if f32 else raw.check_bounds_regular_f64
+            bounds(dims, starts, steps, obs, bounds_atol, outb)
+        else:
+            bounds = raw.check_bounds_rectilinear_f32 if f32 else raw.check_bounds_rectilinear_f64
+            bounds(grids, obs, bounds_atol, outb)
+        if any(outb):
+            raise ValueError("Observation points violate interpolator bounds")
+
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"method={method!r} is not ported yet ({_NOT_PORTED[method]})"
         )
-    if method != "linear":
+    if method not in ("linear", "cubic", "nearest"):
         raise ValueError(
             "Unsupported interpolation configuration:"
             f" {dtype}, {is_regular}, {method}"
         )
-    if not is_regular:
-        raise NotImplementedError(
-            "rectilinear grids are not ported yet (ROADMAP item 7)"
-        )
-    dims = np.array([len(grid) for grid in grids], dtype=int)
-    starts = np.array([grid[0] for grid in grids], dtype=dtype)
-    steps = np.array([grid[1] - grid[0] for grid in grids], dtype=dtype)
-
-    if check_bounds:
-        outb = np.zeros((len(grids),), dtype=bool)
-        if dtype == np.float32:
-            raw.check_bounds_regular_f32(dims, starts, steps, obs, bounds_atol, outb)
-        else:
-            raw.check_bounds_regular_f64(dims, starts, steps, obs, bounds_atol, outb)
-        if any(outb):
-            raise ValueError("Observation points violate interpolator bounds")
-
-    if dtype == np.float32:
-        raw.interpn_linear_regular_f32(dims, starts, steps, vals, obs, out)
-    else:
-        raw.interpn_linear_regular_f64(dims, starts, steps, vals, obs, out)
+    suffix = "f32" if dtype == np.float32 else "f64"
+    kind = "regular" if is_regular else "rectilinear"
+    fn = getattr(raw, f"interpn_{method}_{kind}_{suffix}")
+    grid = (dims, starts, steps, vals) if is_regular else (grids, vals)
+    lin = (linearize_extrapolation,) if method == "cubic" else ()
+    fn(*grid, *lin, obs, out)
 
     if not out_is_view:
         np.copyto(user_out, out.reshape(outshape))

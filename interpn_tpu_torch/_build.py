@@ -17,6 +17,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -83,3 +85,21 @@ def load(name: str) -> ctypes.CDLL:
             _compile(CSRC / f"{name}.cu", so)
         lib = _libs[name] = ctypes.CDLL(str(so))
     return lib
+
+
+def build_all(names) -> dict[str, float]:
+    """Build every missing `csrc/<name>.cu` at once, one nvcc process per
+    source, and return each build's wall seconds (0.0 where the library was
+    already built). Raises RuntimeError if any build fails."""
+
+    def build(name: str) -> float:
+        so = library_path(name)
+        if so.exists():
+            return 0.0
+        t0 = time.perf_counter()
+        _compile(CSRC / f"{name}.cu", so)
+        return time.perf_counter() - t0
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))

@@ -19,6 +19,16 @@ def regular_grid_from_numpy(dims, starts, steps, vals, *, device, dtype):
     )
 
 
+def rectilinear_grid_from_numpy(grids, vals, *, device, dtype):
+    """(grids, vals) as the port's rectilinear-grid functions take them: a
+    tuple of 1-D grid tensors and the flat C-order table, on `device` in
+    `dtype`."""
+    return (
+        obs_from_numpy(grids, device=device, dtype=dtype),
+        torch.as_tensor(np.asarray(vals).ravel(), dtype=dtype, device=device),
+    )
+
+
 def obs_from_numpy(obs, *, device, dtype) -> tuple[torch.Tensor, ...]:
     """A tuple of 1-D query tensors, one per dimension."""
     return tuple(

@@ -1,146 +1,152 @@
-// Regular-grid multilinear evaluation for Hopper (sm_90a).
+// Regular-grid evaluation for Hopper (sm_90a): multilinear, multicubic and
+// nearest, f32 and f64, 1-8D.
 //
 // Replaces the TPU kernel `interpn_tpu/ops/pallas_v3.py::_pallas_v3`, whose
-// body is `_build_kernel(..., rect=False)`, for method="linear", and serves
-// float64 natively (on the TPU, pallas_df64/pallas_i8 serve f64).
+// body is `_build_kernel(..., rect=False)` with the per-axis weights of
+// `_linear_axis_weights`, `_cubic_axis_weights` and `_nearest_axis_weights`,
+// and serves float64 natively (on the TPU, pallas_df64/pallas_i8 serve f64).
 //
-// What it computes: out(q) = sum over the 2^N cell corners of
-// prod_k w_k(q) * vals[corner], with the cell and the weights located exactly
-// as `ops/locate.py::locate_regular_linear` does, and the corners reduced by
-// the reference's lerp tree (`ops/linear.py::_lerp_reduce`, dim 0 first).
-// Every rounding step is the same as the plain PyTorch version's, so the two
-// agree bit for bit.
+// What it computes, per query:
+// - linear: the 2^N cell corners reduced by the reference's lerp tree
+//   (`ops/linear.py`), cell and t located as `locate_regular_linear` does;
+// - cubic: the 4^N stencil reduced by the Hermite tree of `ops/cubic.py`,
+//   with the 5-region saturation of `locate_regular_cubic`, optional
+//   linearized extrapolation, and exact values at grid nodes;
+// - nearest: one table read, the lower index winning the tie
+//   (`ops/nearest.py`).
+// Every rounding step is the plain PyTorch version's, so the two agree bit
+// for bit (see interp_common.cuh).
 //
 // Design: the TPU kernel contracts per-query weight matrices against the
 // whole table on the MXU, because Mosaic has no per-lane gather. A Hopper
 // thread gathers, so this kernel reads only the stencil: one thread per
-// query (grid-stride loop), 2^N table reads through the read-only cache.
+// query (grid-stride loop), table reads through the read-only cache.
 //
-// What bounds it on this card: each query streams 4*(ndims+1) bytes (f32;
-// 8*(ndims+1) for f64) in and out of device memory, plus 2^N table reads
-// that hit L1/L2 (a 20^3 f32 table is 32 KB; 100^3 is 4 MB, within the
-// 50 MB L2). At small ndims the kernel is bound by device-memory bandwidth
-// on the query stream; at large ndims by the cached table reads.
-//
-// Numerics: nvcc contracts a*b+c into an FMA by default, which moves
-// `start + step*loc` and `y0 + t*(y1-y0)` by an ulp; at grid nodes an ulp is
-// enough to move floor() to the neighbouring cell. All arithmetic goes
-// through the _rn intrinsics, which are never contracted, and the build adds
-// --fmad=false. Division stays IEEE (no fast math).
+// What bounds it on this card: each query streams sizeof(T)*(ndims+1) bytes
+// in and out of device memory. Linear and nearest add 2^N or 1 table reads
+// that hit L1/L2 (a 20^3 f32 table is 32 KB; 100^3 is 4 MB, within the 50 MB
+// L2) and are bound by the query stream and the scattered reads. Cubic does
+// about 20 floating-point operations per tree node, (4^N - 1)/3 nodes per
+// query, and is bound by arithmetic from 3D up (f64 most of all).
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "interp_common.cuh"
 
 namespace {
 
-constexpr int kMaxDims = 8;
-constexpr int kThreads = 256;
+using namespace interp;
 
 struct GridArgs {
-  int dimmax[kMaxDims];  // max(dim - 2, 0): the last lower-corner index
+  int dim[kMaxDims];     // points per axis
   int stride[kMaxDims];  // C-order strides in elements
 };
 
-template <typename T>
-struct ObsPtrs {
-  const T* p[kMaxDims];
-};
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float floor_(float a) { return floorf(a); }
-__device__ __forceinline__ float clamp_(float a, float hi) { return fminf(fmaxf(a, 0.0f), hi); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ double floor_(double a) { return floor(a); }
-__device__ __forceinline__ double clamp_(double a, double hi) { return fmin(fmax(a, 0.0), hi); }
-
-// Value of the D-dimensional sub-cell at `base`: the two (D-1)-dimensional
-// halves along dim D-1, lerped with t[D-1]. Depth first, so at most D
-// partial sums are live; the pairing is the level-by-level tree's.
-template <typename T, int D>
-struct LerpTree {
-  static __device__ __forceinline__ T eval(const T* __restrict__ vals, int base,
-                                           const int* stride, const T* t) {
-    const T y0 = LerpTree<T, D - 1>::eval(vals, base, stride, t);
-    const T y1 = LerpTree<T, D - 1>::eval(vals, base + stride[D - 1], stride, t);
-    return add_rn(y0, mul_rn(t[D - 1], sub_rn(y1, y0)));
-  }
-};
-
-template <typename T>
-struct LerpTree<T, 0> {
-  static __device__ __forceinline__ T eval(const T* __restrict__ vals, int base,
-                                           const int*, const T*) {
-    return __ldg(vals + base);
-  }
-};
-
-template <typename T, int NDIMS>
+template <typename T, int NDIMS, int METHOD>
 __global__ void __launch_bounds__(kThreads)
-    linear_regular_kernel(GridArgs grid, ObsPtrs<T> obs, const T* __restrict__ starts,
-                          const T* __restrict__ steps, const T* __restrict__ vals,
-                          T* __restrict__ out, int64_t n) {
-  T start[NDIMS], step[NDIMS], dimmax[NDIMS];
+    regular_kernel(GridArgs grid, ObsPtrs<T> obs, const T* __restrict__ starts,
+                   const T* __restrict__ steps, const T* __restrict__ vals,
+                   T* __restrict__ out, int64_t n, bool lin) {
+  T start[NDIMS], step[NDIMS], dimmax[NDIMS], high_at[NDIMS];
   int stride[NDIMS];
 #pragma unroll
   for (int k = 0; k < NDIMS; ++k) {
     start[k] = __ldg(starts + k);
     step[k] = __ldg(steps + k);
-    dimmax[k] = static_cast<T>(grid.dimmax[k]);
+    const int footprint = METHOD == kCubic ? 4 : 2;
+    const int last = grid.dim[k] - footprint;  // the last lower-corner index
+    dimmax[k] = static_cast<T>(last > 0 ? last : 0);
+    high_at[k] = static_cast<T>(grid.dim[k] - 3);
     stride[k] = grid.stride[k];
   }
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += nthreads) {
     int base = 0;
-    T t[NDIMS];
+    if constexpr (METHOD == kCubic) {
+      RegularCubicAxis<T> ax[NDIMS];
 #pragma unroll
-    for (int k = 0; k < NDIMS; ++k) {
-      const T x = __ldg(obs.p[k] + i);
-      T floc = floor_(div_rn(sub_rn(x, start[k]), step[k]));
-      // NaN reads cell 0 (and gives t = NaN); +-inf clamp to the edge cells.
-      floc = isnan(floc) ? T(0) : floc;
-      floc = clamp_(floc, dimmax[k]);
-      const int loc = static_cast<int>(floc);
-      base += loc * stride[k];
-      t[k] = div_rn(sub_rn(x, add_rn(start[k], mul_rn(step[k], static_cast<T>(loc)))),
-                    step[k]);
+      for (int k = 0; k < NDIMS; ++k) {
+        const T x = __ldg(obs.p[k] + i);
+        const T iloc = sub_rn(floor_(div_rn(sub_rn(x, start[k]), step[k])), T(1));
+        // the masks see the raw iloc (all false for NaN); the index sees
+        // NaN as 0, and +-inf clamped to the edge cells
+        const int loc = static_cast<int>(clamp_(isnan(iloc) ? T(0) : iloc, dimmax[k]));
+        base += loc * stride[k];
+        const bool low = iloc <= T(-1);
+        const bool high = !low && iloc >= high_at[k];
+        const T t = div_rn(
+            sub_rn(x, add_rn(start[k], mul_rn(step[k], static_cast<T>(loc + 1)))), step[k]);
+        ax[k].tt = low ? -t : (high ? sub_rn(t, T(1)) : t);
+        ax[k].low = low;
+        ax[k].high = high;
+        ax[k].outside = iloc < T(-1) || (!low && iloc > high_at[k]);
+      }
+      out[i] = CubicTree<T, RegularCubicAxis<T>, NDIMS>::eval(vals, base, stride, ax, lin);
+    } else {
+      T t[NDIMS];
+#pragma unroll
+      for (int k = 0; k < NDIMS; ++k) {
+        const T x = __ldg(obs.p[k] + i);
+        T floc = floor_(div_rn(sub_rn(x, start[k]), step[k]));
+        // NaN reads cell 0 (and gives t = NaN); +-inf clamp to the edge cells.
+        floc = isnan(floc) ? T(0) : floc;
+        const int loc = static_cast<int>(clamp_(floc, dimmax[k]));
+        t[k] = div_rn(sub_rn(x, add_rn(start[k], mul_rn(step[k], static_cast<T>(loc)))),
+                      step[k]);
+        // nearest: the lower index at the tie; NaN t fails <= and takes +1
+        base += (METHOD == kNearest ? loc + (t[k] <= T(0.5) ? 0 : 1) : loc) * stride[k];
+      }
+      if constexpr (METHOD == kNearest) {
+        out[i] = __ldg(vals + base);
+      } else {
+        out[i] = LerpTree<T, NDIMS>::eval(vals, base, stride, t);
+      }
     }
-    out[i] = LerpTree<T, NDIMS>::eval(vals, base, stride, t);
   }
 }
 
-template <typename T, int NDIMS>
+template <typename T, int NDIMS, int METHOD>
 cudaError_t launch(const GridArgs& grid, const void* const* obs, const void* starts,
-                   const void* steps, const void* vals, void* out, int64_t n, int blocks,
-                   cudaStream_t stream) {
+                   const void* steps, const void* vals, void* out, int64_t n, bool lin,
+                   int blocks, cudaStream_t stream) {
   ObsPtrs<T> ptrs{};
   for (int k = 0; k < NDIMS; ++k) ptrs.p[k] = static_cast<const T*>(obs[k]);
-  linear_regular_kernel<T, NDIMS><<<blocks, kThreads, 0, stream>>>(
+  regular_kernel<T, NDIMS, METHOD><<<blocks, kThreads, 0, stream>>>(
       grid, ptrs, static_cast<const T*>(starts), static_cast<const T*>(steps),
-      static_cast<const T*>(vals), static_cast<T*>(out), n);
+      static_cast<const T*>(vals), static_cast<T*>(out), n, lin);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int METHOD>
 cudaError_t launch_ndims(int ndims, const GridArgs& grid, const void* const* obs,
                          const void* starts, const void* steps, const void* vals,
-                         void* out, int64_t n, int blocks, cudaStream_t stream) {
+                         void* out, int64_t n, bool lin, int blocks, cudaStream_t s) {
   switch (ndims) {
-    case 1: return launch<T, 1>(grid, obs, starts, steps, vals, out, n, blocks, stream);
-    case 2: return launch<T, 2>(grid, obs, starts, steps, vals, out, n, blocks, stream);
-    case 3: return launch<T, 3>(grid, obs, starts, steps, vals, out, n, blocks, stream);
-    case 4: return launch<T, 4>(grid, obs, starts, steps, vals, out, n, blocks, stream);
-    case 5: return launch<T, 5>(grid, obs, starts, steps, vals, out, n, blocks, stream);
-    case 6: return launch<T, 6>(grid, obs, starts, steps, vals, out, n, blocks, stream);
-    case 7: return launch<T, 7>(grid, obs, starts, steps, vals, out, n, blocks, stream);
-    case 8: return launch<T, 8>(grid, obs, starts, steps, vals, out, n, blocks, stream);
+    case 1: return launch<T, 1, METHOD>(grid, obs, starts, steps, vals, out, n, lin, blocks, s);
+    case 2: return launch<T, 2, METHOD>(grid, obs, starts, steps, vals, out, n, lin, blocks, s);
+    case 3: return launch<T, 3, METHOD>(grid, obs, starts, steps, vals, out, n, lin, blocks, s);
+    case 4: return launch<T, 4, METHOD>(grid, obs, starts, steps, vals, out, n, lin, blocks, s);
+    case 5: return launch<T, 5, METHOD>(grid, obs, starts, steps, vals, out, n, lin, blocks, s);
+    case 6: return launch<T, 6, METHOD>(grid, obs, starts, steps, vals, out, n, lin, blocks, s);
+    case 7: return launch<T, 7, METHOD>(grid, obs, starts, steps, vals, out, n, lin, blocks, s);
+    case 8: return launch<T, 8, METHOD>(grid, obs, starts, steps, vals, out, n, lin, blocks, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_method(int method, int ndims, const GridArgs& grid, const void* const* obs,
+                          const void* starts, const void* steps, const void* vals, void* out,
+                          int64_t n, bool lin, int blocks, cudaStream_t s) {
+  switch (method) {
+    case kLinear:
+      return launch_ndims<T, kLinear>(ndims, grid, obs, starts, steps, vals, out, n, lin,
+                                      blocks, s);
+    case kCubic:
+      return launch_ndims<T, kCubic>(ndims, grid, obs, starts, steps, vals, out, n, lin,
+                                     blocks, s);
+    case kNearest:
+      return launch_ndims<T, kNearest>(ndims, grid, obs, starts, steps, vals, out, n, lin,
+                                       blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -148,14 +154,16 @@ cudaError_t launch_ndims(int ndims, const GridArgs& grid, const void* const* obs
 }  // namespace
 
 // Launches the kernel on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success). `dims` and `obs` are host arrays of
-// `ndims` entries; `obs`, `starts`, `steps`, `vals` and `out` hold device
-// pointers of the type selected by `is_f64`. The caller guarantees
-// 1 <= ndims <= 8, every dim >= 2, prod(dims) < 2^31 and 0 < n < 2^31.
-extern "C" int interpn_linear_regular(int is_f64, int ndims, const int* dims,
-                                      const void* starts, const void* steps,
-                                      const void* vals, const void* const* obs, void* out,
-                                      long long n, int blocks, void* stream) {
+// cudaGetLastError() (0 on success). `method` is 0 linear, 1 cubic,
+// 2 nearest; `linearize` selects linearized cubic extrapolation. `dims` and
+// `obs` are host arrays of `ndims` entries; `obs`, `starts`, `steps`, `vals`
+// and `out` hold device pointers of the type selected by `is_f64`. The
+// caller guarantees 1 <= ndims <= 8, every dim >= 2 (>= 4 for cubic),
+// prod(dims) < 2^31 and 0 < n < 2^31.
+extern "C" int interpn_regular(int method, int linearize, int is_f64, int ndims,
+                               const int* dims, const void* starts, const void* steps,
+                               const void* vals, const void* const* obs, void* out,
+                               long long n, int blocks, void* stream) {
   if (ndims < 1 || ndims > kMaxDims || n <= 0 || blocks <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -163,12 +171,15 @@ extern "C" int interpn_linear_regular(int is_f64, int ndims, const int* dims,
   int acc = 1;
   for (int k = ndims - 1; k >= 0; --k) {
     grid.stride[k] = acc;
-    grid.dimmax[k] = dims[k] > 2 ? dims[k] - 2 : 0;
+    grid.dim[k] = dims[k];
     acc *= dims[k];
   }
   auto s = static_cast<cudaStream_t>(stream);
+  const bool lin = linearize != 0;
   const cudaError_t err =
-      is_f64 ? launch_ndims<double>(ndims, grid, obs, starts, steps, vals, out, n, blocks, s)
-             : launch_ndims<float>(ndims, grid, obs, starts, steps, vals, out, n, blocks, s);
+      is_f64 ? launch_method<double>(method, ndims, grid, obs, starts, steps, vals, out, n,
+                                     lin, blocks, s)
+             : launch_method<float>(method, ndims, grid, obs, starts, steps, vals, out, n,
+                                    lin, blocks, s);
   return static_cast<int>(err);
 }

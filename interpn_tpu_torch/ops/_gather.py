@@ -23,3 +23,10 @@ def gather_corners(vals, base, dims, footprint: int) -> list[torch.Tensor]:
     in the reference's vertex order (dim 0 in the lowest digit)."""
     offs = corner_offsets(dims, footprint)
     return [take1(vals, base if o == 0 else base + int(o)) for o in offs]
+
+
+def gather_corners_matrix(vals, base, dims, footprint: int) -> torch.Tensor:
+    """The corner stencil as one (footprint**ndims, *base.shape) tensor,
+    vertex-major, in the same vertex order as `gather_corners`."""
+    offs = torch.from_numpy(corner_offsets(dims, footprint)).to(base.device)
+    return take1(vals, offs.reshape(-1, *([1] * base.dim())) + base)

@@ -1,6 +1,6 @@
-"""Bounds checking for observation points on regular grids.
+"""Bounds checking for observation points on regular and rectilinear grids.
 
-Counterpart of `interpn_tpu/ops/bounds.py::check_bounds_regular`.
+Counterpart of `interpn_tpu/ops/bounds.py`.
 """
 
 from __future__ import annotations
@@ -22,6 +22,19 @@ def check_bounds_regular(dims: tuple[int, ...], starts, steps, obs, atol):
         last = starts[i] + steps[i] * (dims[i] - 1)
         lo = torch.minimum(first, last)
         hi = torch.maximum(first, last)
+        x = obs[i]
+        flags.append((((x - lo) <= -atol) | ((x - hi) >= atol)).any())
+    return torch.stack(flags)
+
+
+def check_bounds_rectilinear(grids, obs, atol):
+    """Per-dimension out-of-bounds flags on a rectilinear grid: as
+    `check_bounds_regular` with lo/hi the first and last grid entries."""
+    atol = torch.as_tensor(atol, dtype=grids[0].dtype, device=grids[0].device)
+    flags = []
+    for i in range(len(grids)):
+        lo = grids[i][0]
+        hi = grids[i][-1]
         x = obs[i]
         flags.append((((x - lo) <= -atol) | ((x - hi) >= atol)).any())
     return torch.stack(flags)

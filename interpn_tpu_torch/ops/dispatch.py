@@ -1,15 +1,17 @@
-"""Implementation selection between the Hopper kernel and the gather tree.
+"""Implementation selection between the Hopper kernels and the gather tree.
 
-Counterpart of `interpn_tpu/ops/dispatch.py` for regular-grid linear
-evaluation. The JAX package picks among five engines from static trace
-information; here the device decides: a CUDA tensor goes to the kernel
-(`ops/fused.py`, f32 and f64, any batch size), a CPU tensor to the gather
-tree (`ops/linear.py`). The kernel reads only the stencil, so the TPU's
+Counterpart of `interpn_tpu/ops/dispatch.py`. The JAX package picks among
+five engines from static trace information; here the device decides: a CUDA
+tensor goes to the kernel (`ops/fused.py`, f32 and f64, any batch size), a
+CPU tensor to the gather tree (`ops/linear.py`, `ops/cubic.py`,
+`ops/nearest.py`). The kernels read only the stencil, so the TPU's
 finite-table guard, batch floor and grid-size caps have no counterpart.
 
-The kernel has no backward kernel (nor had the TPU kernel), so gradients of
-the kernel path come from the gather tree, as the JAX package's
-`_with_gather_jvp` takes tangents from it.
+The kernels have no backward kernel (nor had the TPU kernels), so each
+kernel route is a `KernelRoute`: the kernel forward, the vector-Jacobian
+product of the gather tree backward, as the JAX package's `_with_gather_jvp`
+takes tangents from the gather tree. For nearest that gives zero gradients
+to the queries and one-hot gradients to `vals`.
 """
 
 from __future__ import annotations
@@ -17,28 +19,28 @@ from __future__ import annotations
 import torch
 
 from . import fused as _fused
+from .cubic import cubic_rectilinear as _cubic_rect_gather
+from .cubic import cubic_regular as _cubic_reg_gather
+from .linear import linear_rectilinear as _linear_rect_gather
 from .linear import linear_regular as _linear_reg_gather
+from .nearest import nearest_rectilinear as _nearest_rect_gather
+from .nearest import nearest_regular as _nearest_reg_gather
 
 
-class LinearRegularKernel(torch.autograd.Function):
-    """Forward: the fused kernel. Backward: the vector-Jacobian product of
-    the gather tree at the same inputs."""
+class KernelRoute(torch.autograd.Function):
+    """Forward: kernel(*tensors). Backward: the vector-Jacobian product of
+    gather(*tensors), the kernel's plain version, at the same inputs."""
 
     @staticmethod
-    def forward(ctx, dims, starts, steps, vals, *obs):
-        ctx.dims = dims
-        ctx.save_for_backward(starts, steps, vals, *obs)
-        return _fused.eval_regular(dims, starts, steps, vals, obs)
+    def forward(ctx, kernel, gather, *tensors):
+        ctx.gather = gather
+        ctx.save_for_backward(*tensors)
+        return kernel(*tensors)
 
     @staticmethod
     def backward(ctx, grad_out):
-        dims = ctx.dims
-
-        def gather(st, sp, v, *ob):
-            return _linear_reg_gather(dims, st, sp, v, ob)
-
-        _, vjp_fn = torch.func.vjp(gather, *ctx.saved_tensors)
-        return (None, *vjp_fn(grad_out))
+        _, vjp_fn = torch.func.vjp(ctx.gather, *ctx.saved_tensors)
+        return (None, None, *vjp_fn(grad_out))
 
 
 def _impl(vals: torch.Tensor) -> str:
@@ -46,15 +48,71 @@ def _impl(vals: torch.Tensor) -> str:
     return "kernel" if vals.device.type == "cuda" else "gather"
 
 
+def _route(kernel, gather, params, vals, obs):
+    """gather(*params, vals, *obs) on the CPU; on a CUDA tensor the kernel
+    on flat contiguous queries, reshaped like obs[0]."""
+    if _impl(vals) == "gather":
+        return gather(*params, vals, *obs)
+    shape = obs[0].shape
+    tensors = [t.contiguous() for t in params] + [vals.contiguous()]
+    tensors += [o.reshape(-1).contiguous() for o in obs]
+    return KernelRoute.apply(kernel, gather, *tensors).reshape(shape)
+
+
 def linear_regular(dims, starts, steps, vals, obs):
     """Multilinear eval on a regular grid; obs is a tuple of ndims tensors of
     one shape, and the result has that shape."""
     dims = tuple(int(d) for d in dims)
-    if _impl(vals) == "kernel":
-        shape = obs[0].shape
-        flat = [o.reshape(-1).contiguous() for o in obs]
-        out = LinearRegularKernel.apply(
-            dims, starts.contiguous(), steps.contiguous(), vals.contiguous(), *flat
-        )
-        return out.reshape(shape)
-    return _linear_reg_gather(dims, starts, steps, vals, obs)
+    return _route(
+        lambda st, sp, v, *ob: _fused.eval_regular(dims, st, sp, v, ob, "linear"),
+        lambda st, sp, v, *ob: _linear_reg_gather(dims, st, sp, v, ob),
+        (starts, steps), vals, obs,
+    )
+
+
+def cubic_regular(dims, starts, steps, vals, obs, linearize_extrapolation: bool):
+    """Multicubic eval on a regular grid (every dim >= 4)."""
+    dims = tuple(int(d) for d in dims)
+    lin = bool(linearize_extrapolation)
+    return _route(
+        lambda st, sp, v, *ob: _fused.eval_regular(dims, st, sp, v, ob, "cubic", lin),
+        lambda st, sp, v, *ob: _cubic_reg_gather(dims, st, sp, v, ob, lin),
+        (starts, steps), vals, obs,
+    )
+
+
+def nearest_regular(dims, starts, steps, vals, obs):
+    """Nearest-neighbor eval on a regular grid."""
+    dims = tuple(int(d) for d in dims)
+    return _route(
+        lambda st, sp, v, *ob: _fused.eval_regular(dims, st, sp, v, ob, "nearest"),
+        lambda st, sp, v, *ob: _nearest_reg_gather(dims, st, sp, v, ob),
+        (starts, steps), vals, obs,
+    )
+
+
+def _rect_route(method, gather, grids, vals, obs, *extra):
+    ng = len(grids)
+    return _route(
+        lambda *a: _fused.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra),
+        lambda *a: gather(a[:ng], a[ng], a[ng + 1 :], *extra),
+        tuple(grids), vals, obs,
+    )
+
+
+def linear_rectilinear(grids, vals, obs):
+    """Multilinear eval on a rectilinear grid; grids is a tuple of sorted
+    1-D tensors, one per dim."""
+    return _rect_route("linear", _linear_rect_gather, grids, vals, obs)
+
+
+def cubic_rectilinear(grids, vals, obs, linearize_extrapolation: bool):
+    """Multicubic eval on a rectilinear grid (every axis >= 4 entries)."""
+    return _rect_route(
+        "cubic", _cubic_rect_gather, grids, vals, obs, bool(linearize_extrapolation)
+    )
+
+
+def nearest_rectilinear(grids, vals, obs):
+    """Nearest-neighbor eval on a rectilinear grid."""
+    return _rect_route("nearest", _nearest_rect_gather, grids, vals, obs)

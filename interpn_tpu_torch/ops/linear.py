@@ -1,9 +1,9 @@
-"""Multilinear interpolation/extrapolation on regular grids: the gather tree.
+"""Multilinear interpolation/extrapolation: the gather tree.
 
-Counterpart of `interpn_tpu/ops/linear.py::linear_regular`: one flat gather
-per stencil vertex, then the reference's repeated-lerp tree, dim 0 first.
-This is the port's CPU path, its gradient path, and the plain version of the
-fused kernel (`ops/fused.py`).
+Counterpart of `interpn_tpu/ops/linear.py`: one flat gather per stencil
+vertex, then the reference's repeated-lerp tree, dim 0 first. This is the
+port's CPU path, its gradient path, and the plain version of the linear
+kernels (`ops/fused.py`).
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import torch
 
 from ..utils import c_strides
 from ._gather import gather_corners
-from .locate import locate_regular_linear
+from .locate import locate_rectilinear_linear, locate_regular_linear
 
 
 def _lerp_reduce(corners, ts):
@@ -43,5 +43,23 @@ def linear_regular(dims: tuple[int, ...], starts, steps, vals, obs):
         loc, t = locate_regular_linear(obs[k], starts[k], steps[k], dims[k])
         base = base + loc * strides[k]
         ts.append(t)
+    corners = gather_corners(vals, base, dims, 2)
+    return _lerp_reduce(corners, ts)
+
+
+def linear_rectilinear(grids, vals, obs):
+    """Multilinear eval on a rectilinear (monotonic, non-uniform) grid.
+
+    The cell comes from a bisection; t = (x - x0)/(x1 - x0) from the
+    bracketing grid coordinates.
+    """
+    dims = tuple(int(g.shape[0]) for g in grids)
+    strides = c_strides(dims)
+    base = torch.zeros(obs[0].shape, dtype=torch.int32, device=obs[0].device)
+    ts = []
+    for k in range(len(dims)):
+        loc, x0, x1 = locate_rectilinear_linear(obs[k], grids[k])
+        base = base + loc * strides[k]
+        ts.append((obs[k] - x0) / (x1 - x0))
     corners = gather_corners(vals, base, dims, 2)
     return _lerp_reduce(corners, ts)

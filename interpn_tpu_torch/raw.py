@@ -1,13 +1,16 @@
-"""Flat entry points of `interpn_tpu.raw`, ported so far: multilinear
-evaluation and bounds checks on regular grids.
+"""Flat entry points of `interpn_tpu.raw`: the reference's 16 functions,
+linear, cubic and nearest evaluation and bounds checks on regular and
+rectilinear grids, f32 and f64.
 
 Names, signatures, argument order, error types (AssertionError for the
 reference's validation, TypeError for a dtype mismatch) and error strings are
-those of `interpn_tpu.raw`. The other twelve reference functions
-(rectilinear, nearest, cubic) are not ported yet; ROADMAP.md lists them.
+those of `interpn_tpu.raw`. The regular-grid evaluators raise the
+reference's "Unrepresentable coordinate value" for NaN, inf and far-out
+queries; the rectilinear ones bisect instead and never raise it.
 
 Inputs are numpy arrays or tensors. Numpy inputs go to
-`torch.get_default_device()`; tensors are computed where they live, and all
+`config.default_device()`: the CUDA device unless the caller asked for
+another (`config.set_device`); tensors are computed where they live, and all
 tensors of one call must share a device. `out` is mandatory, as in the
 reference, and is written in place whether it is a numpy array or a tensor;
 the function also returns it.
@@ -26,8 +29,20 @@ from .config import default_device
 __all__ = [
     "interpn_linear_regular_f64",
     "interpn_linear_regular_f32",
+    "interpn_linear_rectilinear_f64",
+    "interpn_linear_rectilinear_f32",
+    "interpn_nearest_regular_f64",
+    "interpn_nearest_regular_f32",
+    "interpn_nearest_rectilinear_f64",
+    "interpn_nearest_rectilinear_f32",
+    "interpn_cubic_regular_f64",
+    "interpn_cubic_regular_f32",
+    "interpn_cubic_rectilinear_f64",
+    "interpn_cubic_rectilinear_f32",
     "check_bounds_regular_f64",
     "check_bounds_regular_f32",
+    "check_bounds_rectilinear_f64",
+    "check_bounds_rectilinear_f32",
 ]
 
 _MAX_DIMS_MSG = (
@@ -128,6 +143,19 @@ def _validate_regular(dims, starts, steps, vals, obs, out, *, min_size, size_msg
     _require(all(_size(x) == n for x in obs), "Dimension mismatch")
 
 
+def _validate_rectilinear(grids, vals, obs, out, *, min_size, size_msg):
+    ndims = len(grids)
+    _require(len(obs) == ndims, "Dimension mismatch")
+    dims = tuple(_size(g) for g in grids)
+    _require(_size(vals) == math.prod(dims), "Dimension mismatch")
+    _require(all(d >= min_size for d in dims), size_msg)
+    for g in grids:
+        g0, g1 = _host(g[:2])  # first two entries only, as in the reference
+        _require(g1 > g0, "All grids must be monotonically increasing")
+    n = _size(out)
+    _require(all(_size(x) == n for x in obs), "Dimension mismatch")
+
+
 def _raise_unrep(bad):
     if bool(bad):
         raise AssertionError("Unrepresentable coordinate value")
@@ -139,8 +167,8 @@ def _raise_unrep(bad):
 
 
 def _device(*arrays) -> torch.device:
-    """The one device of the tensors among `arrays`, or the default device
-    when all are numpy."""
+    """The one device of the tensors among `arrays`, or
+    `config.default_device()` when all are numpy."""
     devices = {a.device for a in arrays if isinstance(a, torch.Tensor)}
     if len(devices) > 1:
         raise ValueError(
@@ -172,32 +200,117 @@ def _finish(result, out):
 # public shims
 # ---------------------------------------------------------------------------
 
+_SIZE_MSG = {
+    # (regular, rectilinear) message for grids shorter than the stencil
+    2: ("All grids must have at least two entries", "All grids must have at least 2 entries"),
+    4: ("All grids must have at least four entries", "All grids must have at least 4 entries"),
+}
 
-def _interpn_linear_regular(dtype, dims, starts, steps, vals, obs, out):
+
+def _require_ndims(ndims: int, method: str):
+    _require(1 <= ndims, "Dimension mismatch")
+    if method == "nearest":
+        _require(ndims <= 6, "Dimension exceeds maximum (6).")
+    else:
+        _require(ndims <= 8, _MAX_DIMS_MSG)
+
+
+def _interpn_regular(method, dtype, dims, starts, steps, vals, obs, out, lin=True):
     _check_eval_dtypes(
         dtype, out, obs, [("starts", starts), ("steps", steps), ("vals", vals)]
     )
     dims = _as_dims(dims)
-    _require(1 <= len(dims), "Dimension mismatch")
-    _require(len(dims) <= 8, _MAX_DIMS_MSG)
+    _require_ndims(len(dims), method)
+    min_size = 4 if method == "cubic" else 2
     _validate_regular(
         dims, starts, steps, vals, obs, out,
-        min_size=2, size_msg="All grids must have at least two entries",
+        min_size=min_size, size_msg=_SIZE_MSG[min_size][0],
     )
     device = _device(starts, steps, vals, *obs, out)
     starts_t, steps_t, vals_t = _prep(device, starts, steps, vals)
     obs_t = _prep(device, *obs)
-    result = ops.linear_regular(dims, starts_t, steps_t, vals_t, obs_t)
+    if method == "cubic":
+        result = ops.cubic_regular(dims, starts_t, steps_t, vals_t, obs_t, bool(lin))
+    else:
+        fn = ops.linear_regular if method == "linear" else ops.nearest_regular
+        result = fn(dims, starts_t, steps_t, vals_t, obs_t)
     _raise_unrep(_unrep_flag(starts_t, steps_t, obs_t))
     return _finish(result, out)
 
 
+def _interpn_rectilinear(method, dtype, grids, vals, obs, out, lin=True):
+    _check_eval_dtypes(dtype, out, obs, [("grids", g) for g in grids] + [("vals", vals)])
+    _require_ndims(len(grids), method)
+    min_size = 4 if method == "cubic" else 2
+    _validate_rectilinear(
+        grids, vals, obs, out, min_size=min_size, size_msg=_SIZE_MSG[min_size][1]
+    )
+    device = _device(*grids, vals, *obs, out)
+    grids_t = _prep(device, *grids)
+    (vals_t,) = _prep(device, vals)
+    obs_t = _prep(device, *obs)
+    if method == "cubic":
+        result = ops.cubic_rectilinear(grids_t, vals_t, obs_t, bool(lin))
+    else:
+        fn = ops.linear_rectilinear if method == "linear" else ops.nearest_rectilinear
+        result = fn(grids_t, vals_t, obs_t)
+    return _finish(result, out)
+
+
 def interpn_linear_regular_f64(dims, starts, steps, vals, obs, out):
-    return _interpn_linear_regular(torch.float64, dims, starts, steps, vals, obs, out)
+    return _interpn_regular("linear", torch.float64, dims, starts, steps, vals, obs, out)
 
 
 def interpn_linear_regular_f32(dims, starts, steps, vals, obs, out):
-    return _interpn_linear_regular(torch.float32, dims, starts, steps, vals, obs, out)
+    return _interpn_regular("linear", torch.float32, dims, starts, steps, vals, obs, out)
+
+
+def interpn_linear_rectilinear_f64(grids, vals, obs, out):
+    return _interpn_rectilinear("linear", torch.float64, grids, vals, obs, out)
+
+
+def interpn_linear_rectilinear_f32(grids, vals, obs, out):
+    return _interpn_rectilinear("linear", torch.float32, grids, vals, obs, out)
+
+
+def interpn_nearest_regular_f64(dims, starts, steps, vals, obs, out):
+    return _interpn_regular("nearest", torch.float64, dims, starts, steps, vals, obs, out)
+
+
+def interpn_nearest_regular_f32(dims, starts, steps, vals, obs, out):
+    return _interpn_regular("nearest", torch.float32, dims, starts, steps, vals, obs, out)
+
+
+def interpn_nearest_rectilinear_f64(grids, vals, obs, out):
+    return _interpn_rectilinear("nearest", torch.float64, grids, vals, obs, out)
+
+
+def interpn_nearest_rectilinear_f32(grids, vals, obs, out):
+    return _interpn_rectilinear("nearest", torch.float32, grids, vals, obs, out)
+
+
+def interpn_cubic_regular_f64(dims, starts, steps, vals, linearize_extrapolation, obs, out):
+    return _interpn_regular(
+        "cubic", torch.float64, dims, starts, steps, vals, obs, out, linearize_extrapolation
+    )
+
+
+def interpn_cubic_regular_f32(dims, starts, steps, vals, linearize_extrapolation, obs, out):
+    return _interpn_regular(
+        "cubic", torch.float32, dims, starts, steps, vals, obs, out, linearize_extrapolation
+    )
+
+
+def interpn_cubic_rectilinear_f64(grids, vals, linearize_extrapolation, obs, out):
+    return _interpn_rectilinear(
+        "cubic", torch.float64, grids, vals, obs, out, linearize_extrapolation
+    )
+
+
+def interpn_cubic_rectilinear_f32(grids, vals, linearize_extrapolation, obs, out):
+    return _interpn_rectilinear(
+        "cubic", torch.float32, grids, vals, obs, out, linearize_extrapolation
+    )
 
 
 def _check_bounds_regular(dtype, dims, starts, steps, obs, atol, out):
@@ -217,3 +330,22 @@ def check_bounds_regular_f64(dims, starts, steps, obs, atol, out):
 
 def check_bounds_regular_f32(dims, starts, steps, obs, atol, out):
     return _check_bounds_regular(torch.float32, dims, starts, steps, obs, atol, out)
+
+
+def _check_bounds_rectilinear(dtype, grids, obs, atol, out):
+    _check_bounds_dtypes(dtype, out, obs, [("grids", g) for g in grids])
+    ndims = len(grids)
+    _require(len(obs) == ndims and _size(out) == ndims, "Dimension mismatch")
+    _require(all(_size(g) > 0 for g in grids), "Dimension mismatch")
+    device = _device(*grids, *obs, out)
+    grids_t = _prep(device, *grids)
+    obs_t = _prep(device, *obs)
+    return _finish(ops.check_bounds_rectilinear(grids_t, obs_t, atol), out)
+
+
+def check_bounds_rectilinear_f64(grids, obs, atol, out):
+    return _check_bounds_rectilinear(torch.float64, grids, obs, atol, out)
+
+
+def check_bounds_rectilinear_f32(grids, obs, atol, out):
+    return _check_bounds_rectilinear(torch.float32, grids, obs, atol, out)

@@ -18,9 +18,14 @@ def test_library_path_names_sources_and_flags(monkeypatch):
 
 
 def test_sources_ship_in_csrc():
+    # each names the TPU kernels it replaces
     src = (_build.CSRC / "fused_regular.cu").read_text()
-    assert 'extern "C" int interpn_linear_regular(' in src
-    assert "pallas_v3.py::_pallas_v3" in src  # names the TPU kernel it replaces
+    assert 'extern "C" int interpn_regular(' in src
+    assert "pallas_v3.py::_pallas_v3" in src
+    src = (_build.CSRC / "fused_rectilinear.cu").read_text()
+    assert 'extern "C" int interpn_rectilinear(' in src
+    assert "_pallas_v3_pre" in src and "_pallas_v3_rect" in src
+    assert '#include "interp_common.cuh"' in src
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -57,7 +62,25 @@ def test_require_ieee_fp32():
         torch.set_float32_matmul_precision(old_precision)
 
 
-def test_default_device_is_torchs():
-    assert config.default_device() == torch.get_default_device()
+def test_default_device_is_torchs(monkeypatch):
+    """The default is torch's current CUDA device, whatever torch's own
+    default device is; a request overrides it; without a card and without a
+    request the port raises rather than compute on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
     with torch.device("meta"):
-        assert config.default_device() == torch.device("meta")
+        assert config.default_device() == torch.device("cuda", 1)
+    with config.device("cpu") as dev:
+        assert dev == torch.device("cpu") == config.default_device()
+        with config.device("meta"):
+            assert config.default_device() == torch.device("meta")
+        assert config.default_device() == torch.device("cpu")
+    assert config.default_device() == torch.device("cuda", 1)
+    config.set_device("cpu")
+    try:
+        assert config.default_device() == torch.device("cpu")
+    finally:
+        config.set_device(None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match=r"config\.set_device\('cpu'\)"):
+        config.default_device()

@@ -28,7 +28,7 @@ from interpn_tpu.ops import bounds as jbounds
 from interpn_tpu.ops import linear as jlinear
 from interpn_tpu.ops import locate as jlocate
 from interpn_tpu.ops import pallas_v3 as jv3
-from interpn_tpu_torch import convert
+from interpn_tpu_torch import config, convert
 from interpn_tpu_torch import utils as tutils
 from interpn_tpu_torch.ops import _gather as tgather
 from interpn_tpu_torch.ops import bounds as tbounds
@@ -42,6 +42,14 @@ from . import oracle
 TOL = {np.float32: dict(rtol=1e-6, atol=1e-6), np.float64: dict(rtol=1e-13, atol=1e-13)}
 TDTYPE = {np.float32: torch.float32, np.float64: torch.float64}
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """Numpy inputs would go to the card by default; these tests ask for the
+    CPU."""
+    with config.device("cpu"):
+        yield
 
 DIMS_1_TO_8 = [(9,), (8, 6), (7, 5, 6), (5, 4, 6, 3), (4, 3, 4, 3, 4), (3, 4, 3, 3, 2, 3),
                (3, 2, 3, 2, 3, 2, 3), (2, 3, 2, 2, 3, 2, 2, 3)]
@@ -221,7 +229,7 @@ def test_fused_plain_matches_pallas_k1(_interpret_mode, dims):
             tuple(jnp.asarray(o) for o in obs), "linear", True, 6,
         )
     )
-    before = tfused.launches
+    before = dict(tfused.launches)
     got = tfused.eval_regular(*_torch_args(dims, starts, steps, vals, obs, np.float32))
     assert tfused.launches == before  # the CPU runs the plain version
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-3)
@@ -283,8 +291,10 @@ def test_fused_refuses_mixed_devices_and_other_methods():
             dims, st.to("meta"), sp.to("meta"), v.to("meta"),
             tuple(o.to("meta") for o in ob),
         )
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        tfused.eval_regular(dims, st, sp, v, ob, method="cubic")
+    with pytest.raises(ValueError, match="method must be one of"):
+        tfused.eval_regular(dims, st, sp, v, ob, method="pchip")
+    with pytest.raises(ValueError, match="method must be one of"):
+        tfused.eval_rectilinear((st, sp, st), v, ob, method="quintic")
 
 
 def test_dispatch_routes_cpu_to_gather(monkeypatch):
