@@ -34,3 +34,14 @@ def obs_from_numpy(obs, *, device, dtype) -> tuple[torch.Tensor, ...]:
     return tuple(
         torch.as_tensor(np.asarray(o).ravel(), dtype=dtype, device=device) for o in obs
     )
+
+
+def bspline_from_numpy(knots, coeffs, *, device, dtype):
+    """(knots, coeffs) as `ops.bspline_eval` takes them: a tuple of 1-D knot
+    tensors and the coefficient table (flat, or (nch, prod(dims)) for a
+    stack), on `device` in `dtype`. Takes `prep_bspline`'s output of either
+    package."""
+    return (
+        obs_from_numpy(knots, device=device, dtype=dtype),
+        torch.as_tensor(np.asarray(coeffs), dtype=dtype, device=device),
+    )

@@ -1,9 +1,10 @@
 // Shared device code of the port's Hopper kernels (sm_90a): IEEE-rounded
-// arithmetic, the linear lerp tree and the cubic Hermite tree.
+// arithmetic, the linear lerp tree, the cubic Hermite tree, the B-spline
+// tree and the bisections.
 //
 // Every kernel mirrors its plain PyTorch version (`ops/linear.py`,
-// `ops/cubic.py`, `ops/nearest.py`) node for node, so the two agree bit for
-// bit. nvcc contracts a*b+c into an FMA by default, which moves a result by
+// `ops/cubic.py`, `ops/nearest.py`, `ops/bspline.py`) node for node, so the
+// two agree bit for bit. nvcc contracts a*b+c into an FMA by default, which moves a result by
 // an ulp and, at grid nodes, can move floor() to the neighbouring cell. All
 // arithmetic here goes through the _rn intrinsics, which are never
 // contracted, and the build adds --fmad=false. Division stays IEEE (no fast
@@ -26,6 +27,10 @@ constexpr int kNearest = 2;
 // each outer level is a loop of 4, so code size grows by one node per level
 // and at most 4 partials per level are live.
 constexpr int kCubicUnrolled = 3;
+// The same for the B-spline tree of width W = k + 1: 4^3 = 64 or 6^2 = 36
+// unrolled table reads.
+template <int W>
+constexpr int kSplineUnrolled = W <= 4 ? 3 : 2;
 
 template <typename T>
 struct ObsPtrs {
@@ -183,15 +188,61 @@ struct CubicTree<T, Axis, 0> {
   }
 };
 
-// Count of entries of the sorted column g[0..n) that are < x
-// (partition_point, `torch.searchsorted(side="left")`); 0 for NaN, since
-// every comparison with NaN is false.
-template <typename T>
-__device__ __forceinline__ int partition_point(const T* __restrict__ g, int n, T x) {
+// w[r] for a runtime r < W, through selects (a dynamically indexed array
+// would live in local memory).
+template <typename T, int W>
+__device__ __forceinline__ T pick(const T* w, int r) {
+  T v = w[0];
+#pragma unroll
+  for (int j = 1; j < W; ++j) v = r == j ? w[j] : v;
+  return v;
+}
+
+// Value of the W^(NDIMS-A) sub-stencil at `base` with axes 0..A-1 fixed:
+// sum over r of w[A * W + r] (axis A's weights) times the sub-stencil one
+// axis in, summed left to right. Axis NDIMS-1 is reduced first and axis 0 last, the plain version's
+// order (`ops/bspline.py::_bspline_impl`). The inner kSplineUnrolled levels
+// unroll; each outer level is a loop of W with one running sum, started at
+// -0.0 so that its first addition returns the first product bit for bit.
+template <typename T, int W, int NDIMS, int A>
+struct SplineTree {
+  static __device__ __forceinline__ T eval(const T* __restrict__ c, int base,
+                                           const int* stride, const T* w) {
+    if constexpr (A == NDIMS) {
+      return __ldg(c + base);
+    } else {
+      const int s = stride[A];
+      if constexpr (NDIMS - A <= kSplineUnrolled<W>) {
+        T acc = mul_rn(w[A * W], SplineTree<T, W, NDIMS, A + 1>::eval(c, base, stride, w));
+#pragma unroll
+        for (int r = 1; r < W; ++r) {
+          const T y = SplineTree<T, W, NDIMS, A + 1>::eval(c, base + r * s, stride, w);
+          acc = add_rn(acc, mul_rn(w[A * W + r], y));
+        }
+        return acc;
+      } else {
+        T acc = T(-0.0);
+#pragma unroll 1
+        for (int r = 0; r < W; ++r) {
+          const T y = SplineTree<T, W, NDIMS, A + 1>::eval(c, base + r * s, stride, w);
+          acc = add_rn(acc, mul_rn(pick<T, W>(w + A * W, r), y));
+        }
+        return acc;
+      }
+    }
+  }
+};
+
+// Count of entries of the sorted column g[0..n) that are < x (side "left",
+// `torch.searchsorted(side="left")`, partition_point) or <= x (side "right");
+// 0 for NaN, since every comparison with NaN is false.
+template <bool kRight, typename T>
+__device__ __forceinline__ int count_below(const T* __restrict__ g, int n, T x) {
   int lo = 0;
   while (n > 0) {
     const int half = n >> 1;
-    if (__ldg(g + lo + half) < x) {
+    const T v = __ldg(g + lo + half);
+    if (kRight ? v <= x : v < x) {
       lo += half + 1;
       n -= half + 1;
     } else {
@@ -199,6 +250,11 @@ __device__ __forceinline__ int partition_point(const T* __restrict__ g, int n, T
     }
   }
   return lo;
+}
+
+template <typename T>
+__device__ __forceinline__ int partition_point(const T* __restrict__ g, int n, T x) {
+  return count_below<false>(g, n, x);
 }
 
 }  // namespace interp

@@ -1,10 +1,12 @@
 """Implementation selection between the Hopper kernels and the gather tree.
 
-Counterpart of `interpn_tpu/ops/dispatch.py`. The JAX package picks among
+Counterpart of `interpn_tpu/ops/dispatch.py` and of the engine choice in
+`interpn_tpu/ops/bspline.py::bspline_eval`. The JAX package picks among
 five engines from static trace information; here the device decides: a CUDA
 tensor goes to the kernel (`ops/fused.py`, f32 and f64, any batch size), a
 CPU tensor to the gather tree (`ops/linear.py`, `ops/cubic.py`,
-`ops/nearest.py`). The kernels read only the stencil, so the TPU's
+`ops/nearest.py`, `ops/bspline.py`). The stacked-table routes are in
+`ops/stack.py`. The kernels read only the stencil, so the TPU's
 finite-table guard, batch floor and grid-size caps have no counterpart.
 
 The kernels have no backward kernel (nor had the TPU kernels), so each
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from . import fused as _fused
+from .bspline import bspline_gather as _bspline_gather
 from .cubic import cubic_rectilinear as _cubic_rect_gather
 from .cubic import cubic_regular as _cubic_reg_gather
 from .linear import linear_rectilinear as _linear_rect_gather
@@ -48,15 +51,16 @@ def _impl(vals: torch.Tensor) -> str:
     return "kernel" if vals.device.type == "cuda" else "gather"
 
 
-def _route(kernel, gather, params, vals, obs):
+def _route(kernel, gather, params, vals, obs, lead=()):
     """gather(*params, vals, *obs) on the CPU; on a CUDA tensor the kernel
-    on flat contiguous queries, reshaped like obs[0]."""
+    on flat contiguous queries, reshaped to (*lead, *obs[0].shape): `lead`
+    is (nch,) for a stack of tables."""
     if _impl(vals) == "gather":
         return gather(*params, vals, *obs)
     shape = obs[0].shape
     tensors = [t.contiguous() for t in params] + [vals.contiguous()]
     tensors += [o.reshape(-1).contiguous() for o in obs]
-    return KernelRoute.apply(kernel, gather, *tensors).reshape(shape)
+    return KernelRoute.apply(kernel, gather, *tensors).reshape(*lead, *shape)
 
 
 def linear_regular(dims, starts, steps, vals, obs):
@@ -116,3 +120,17 @@ def cubic_rectilinear(grids, vals, obs, linearize_extrapolation: bool):
 def nearest_rectilinear(grids, vals, obs):
     """Nearest-neighbor eval on a rectilinear grid."""
     return _rect_route("nearest", _nearest_rect_gather, grids, vals, obs)
+
+
+def bspline_eval(knots, coeffs, obs, k: int):
+    """Tensor-product B-spline of degree k (3: cubic_spline, 5: quintic) at
+    `obs`, shaped like obs[0]. `knots` and `coeffs` come from
+    `ops.bspline.prep_bspline` (carried into tensors by
+    `convert.bspline_from_numpy`); out-of-bounds queries extrapolate the end
+    span's polynomial."""
+    ng = len(knots)
+    return _route(
+        lambda *a: _fused.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k),
+        lambda *a: _bspline_gather(a[:ng], a[ng], a[ng + 1 :], k),
+        tuple(knots), coeffs, obs,
+    )

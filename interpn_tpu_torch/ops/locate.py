@@ -72,10 +72,10 @@ def locate_regular_cubic(x, start, step, dim: int) -> CubicLoc:
     return CubicLoc(loc, t, low, high, outside)
 
 
-def partition_point(grid, x):
-    """Count of grid entries < x for a sorted 1-D `grid` (int32, shaped like
-    x), with NaN counting 0."""
-    sp = torch.searchsorted(grid, x.contiguous(), side="left").to(_I32)
+def partition_point(grid, x, side: str = "left"):
+    """Count of grid entries < x (side "left") or <= x (side "right") for a
+    sorted 1-D `grid` (int32, shaped like x), with NaN counting 0."""
+    sp = torch.searchsorted(grid, x.contiguous(), side=side).to(_I32)
     return torch.where(torch.isnan(x), torch.zeros_like(sp), sp)
 
 

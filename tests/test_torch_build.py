@@ -84,3 +84,80 @@ def test_default_device_is_torchs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match=r"config\.set_device\('cpu'\)"):
         config.default_device()
+
+
+class _FakeEvent:
+    """A CUDA event whose query() says whether the spin still held."""
+
+    pending = True
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def query(self):
+        return not _FakeEvent.pending
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 2.0
+
+
+def _fake_cuda(monkeypatch, spins):
+    from interpn_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "_sleep", spins.append)
+    monkeypatch.setattr(profiling, "_spin_cycles", 1 << 22)
+    return profiling
+
+
+def test_timer_head_start_is_bounded(monkeypatch):
+    """A pass that never gets ahead (a function that synchronises) doubles
+    the spin up to the cap and returns, flagged, rather than raise or spin
+    on; one that does get ahead keeps the spin it needed."""
+    spins = []
+    profiling = _fake_cuda(monkeypatch, spins)
+    _FakeEvent.pending = False
+    t = profiling.cuda_time(lambda b: None, [0] * 4)
+    assert not t.ahead and t.device_ms == 0.5 and t.loop_ms == 0.5
+    assert spins == [1 << c for c in range(22, 28)] and t.spin_cycles == profiling._SPIN_MAX
+    spins.clear()
+    _FakeEvent.pending = True
+    t = profiling.cuda_time(lambda b: None, [0] * 4)
+    assert t.ahead and spins == [profiling._SPIN_MAX]
+
+
+def test_timers_let_exceptions_through_and_profiler_retries(monkeypatch):
+    profiling = _fake_cuda(monkeypatch, [])
+
+    def boom(_):
+        raise KeyError("timed function")
+
+    for timer in (profiling.cuda_time, profiling.profiled_time):
+        with pytest.raises(KeyError, match="timed function"):
+            timer(boom, [0] * 4)
+    seen = []
+
+    def events(run):
+        run()
+        seen.append(1)
+        # the first pass records nothing; the second drops 2 of 40 events
+        return [(0, 0.0), (38, 57.0)][len(seen) - 1]
+
+    monkeypatch.setattr(profiling, "_device_events", events)
+    t = profiling.profiled_time(lambda b: None, [0] * 20)
+    assert t == profiling.Profiled(57.0 / 1e3 / 38 * 2, 38, 2, 2)
+    # a one-kernel call that lost 11 of its 20 events still counts one a call
+    monkeypatch.setattr(profiling, "_device_events", lambda run: (9, 18.0))
+    assert profiling.profiled_time(lambda b: None, [0] * 20) == profiling.Profiled(
+        18.0 / 1e3 / 9, 9, 1, 1)
+    monkeypatch.setattr(profiling, "_device_events", lambda run: (0, 0.0))
+    assert profiling.profiled_time(lambda b: None, [0] * 20) == profiling.Profiled(
+        None, 0, 0, profiling.PROFILER_TRIES)

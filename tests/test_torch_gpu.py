@@ -1,5 +1,5 @@
 """The Hopper kernels on the card: against their plain versions, at grid
-nodes, through the entry points, and under autograd.
+nodes, through the entry points, and under autograd; and the device timer.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no jax, so it also runs where only PyTorch is installed:
@@ -18,7 +18,8 @@ import torch
 
 import interpn_tpu_torch
 from interpn_tpu_torch import config, convert
-from interpn_tpu_torch.ops import cubic, dispatch, fused, linear, nearest
+from interpn_tpu_torch.ops import bspline, cubic, dispatch, fused, linear, nearest, stack
+from interpn_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -296,3 +297,163 @@ def test_rectilinear_grads_equal_cpu_grads(cuda):
             grads[str(dev)] = _grads(leaves)
         for a, b in zip(grads["cpu"], grads[str(cuda)]):
             torch.testing.assert_close(b, a, rtol=1e-12, atol=1e-12, msg=method)
+
+
+# --- B-splines (K4) and stacks (K5-K7) -------------------------------------------
+
+
+def _spline_case(dims, k, dtype, device, n, nch=None, seed=0):
+    """A not-a-knot spline fitted on jittered axes; queries as `_case`."""
+    rng = np.random.default_rng(seed)
+    grids = [np.cumsum(0.2 + rng.random(d)) for d in dims]
+    shape = (math.prod(dims),) if nch is None else (math.prod(dims), nch)
+    knots, coeffs = bspline.prep_bspline(grids, rng.standard_normal(shape), k)
+    if nch is not None:
+        coeffs = np.ascontiguousarray(coeffs.T)
+    obs = [_obs(rng, g[0], g[-1], n) for g in grids]
+    kt, ct = convert.bspline_from_numpy(knots, coeffs, device=device, dtype=dtype)
+    return kt, ct, convert.obs_from_numpy(obs, device=device, dtype=dtype)
+
+
+def _spline_n(dims, k):
+    """Queries for a plain version that gathers (k+1)^N values per query."""
+    return max(64, min(20_000, 2**26 // (k + 1) ** len(dims)))
+
+
+@pytest.mark.parametrize("dims", DIMS, ids=lambda d: f"{len(d)}d")
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_bspline_kernel_equals_plain(cuda, dims, k, dtype):
+    dims = tuple(max(d, k + 1) for d in dims)
+    kt, ct, obs = _spline_case(dims, k, dtype, cuda, _spline_n(dims, k), seed=len(dims))
+    got = _launched(f"bspline_k{k}", lambda: fused.eval_bspline(kt, ct, obs, k))
+    _equal(got, bspline.bspline_gather(kt, ct, obs, k))
+
+
+STACK_DIMS = [(50,), (12, 9), (10, 8, 9), (7, 6, 5, 6)]
+
+
+@pytest.mark.parametrize("dims", STACK_DIMS, ids=lambda d: f"{len(d)}d")
+@pytest.mark.parametrize("nch", [1, 3, 8])
+@pytest.mark.parametrize("method,lin", [("linear", True), ("cubic", True), ("cubic", False),
+                                        ("nearest", True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_stack_kernels_equal_plain(cuda, dims, nch, method, lin, dtype):
+    rng = np.random.default_rng(nch)
+    dims_, st, sp, _, ob = _case(dims, dtype, cuda, n=20_000, seed=len(dims))
+    vals = torch.as_tensor(rng.standard_normal((nch, math.prod(dims))), dtype=dtype,
+                           device=cuda)
+    got = _launched(f"regular_{method}_stack",
+                    lambda: fused.eval_regular_stack(dims_, st, sp, vals, ob, method, lin))
+    _equal(got, fused.plain_regular_stack(dims_, st, sp, vals, ob, method, lin))
+    # one table of a stack is the single-table kernel's result
+    _equal(got[0], fused.eval_regular(dims_, st, sp, vals[0], ob, method, lin))
+    grids, _, ob = _rect_case(dims, dtype, cuda, n=20_000, seed=len(dims))
+    got = _launched(f"rectilinear_{method}_stack",
+                    lambda: fused.eval_rectilinear_stack(grids, vals, ob, method, lin))
+    _equal(got, fused.plain_rectilinear_stack(grids, vals, ob, method, lin))
+    _equal(got[-1], fused.eval_rectilinear(grids, vals[-1], ob, method, lin))
+
+
+@pytest.mark.parametrize("dims", STACK_DIMS, ids=lambda d: f"{len(d)}d")
+@pytest.mark.parametrize("nch", [1, 3, 8])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_bspline_stack_kernel_equals_plain(cuda, dims, nch, k, dtype):
+    dims = tuple(max(d, k + 1) for d in dims)
+    kt, ct, obs = _spline_case(dims, k, dtype, cuda, _spline_n(dims, k), nch=nch, seed=nch)
+    got = _launched(f"bspline_k{k}_stack", lambda: fused.eval_bspline_stack(kt, ct, obs, k))
+    _equal(got, fused.plain_bspline_stack(kt, ct, obs, k))
+    _equal(got[0], fused.eval_bspline(kt, ct[0], obs, k))
+
+
+def test_new_routes_launch_their_kernels(cuda):
+    """The spline and stack evaluators on CUDA tensors launch their own
+    kernel once and no other, and keep the query shape."""
+    kt, ct, obs = _spline_case((6, 7, 5), 3, torch.float32, cuda, n=1000)
+    _, cs, _ = _spline_case((6, 7, 5), 3, torch.float32, cuda, n=1000, nch=4)
+    obs = tuple(o.reshape(10, 100) for o in obs)
+    dims, st, sp, _, ob = _case((6, 5, 7), torch.float32, cuda, n=1000)
+    grids, _, rob = _rect_case((6, 5, 7), torch.float32, cuda, n=1000)
+    vals = torch.ones(4, 210, device=cuda)
+    calls = {
+        "bspline_k3": (lambda: dispatch.bspline_eval(kt, ct, obs, 3), (10, 100)),
+        "bspline_k3_stack": (lambda: stack.bspline_eval_stack(kt, cs, obs, 3), (4, 10, 100)),
+        "regular_cubic_stack": (lambda: stack.cubic_regular_stack(dims, st, sp, vals, ob, False),
+                                (4, 1000)),
+        "rectilinear_nearest_stack": (lambda: stack.nearest_rectilinear_stack(grids, vals, rob),
+                                      (4, 1000)),
+    }
+    for kernel, (call, shape) in calls.items():
+        fused.reset_launches()
+        out = call()
+        assert out.device.type == "cuda" and out.shape == shape, kernel
+        assert fused.launches == {k: int(k == kernel) for k in fused.launches}, kernel
+
+
+def test_spline_and_stack_entry_points_on_the_card(cuda):
+    """interpn(cubic_spline | quintic) and interpn_stack from numpy run on the
+    card by default and give the CPU's values."""
+    rng = np.random.default_rng(12)
+    x = np.linspace(0.0, 5.0, 9)
+    vals = rng.standard_normal((3, 9, 9))
+    obs = [rng.uniform(-0.5, 5.5, 500) for _ in range(2)]
+    for method in ("cubic_spline", "quintic", "linear", "cubic", "nearest"):
+        with config.device("cpu"):
+            want = interpn_tpu_torch.interpn_stack(obs, [x, x], vals, method=method)
+        fused.reset_launches()
+        got = interpn_tpu_torch.interpn_stack(obs, [x, x], vals, method=method)
+        assert sum(fused.launches.values()) == 1, method
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12, err_msg=method)
+        if method in ("cubic_spline", "quintic"):
+            single = interpn_tpu_torch.interpn(obs, [x, x], vals[1], method=method)
+            np.testing.assert_allclose(single, want[1], rtol=1e-12, atol=1e-12)
+
+
+def test_spline_and_stack_grads_equal_cpu_grads(cuda):
+    kt, ct, obs = _spline_case((5, 6, 7), 3, torch.float64, "cpu", n=300)
+    obs = tuple(torch.nan_to_num(o, posinf=9.0, neginf=-9.0) for o in obs)
+    cs = torch.stack([ct, 2 * ct])
+    cot = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 300)))
+    routes = {
+        "bspline": (lambda *a: dispatch.bspline_eval(a[:3], a[3], a[4:], 3), ct, cot[0]),
+        "bspline_stack": (lambda *a: stack.bspline_eval_stack(a[:3], a[3], a[4:], 3), cs, cot),
+    }
+    for name, (route, table, c) in routes.items():
+        grads = {}
+        for dev in ("cpu", cuda):
+            leaves = [t.detach().to(dev).requires_grad_() for t in (*kt, table, *obs)]
+            route(*leaves).backward(c.to(dev))
+            grads[str(dev)] = _grads(leaves)
+        for a, b in zip(grads["cpu"], grads[str(cuda)]):
+            torch.testing.assert_close(b, a, rtol=1e-12, atol=1e-12, msg=name)
+
+
+# --- the device timer -----------------------------------------------------------------
+
+
+def test_timer_never_fails_a_sound_pass(cuda):
+    """200 timings of a 20-launch pass in one process: every one returns a
+    positive time, the kernel's from events behind a head start that held,
+    the profiler's within its three tries."""
+    args = _case((20, 20, 20), torch.float32, cuda, n=100_000)
+    batches = [args[4]] * 20
+
+    def call(ob):
+        return fused.eval_regular(*args[:4], ob)
+
+    for _ in range(200):
+        t = profiling.cuda_time(call, batches)
+        assert t.device_ms > 0 and t.loop_ms > 0 and t.ahead
+        p = profiling.profiled_time(call, batches)
+        assert p.device_ms is not None and p.device_ms > 0
+        assert p.tries <= profiling.PROFILER_TRIES and 0 < p.events <= 20 and p.per_call == 1
+
+
+def test_timer_lets_exceptions_through(cuda):
+    def boom(_):
+        raise KeyError("from the timed function")
+
+    for timer in (profiling.cuda_time, profiling.profiled_time):
+        with pytest.raises(KeyError, match="from the timed function"):
+            timer(boom, [0] * 4)
