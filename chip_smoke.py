@@ -4,8 +4,9 @@
 Builds every kernel of the port from `interpn_tpu_torch/csrc/`, holds each
 against its plain PyTorch version on the card, drives every ported path
 (linear, cubic and nearest on regular and rectilinear grids, the cubic and
-quintic B-splines, and stacks of 8 tables) through the entry points a user
-calls at the JAX package's benchmark configurations (`bench.py`: 20^3, 20^4,
+quintic B-splines, stacks of 8 tables, and the f64 contraction engines K8
+and K9 under INTERPN_TPU_F64=df64|i8) through the entry points a user calls
+at the JAX package's benchmark configurations (`bench.py`: 20^3, 20^4,
 12^5, 100^3 and 100^2 grids, 1e6 queries uniform in [-0.5, 10.5]), and
 times each kernel beside its plain version, its bound and, where one PyTorch
 call computes the same function, that call.
@@ -14,10 +15,12 @@ call computes the same function, that call.
 
 Phases: 1 build (seconds, registers, spills), 2 kernel vs plain, bitwise
 (f32/f64, 1-8D, both cubic extrapolation modes, spline degrees 3 and 5,
-stacks of 1, 3 and 8, NaN and +-inf), 3 nodes (exact, splines within
-1e-11), 4 the paths (launch counts and checks), 5 timing: each kernel from
-CUDA events behind a head start (`utils/profiling.py::cuda_time`), each
-plain version from the profiler's device events (`profiled_time`). A failed
+stacks of 1, 3 and 8, NaN and +-inf; K8 and K9 on f64 2-8D), 3 nodes (exact,
+splines within 1e-11, K8 to the table's hi + lo, K9 within 1e-13), 4 the
+paths (launch counts and checks), 5 timing: each kernel from CUDA events
+behind a head start (`utils/profiling.py::cuda_time`), each plain version
+from the profiler's device events (`profiled_time`), and for K8/K9 also the
+whole engine call with its float64 weight build. A failed
 check raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
 card's name and power limit, the kernels' JSON record and {"ok": true,
@@ -27,9 +30,11 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -64,6 +69,17 @@ class Path:
     dtype: torch.dtype
     n: int  # points per axis
     ndims: int
+    engine: str | None = None  # INTERPN_TPU_F64 for the path: "df64" (K8) or "i8" (K9)
+
+    @property
+    def counter(self) -> str:
+        """The key of ops.fused.launches that the path launches."""
+        return self.engine or self.kernel
+
+    @property
+    def native(self) -> "Path":
+        """The same path on the native kernels."""
+        return Path(self.kernel, self.dtype, self.n, self.ndims)
 
     @property
     def kind(self) -> str:
@@ -90,7 +106,8 @@ class Path:
     def label(self) -> str:
         what = self.method if self.kind == "bspline" else f"{self.kind} {self.method}"
         stack = f"stack of {NCH} " if self.stacked else ""
-        return f"{stack}{what} {self.n}^{self.ndims} {SHORT[self.dtype]}"
+        engine = f" through {ENGINE_NAMES[self.engine]}" if self.engine else ""
+        return f"{stack}{what} {self.n}^{self.ndims} {SHORT[self.dtype]}{engine}"
 
 
 F32, F64 = torch.float32, torch.float64
@@ -122,7 +139,20 @@ PATHS = [
     Path("rectilinear_cubic_stack", F32, 20, 3),
     Path("rectilinear_nearest_stack", F32, 20, 3),
     Path("bspline_k3_stack", F32, 20, 3),
+    # the f64 contraction engines under INTERPN_TPU_F64, set around each call;
+    # the first path of each engine is its headline
+    Path("regular_cubic", F64, 20, 3, "df64"),
+    Path("regular_linear", F64, 20, 3, "df64"),
+    Path("regular_cubic", F64, 12, 5, "df64"),
+    Path("rectilinear_cubic", F64, 20, 3, "df64"),
+    Path("bspline_k3", F64, 20, 3, "df64"),
+    Path("bspline_k3", F64, 100, 2, "df64"),
+    Path("regular_cubic", F64, 20, 3, "i8"),
+    Path("regular_linear", F64, 20, 3, "i8"),
+    Path("regular_cubic", F64, 12, 5, "i8"),
+    Path("rectilinear_cubic", F64, 20, 3, "i8"),
 ]
+ENGINE_NAMES = {"df64": "K8 (INTERPN_TPU_F64=df64)", "i8": "K9 (INTERPN_TPU_F64=i8)"}
 GAP_PATH = Path("regular_nearest", F32, 20, 3)  # its kernel is also profiled, for the gaps
 # The TPU kernel each replaces: K1 `_pallas_v3`, K2 `_pallas_v3_pre` (rectilinear
 # linear and cubic), K3 `_pallas_v3_rect` (rectilinear nearest), K4
@@ -136,9 +166,31 @@ REPLACES = {
 }
 
 
+REPLACES_F64 = {"df64": "interpn_tpu/ops/pallas_df64.py:479",
+                "i8": "interpn_tpu/ops/pallas_i8.py:638"}
+# H100 SXM, dense int8 on the tensor cores (a multiply-add is two operations)
+PEAK_INT8_OPS = 1979e12
+
+
 def replaces(p: Path) -> str:
+    if p.engine:
+        return REPLACES_F64[p.engine]
     stack = "_stack" if p.stacked else ""
     return REPLACES.get(p.kernel, REPLACES[f"{p.kind}{stack}"])
+
+
+@contextlib.contextmanager
+def f64_engine(engine):
+    """INTERPN_TPU_F64=engine for the body (unset for None), then as before."""
+    before = os.environ.pop("INTERPN_TPU_F64", None)
+    if engine:
+        os.environ["INTERPN_TPU_F64"] = engine
+    try:
+        yield
+    finally:
+        os.environ.pop("INTERPN_TPU_F64", None)
+        if before is not None:
+            os.environ["INTERPN_TPU_F64"] = before
 
 
 _T0 = time.perf_counter()
@@ -310,6 +362,50 @@ def path_kernel_and_plain(p: Path):
     return kernel_and_plain(p.kind, p.method)
 
 
+def engine_args(p: Path, grid, ob):
+    """The arguments of the path's engine wrapper (`ops.df64.contract` or
+    `ops.i8.contract`) for queries `ob`: the weights built on the card from
+    `path_grid`'s tensors, the table's split or decomposition (cached)."""
+    from interpn_tpu_torch.ops import df64, i8
+
+    dims = (p.n,) * p.ndims
+    if p.kind == "bspline":
+        weights, table = df64.spline_weights_f64(grid[0], ob, p.k), grid[1]
+    elif p.kind == "regular":
+        weights, table = df64.weights_f64(dims, grid[0], grid[1], None, ob, p.method), grid[2]
+    else:
+        weights, table = df64.weights_f64(dims, None, None, grid[0], ob, p.method), grid[1]
+    fp = df64.FOOTPRINT[p.k if p.kind == "bspline" else p.method]
+    prepared = df64.table_split(table)[:2] if p.engine == "df64" else i8.prepare(dims, table)[:4]
+    return (dims, fp, *weights[:3], *prepared)
+
+
+def engine_kernel_and_plain(engine: str):
+    """(K8 or K9 wrapper, its plain version), both taking `engine_args`'s."""
+    from interpn_tpu_torch.ops import df64, i8
+
+    return (df64.contract, df64.plain_df64) if engine == "df64" else (i8.contract, i8.plain_i8)
+
+
+def engine_call(p: Path, grid):
+    """The engine's whole call (weights, contraction, float64 recombination)
+    from `path_grid`'s tensors: fn(obs) -> (n,) float64."""
+    from interpn_tpu_torch.ops import df64, i8
+
+    dims = (p.n,) * p.ndims
+    module = df64 if p.engine == "df64" else i8
+    if p.kind == "bspline":
+        return lambda ob: df64.eval_bspline(grid[0], grid[1], ob, p.k)
+    if p.kind == "regular":
+        return lambda ob: module.eval_regular(dims, grid[0], grid[1], grid[2], ob, p.method)
+    return lambda ob: module.eval_rectilinear(grid[0], grid[1], ob, p.method)
+
+
+def pair(hl) -> torch.Tensor:
+    """An engine's (hi, lo) float32 pair as one (2, n) tensor."""
+    return torch.stack(hl)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     fin = torch.isfinite(a) & torch.isfinite(b)
     return float((a[fin].double() - b[fin].double()).abs().max()) if fin.any() else 0.0
@@ -452,11 +548,67 @@ def operations_per_query(p: Path) -> int:
     return nd * per_axis + p.nch * per_node * nodes
 
 
+# The fewest float32 operations of the double-float steps of csrc/df64.cuh
+# (an add, subtract or multiply one, an FMA two, as in the float32 rate),
+# TwoProd's exact error taken from one FMA (the same value as the kernels'
+# Veltkamp split): df_madd, two_sum, df_mul, df_add
+MADD, TWO_SUM, DF_MUL, DF_ADD = 18, 6, 10, 11
+# K9 per quantized weight: two scalings, then per piece a scaling, rint, a
+# multiply, a subtract and two_sum; per stencil row: 8 levels of conversion
+# from int32 (two for s <= 5, after an integer 12-bit split not counted),
+# scaling and df_add, the 4 scale restores, the centre's df_add and the
+# closing two_sum (its df_mul counted apart)
+QUANT = 2 + 7 * (4 + TWO_SUM)
+ROW = 8 * DF_ADD + 2 * (6 * 2 + 2 * 1) + 4 + DF_ADD + TWO_SUM
+
+
+def engine_operations(p: Path) -> tuple[int, int]:
+    """(float32, int8) operations one query needs in K8 or K9, at least,
+    whatever the kernel's layout. K8: a df_madd per stencil entry and per
+    partial of the tree, a two_sum per tree node. K9: the trailing combined
+    weights once, their peak and 7-piece quantization, S_w; per stencil row
+    of the leading axes the recombination, restore and centre, and per
+    stencil cell the 35 int8 piece-pair multiply-adds (2 operations each);
+    a df_mul and df_add per tail entry."""
+    from interpn_tpu_torch.ops import df64, i8
+
+    nd = p.ndims
+    fp = df64.FOOTPRINT[p.k if p.kind == "bspline" else p.method]
+    if p.engine == "df64":
+        madds = (fp ** (nd + 1) - fp) // (fp - 1)
+        nodes = (fp**nd - 1) // (fp - 1)
+        return MADD * madds + TWO_SUM * nodes, 0
+    g = i8._choose_group((p.n,) * nd)
+    e, r = fp**g, fp ** (nd - g)
+    f32 = (e * (g - 1) * DF_MUL + e + QUANT * e + g * (fp - 1) * DF_ADD + (g - 1) * DF_MUL
+           + (ROW + DF_MUL) * r + (r - 1) // (fp - 1) * fp * (DF_MUL + DF_ADD))
+    return f32, r * e * 2 * i8.NPASSES
+
+
+def engine_bytes(p: Path, n_queries: int) -> int:
+    """K8/K9's inputs read once and outputs written once: per query the
+    int32 locs, the float32 hi/lo weights and the hi/lo result; the hi/lo
+    table (K8) or its 8 pieces a cell and 12 bytes a row (K9)."""
+    from interpn_tpu_torch.ops import df64, i8
+
+    fp = df64.FOOTPRINT[p.k if p.kind == "bspline" else p.method]
+    per_query = 4 * p.ndims + 8 * p.ndims * fp + 8
+    cells = p.n**p.ndims
+    table = 8 * cells if p.engine == "df64" else 8 * cells + 12 * i8._shape((p.n,) * p.ndims)[1]
+    return n_queries * per_query + table
+
+
 def bound(p: Path, n_queries: int) -> tuple[float, str]:
     """The least time (ms) the card could take, and what bounds it: each
     query coordinate, table entry and grid parameter (knot) read once and
     each result written once at the HBM rate, against the operations at the
-    dtype's peak rate."""
+    dtype's peak rate (K8, K9: `engine_bytes` against `engine_operations`,
+    float32 and int8 on their own units)."""
+    if p.engine:
+        t_bytes = engine_bytes(p, n_queries) / PEAK_BYTES * 1e3
+        f32, i8_ops = engine_operations(p)
+        t_ops = max(n_queries * f32 / PEAK_OPS[F32], n_queries * i8_ops / PEAK_INT8_OPS) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     item = torch.tensor([], dtype=p.dtype).element_size()
     if p.kind == "regular":
         grid_params = 2 * p.ndims
@@ -483,6 +635,10 @@ def build_phase():
     for source in sources:
         fused._fn(source)  # load and bind
         ptxas = _build.library_path(source).with_suffix(".log").read_text()
+        built = "already built" if cached[source] else f"built in {seconds[source]:.3f} s"
+        if source in ("fused_df64", "fused_i8"):
+            engine_build_log(source, ptxas, built)
+            continue
         table = {}
         for m in re.finditer(
             r"_kernelI([fd])Li(\d)ELi(\d)E\S*' for \S+\n[^\n]*\n\s+\d+ bytes stack frame, "
@@ -495,11 +651,31 @@ def build_phase():
         families = 4 if spline else 6
         if len(table) != families or any(len(v) != 8 for v in table.values()):
             raise AssertionError(f"{source}: unexpected kernels in the ptxas log: {table}")
-        built = "already built" if cached[source] else f"built in {seconds[source]:.3f} s"
         log(f"phase 1 build: {source}.cu {built} (one nvcc per source, all at once)")
         for (method, dt), by_nd in sorted(table.items()):
             cells = ", ".join(f"{nd}D {r}/{s}" for nd, (r, s) in sorted(by_nd.items()))
             log(f"phase 1   {source} {method} {dt}: registers/spill-store bytes {cells}")
+
+
+def engine_build_log(source, ptxas, built):
+    """Phase 1 for K8 (21 instantiations: 2-8D by footprint 2, 4, 6) and K9
+    (53: 2-8D by footprint 2, 4 by trailing group g with footprint^g <= 2048):
+    registers, spill stores and stack frame (K9 keeps the weight pieces of
+    more than 16 stencil entries there) of each."""
+    table = {}
+    for m in re.finditer(
+            r"(?:df64|i8)_kernelILi(\d)ELi(\d)E(?:Li(\d)E)?\S*' for \S+\n[^\n]*\n\s+(\d+) bytes "
+            r"stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers", ptxas):
+        nd, fp, g, stack, spill, regs = m.groups()
+        key = f"footprint {fp}" + (f" g={g}" if g else "")
+        table.setdefault(key, {})[int(nd)] = (int(regs), int(spill), int(stack))
+    want = 21 if source == "fused_df64" else 53
+    if sum(len(v) for v in table.values()) != want:
+        raise AssertionError(f"{source}: unexpected kernels in the ptxas log: {table}")
+    log(f"phase 1 build: {source}.cu {built} (one nvcc per source, all at once)")
+    for key, by_nd in sorted(table.items()):
+        cells = ", ".join(f"{nd}D {r}/{s}/{f}" for nd, (r, s, f) in sorted(by_nd.items()))
+        log(f"phase 1   {source} f64 {key}: registers/spill-store bytes/stack-frame bytes {cells}")
 
 
 def kernel_vs_plain_phase(cuda):
@@ -560,6 +736,102 @@ def kernel_vs_plain_phase(cuda):
                 "equal to the single-table kernel")
 
 
+def engine_vs_plain_phase(cuda):
+    """Phase 2 for K8 and K9: each wrapper bitwise against its plain version
+    (both halves of the hi/lo pair) on f64 grids of 2-8D, regular and
+    rectilinear, linear and cubic in both extrapolation modes, K8 also on
+    splines of degree 3 and 5, with extrapolated, NaN and +-inf queries; then
+    a table holding a NaN, which a forced engine leaves to the native
+    kernel."""
+    from interpn_tpu_torch.ops import df64, dispatch, fused, i8
+
+    rng = np.random.default_rng(7)
+    grid_cases = [(kind, method, lin) for kind in ("regular", "rectilinear")
+                  for method, lin in (("linear", True), ("cubic", True), ("cubic", False))]
+    for engine in ("df64", "i8"):
+        kern, plain = engine_kernel_and_plain(engine)
+        cases = grid_cases + ([("bspline", k, True) for k in SPLINE.values()]
+                              if engine == "df64" else [])
+        results = 0
+        for dims, (kind, method, lin) in itertools.product(CHECK_DIMS[1:], cases):
+            fp = df64.FOOTPRINT[method]
+            n = max(64, min(N_CHECK, 2**26 // fp ** len(dims)))
+            if kind == "bspline":
+                dims = tuple(max(d, fp) for d in dims)
+                knots, coeffs, obs = spline_case(dims, method, F64, n, rng, cuda, 1)
+                locs, wh, wl, _ = df64.spline_weights_f64(knots, obs, method)
+                table = coeffs[0]
+            else:
+                grid, obs = random_case(kind, dims, F64, n, rng, cuda)
+                st, sp, gr = (grid[0], grid[1], None) if kind == "regular" else (None, None, grid[0])
+                locs, wh, wl, _ = df64.weights_f64(dims, st, sp, gr, obs, method, lin)
+                table = grid[-1]
+            prepared = (df64.table_split(table)[:2] if engine == "df64"
+                        else i8.prepare(dims, table)[:4])
+            args = (dims, fp, locs, wh, wl, *prepared)
+            before = fused.launches[engine]
+            got = pair(kern(*args))
+            what = f"{engine} {kind} {method} lin={lin} {dims}"
+            if fused.launches[engine] != before + 1:
+                raise AssertionError(f"{what}: the wrapper did not launch its kernel")
+            results += bitwise(got, pair(plain(*args)), what)
+        # a table with a NaN keeps the native kernel under a forced engine
+        grid, obs = random_case("regular", (20, 20, 20), F64, 10_000, rng, cuda)
+        bad = grid[2].clone()
+        bad[17] = float("nan")
+        with f64_engine(engine):
+            fused.reset_launches()
+            got = dispatch.cubic_regular((20,) * 3, grid[0], grid[1], bad, obs, True)
+            if {k: v for k, v in fused.launches.items() if v} != {"regular_cubic": 1}:
+                raise AssertionError(f"{engine}: a NaN table launched {fused.launches}")
+        bitwise(got, fused.plain_regular((20,) * 3, grid[0], grid[1], bad, obs, "cubic"),
+                f"{engine}: NaN table through the native kernel")
+        extra = ", splines k = 3 and 5" if engine == "df64" else ""
+        log(f"phase 2 kernel vs plain {'K8' if engine == 'df64' else 'K9'} ({engine}) f64: "
+            f"2-8D regular and rectilinear, linear and cubic "
+            f"(linearize True and False){extra}, up to {N_CHECK} queries (extrapolation, NaN, "
+            f"+-inf): all {results} hi/lo results bitwise equal to the plain version; a table "
+            "holding a NaN under the forced engine launched the native K1 once and no engine")
+
+
+def engine_nodes(cuda):
+    """Phase 3 for K8 and K9, on the 20^3 step-0.5 grid in f64, at every
+    interior node, by linear and by cubic in both modes: K8 reproduces the
+    table's double-float value hi + lo exactly (the split keeps about 48 of
+    a double's 53 bits, so not the table itself) and the table within
+    2^-47 relative; K9 the table within 1e-13 relative to its largest
+    magnitude (the fixed-point error is absolute on a row's scale)."""
+    from interpn_tpu_torch import convert
+    from interpn_tpu_torch.ops import df64, i8
+
+    rng = np.random.default_rng(11)
+    vals = rng.standard_normal(8000)
+    idx = np.stack(np.meshgrid(*[np.arange(20)] * 3, indexing="ij")).reshape(3, -1)
+    interior = torch.from_numpy(np.all(idx <= 18, axis=0)).to(cuda)
+    grid = convert.regular_grid_from_numpy(
+        (20, 20, 20), np.zeros(3), np.full(3, 0.5), vals, device=cuda, dtype=F64)
+    obs = convert.obs_from_numpy([i * 0.5 for i in idx], device=cuda, dtype=F64)
+    want = grid[3][interior]
+    vh, vl, _ = df64.table_split(grid[3])
+    want_df = (vh.double() + vl.double())[interior]
+    worst = {"K8": 0.0, "K9": 0.0}
+    for method, lin in (("linear", True), ("cubic", True), ("cubic", False)):
+        got = df64.eval_regular(*grid, obs, method, lin)[interior]
+        if not torch.equal(got, want_df):
+            raise AssertionError(f"K8 {method} lin={lin}: interior nodes not hi + lo exactly")
+        torch.testing.assert_close(got, want, rtol=2.0**-47, atol=0)
+        worst["K8"] = max(worst["K8"], float(((got - want).abs() / want.abs()).max()))
+        got = i8.eval_regular(*grid, obs, method, lin)[interior]
+        scale = float(grid[3].abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-13 * scale)
+        worst["K9"] = max(worst["K9"], float((got - want).abs().max()) / scale)
+    log(f"phase 3 nodes: all {int(interior.sum())} interior nodes of the 20^3 step-0.5 grid "
+        "(f64), by linear and cubic (linearize True and False): K8 reproduces the table's "
+        f"double-float value hi + lo exactly (worst {worst['K8']:.3e} relative to the f64 "
+        f"table), K9 the table within 1e-13 of its largest magnitude (worst "
+        f"{worst['K9']:.3e})")
+
+
 def nodes_phase(cuda):
     from interpn_tpu_torch import convert
     from interpn_tpu_torch.ops import fused
@@ -588,6 +860,7 @@ def nodes_phase(cuda):
         "True and False) and nearest, on that grid and on a jittered rectilinear 20^3 grid "
         "(f32, f64)")
     spline_nodes(cuda, rng, axes, idx)
+    engine_nodes(cuda)
 
 
 def spline_nodes(cuda, rng, axes, idx):
@@ -710,12 +983,12 @@ def drive_path(p: Path, cuda, rng):
     results, counts = {}, []
     for name, call in calls.items():
         results[name] = call()
-        counts.append(fused.launches[p.kernel])
+        counts.append(fused.launches[p.counter])
     torch.cuda.synchronize()
-    others = {k: v for k, v in fused.launches.items() if k != p.kernel and v}
+    others = {k: v for k, v in fused.launches.items() if k != p.counter and v}
     if counts != list(range(1, len(calls) + 1)) or others:
         raise AssertionError(f"{p.label}: launch counts after each call {counts}, others {others}")
-    launches = fused.launches[p.kernel]
+    launches = fused.launches[p.counter]
 
     via_entry = results[entry]
     out_shape = (NCH, N_MAIN) if p.stacked else (N_MAIN,)
@@ -725,18 +998,34 @@ def drive_path(p: Path, cuda, rng):
                                  f"{np.isfinite(r).all()}")
         np.testing.assert_array_equal(r, via_entry, err_msg=f"{p.label} {name}")
     # the kernel against its plain version at the path's shape, on the card
-    kern, plain = path_kernel_and_plain(p)
-    k_out = kern(*grid, obs_t, dims=tuple(shape))
-    p_out = plain(*grid, obs_t, dims=tuple(shape))
-    bitwise(k_out, p_out, f"{p.label} kernel vs plain")
-    err = max_abs_err(k_out, p_out)
+    kern, plain = path_kernel_and_plain(p.native)
+    tol = TOL[p.dtype]
+    if p.engine:  # K8/K9 on the path's weights, both halves of the pair
+        kern_e, plain_e = engine_kernel_and_plain(p.engine)
+        args = engine_args(p, grid, obs_t)
+        k_out, p_out = pair(kern_e(*args)), pair(plain_e(*args))
+        bitwise(k_out, p_out, f"{p.label} kernel vs plain")
+        err = max_abs_err(k_out[0].double() + k_out[1], p_out[0].double() + p_out[1])
+        # the JAX package's bars of its f64 engines against the gather tree:
+        # linear 1e-13, cubic 1e-12 (tests/test_pallas_df64.py:55,66), splines
+        # 1e-11 of the largest coefficient where the queries extrapolate, as
+        # these do (tests/test_bspline_engines.py:64)
+        tol = 1e-13 if p.method == "linear" else 1e-12
+        atol = 1e-11 * max(float(grid[1].abs().max()), 1.0) if p.kind == "bspline" else tol
+        del args
+    else:
+        k_out = kern(*grid, obs_t, dims=tuple(shape))
+        p_out = plain(*grid, obs_t, dims=tuple(shape))
+        bitwise(k_out, p_out, f"{p.label} kernel vs plain")
+        err = max_abs_err(k_out, p_out)
+        atol = tol
     del k_out, p_out
     # the CPU gather tree on the first N_REF queries
     cpu_args = tuple(tuple(t.cpu() for t in a) if isinstance(a, tuple) else a.cpu()
                      for a in grid)
     sub = tuple(torch.from_numpy(o[:N_REF]) for o in obs_np)
     cpu = plain(*cpu_args, sub, dims=tuple(shape)).numpy()
-    np.testing.assert_allclose(via_entry[..., :N_REF], cpu, rtol=TOL[p.dtype], atol=TOL[p.dtype],
+    np.testing.assert_allclose(via_entry[..., :N_REF], cpu, rtol=tol, atol=atol,
                                err_msg=f"{p.label} vs the CPU gather tree")
     # an independent float64 reference where it speaks, table by table
     covered = 0
@@ -752,9 +1041,10 @@ def drive_path(p: Path, cuda, rng):
         covered = int(ok.sum())
     ref_name = ("a scipy make_interp_spline / BSpline.design_matrix float64 reference"
                 if p.kind == "bspline" else "a float64 numpy reference")
-    log(f"phase 4 path {p.label} x {N_MAIN} queries: {', '.join(calls)}; {p.kernel} launches "
+    log(f"phase 4 path {p.label} x {N_MAIN} queries: {', '.join(calls)}; {p.counter} launches "
         f"after each call {counts}, no other kernel; finite, equal across entry points, kernel "
-        f"bitwise equal to its plain version, within {TOL[p.dtype]:g} of the CPU gather tree on "
+        f"bitwise equal to its plain version, within rtol {tol:g}, atol {atol:.3g} of the CPU "
+        f"gather tree on "
         f"{N_REF} queries and of {ref_name} on the {covered} of them it covers, every table "
         f"(rtol {REF_TOL[p.dtype]['rtol']:g}, atol {REF_TOL[p.dtype]['atol']:g})")
     return launches, err
@@ -828,16 +1118,43 @@ def timing_phase(p: Path, cuda, gen, smi):
                       + lo for _ in range(p.ndims)) for _ in range(N_BATCHES)]
 
     main = batches(LO, HI)
-    k_fn = lambda ob: kern(*grid, ob, dims=dims)  # noqa: E731
-    p_fn = lambda ob: plain(*grid, ob, dims=dims)  # noqa: E731
+    plain_n = N_MAIN  # queries a call of the plain version
+    if p.engine:  # K8/K9 alone on each batch's weights, built beforehand
+        kern_e, plain_e = engine_kernel_and_plain(p.engine)
+        timed_in = [engine_args(p, grid, b) for b in main]
+        plain_in = timed_in[:N_PLAIN]
+        if p.n**p.ndims > 100_000:
+            # the 12^5 plain versions run some 20-30k launches a call, whose
+            # profile alone took a minute: a tenth of the queries a call
+            plain_n = N_MAIN // 10
+            plain_in = [engine_args(p, grid, tuple(o[:plain_n] for o in b))
+                        for b in main[:N_PLAIN]]
+        k_fn = lambda a: kern_e(*a)  # noqa: E731
+        p_fn = lambda a: plain_e(*a)  # noqa: E731
+    else:
+        timed_in, plain_in = main, main[:N_PLAIN]
+        k_fn = lambda ob: kern(*grid, ob, dims=dims)  # noqa: E731
+        p_fn = lambda ob: plain(*grid, ob, dims=dims)  # noqa: E731
     k_runs, p_runs, notes = [], [], []
     for name in ("plain", "kernel", "kernel", "plain"):
         if name == "kernel":
-            k_runs.append(cuda_time(k_fn, main))
+            k_runs.append(cuda_time(k_fn, timed_in))
         else:
-            ms, note = profiled_ms(p_fn, main[:N_PLAIN], "plain")
+            ms, note = profiled_ms(p_fn, plain_in, "plain")
             p_runs.append(ms)
             notes.append(note)
+    del timed_in, plain_in
+    whole = {}
+    if p.engine:
+        # the whole call: weight build (hundreds of launches), contraction,
+        # float64 recombination; over 4 batches, which the host can queue
+        # within the head start
+        t = cuda_time(engine_call(p, grid), main[:4])
+        whole = {"call_ms": t.device_ms}
+        log(f"phase 5 timing {p.label}, the whole engine call ({p.kind} weights in float64, "
+            f"{p.engine} wrapper, recombination) over 4 of the batches [{smi}]: "
+            f"{t.device_ms:.4f} ms/call by CUDA events behind a head start "
+            f"({'held' if t.ahead else 'DID NOT hold'}), {t.loop_ms:.4f} ms/call back to back")
     k_best = min(k_runs, key=lambda t: t.device_ms)
     k_dev, k_loop = k_best.device_ms, min(t.loop_ms for t in k_runs)
     ahead = all(t.ahead for t in k_runs)
@@ -849,11 +1166,13 @@ def timing_phase(p: Path, cuda, gen, smi):
         gaps = (f"; kernel by the profiler {k_prof:.4f} ms/call ({k_note}), so "
                 f"{(k_dev - k_prof) * 1e3:.2f} us/launch of gaps between launches"
                 if k_prof is not None else f"; kernel by the profiler: not recorded ({k_note})")
-    plain_s = (f"plain version {p_dev:.4f} ms/call by the profiler ({'; '.join(notes)}), "
-               f"device-time speedup {p_dev / k_dev:.1f}x" if p_dev is not None else
-               f"plain version: not recorded ({'; '.join(notes)})")
+    plain_of = f" of {plain_n} queries" if plain_n != N_MAIN else ""
+    plain_s = (f"plain version {p_dev:.4f} ms/call{plain_of} by the profiler "
+               f"({'; '.join(notes)}), device-time speedup "
+               f"{p_dev / k_dev * N_MAIN / plain_n:.1f}x at equal queries"
+               if p_dev is not None else f"plain version: not recorded ({'; '.join(notes)})")
     log(f"phase 5 timing {p.label}, {N_BATCHES} distinct batches of {N_MAIN} queries "
-        f"({N_PLAIN} for the plain version) [{smi}]: "
+        f"({N_PLAIN}{plain_of} for the plain version) [{smi}]: "
         f"kernel {k_dev:.4f} ms/call by CUDA events behind a head start of "
         f"{k_best.spin_cycles} cycles "
         f"({'held' if ahead else 'DID NOT hold: the time includes host gaps'}) = "
@@ -875,7 +1194,8 @@ def timing_phase(p: Path, cuda, gen, smi):
     del main
 
     lib_ms = None
-    if p.kind == "regular" and p.ndims == 3 and p.method in ("linear", "nearest"):
+    # no PyTorch call computes a double-float or int8 multipass contraction
+    if p.kind == "regular" and p.ndims == 3 and p.method in ("linear", "nearest") and not p.engine:
         mode = "bilinear" if p.method == "linear" else "nearest"
         prepare, call = grid_sample_call(grid[2], p.n, mode, p.nch)
         inside = batches(0.0, 10.0)  # grid_sample clamps where the port extrapolates
@@ -901,19 +1221,20 @@ def timing_phase(p: Path, cuda, gen, smi):
             f"start ({agree})")
         del inside, prepared
     return {"ms": k_dev, "ahead": ahead, "plain_ms": p_dev, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, **whole}
 
 
 def kernels_record(driven, timed) -> list[dict]:
     """One entry per kernel, from its headline path (its first in PATHS)."""
     kernels = []
-    for kernel in dict.fromkeys(p.kernel for p in PATHS):
-        p = next(q for q in PATHS if q.kernel == kernel)
+    for counter in dict.fromkeys(p.counter for p in PATHS):
+        p = next(q for q in PATHS if q.counter == counter)
         launches, err = driven[p]
+        source = p.engine or f"{p.kind}{'_stack' if p.stacked else ''}"
         kernels.append({
-            "name": f"fused_{kernel}",
+            "name": f"fused_{counter}",
             "route": "cuda",
-            "source": f"interpn_tpu_torch/csrc/fused_{p.kind}{'_stack' if p.stacked else ''}.cu",
+            "source": f"interpn_tpu_torch/csrc/fused_{source}.cu",
             "replaces": replaces(p),
             "config": p.label,
             "launches": launches,
@@ -937,14 +1258,20 @@ def main() -> None:
 
     build_phase()
     kernel_vs_plain_phase(cuda)
+    engine_vs_plain_phase(cuda)
     nodes_phase(cuda)
 
     rng = np.random.default_rng(2)
-    driven = {p: drive_path(p, cuda, rng) for p in PATHS}
+    driven, timed = {}, {}
+    for p in PATHS:
+        with f64_engine(p.engine):  # unset for the native paths
+            driven[p] = drive_path(p, cuda, rng)
 
     gen = torch.Generator(device=cuda)
     gen.manual_seed(1234)
-    timed = {p: timing_phase(p, cuda, gen, smi) for p in PATHS}
+    for p in PATHS:
+        with f64_engine(p.engine):
+            timed[p] = timing_phase(p, cuda, gen, smi)
 
     # the last three lines, unprefixed: the card, the kernels, the result
     print(smi)

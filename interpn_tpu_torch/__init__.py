@@ -26,6 +26,7 @@ from numpy.typing import NDArray
 from . import convert, ops, raw
 from .config import default_device
 from .ops import bspline as _bspline
+from .ops.df64 import host_tensor
 
 __version__ = "0.4.0"
 
@@ -109,7 +110,8 @@ def interpn(
         )
         knots, coeffs = _bspline.prep_bspline_cached(grids, vals.astype(np.float64, copy=False), k)
         device, tdtype = default_device(), _TORCH_DTYPE[dtype]
-        kt, cf = convert.bspline_from_numpy(knots, coeffs, device=device, dtype=tdtype)
+        kt = convert.obs_from_numpy(knots, device=device, dtype=tdtype)
+        cf = host_tensor(np.asarray(coeffs), device=device, dtype=tdtype)
         res = ops.bspline_eval(kt, cf, convert.obs_from_numpy(obs, device=device, dtype=tdtype), k)
         np.copyto(out, res.cpu().numpy())
     elif method not in ("linear", "cubic", "nearest"):

@@ -13,17 +13,23 @@ import torch
 DEFAULT_CHUNK_BYTES = 2 * 1024 * 1024 * 1024
 
 
-def chunk_queries(f, obs, row_elems: int, itemsize: int, chunk_bytes=None):
-    """Evaluate ``f(obs_tuple)`` over query chunks sized so that a temporary
-    of ``row_elems`` elements per query stays under ``chunk_bytes`` (default
-    DEFAULT_CHUNK_BYTES, read at call time). `f` maps flat (m,) queries to
-    an (m,) result; the result has obs[0]'s shape."""
+def chunk_len(row_elems: int, itemsize: int, chunk_bytes=None) -> int:
+    """Queries per chunk: a power of two, at least 8192, such that a
+    temporary of ``row_elems`` elements per query stays under
+    ``chunk_bytes`` (default DEFAULT_CHUNK_BYTES, read at call time)."""
     if chunk_bytes is None:
         chunk_bytes = DEFAULT_CHUNK_BYTES
+    chunk = max(8192, chunk_bytes // max(row_elems * itemsize, 1))
+    return 1 << (chunk.bit_length() - 1)
+
+
+def chunk_queries(f, obs, row_elems: int, itemsize: int, chunk_bytes=None):
+    """Evaluate ``f(obs_tuple)`` over query chunks of `chunk_len` queries.
+    `f` maps flat (m,) queries to an (m,) result; the result has obs[0]'s
+    shape."""
     shape = obs[0].shape
     n = obs[0].numel()
-    chunk = max(8192, chunk_bytes // max(row_elems * itemsize, 1))
-    chunk = 1 << (chunk.bit_length() - 1)  # round down to a power of two
+    chunk = chunk_len(row_elems, itemsize, chunk_bytes)
     flat = [o.reshape(-1) for o in obs]
     if n <= chunk:
         return f(tuple(flat)).reshape(shape)

@@ -3,11 +3,29 @@
 Counterpart of `interpn_tpu/ops/dispatch.py` and of the engine choice in
 `interpn_tpu/ops/bspline.py::bspline_eval`. The JAX package picks among
 five engines from static trace information; here the device decides: a CUDA
-tensor goes to the kernel (`ops/fused.py`, f32 and f64, any batch size), a
+tensor goes to a kernel (`ops/fused.py`, f32 and f64, any batch size), a
 CPU tensor to the gather tree (`ops/linear.py`, `ops/cubic.py`,
 `ops/nearest.py`, `ops/bspline.py`). The stacked-table routes are in
 `ops/stack.py`. The kernels read only the stencil, so the TPU's
 finite-table guard, batch floor and grid-size caps have no counterpart.
+
+f64 runs on the native `double` kernels (K1, K2, K4) unless the
+environment variable INTERPN_TPU_F64, read at each call as the JAX package
+reads it, forces one of its two f64 contraction engines:
+
+* `df64`: linear and cubic on both grid kinds and the f64 B-splines go to
+  K8, the double-float engine (`ops/df64.py`, `csrc/fused_df64.cu`);
+* `i8`: linear and cubic on both grid kinds go to K9, the int8 multipass
+  engine (`ops/i8.py`, `csrc/fused_i8.cu`); f64 B-splines go to K8, as the
+  JAX package's spline route knows only df64.
+
+A forced engine takes f64 CUDA tables of 2-8D with finite entries; nearest,
+stacks, f32, 1-D, CPU tensors and tables with a NaN or inf keep their
+routes (the JAX package sends a non-finite table to its gather tree; here
+the native kernel reads only the stencil). Unset, `auto` or any other value
+changes nothing: the port makes no automatic choice of these engines, and
+the JAX package's auto-mode gates (`_prefer_i8`, the cost model, the spike
+and depth gates) have no counterpart yet.
 
 The kernels have no backward kernel (nor had the TPU kernels), so each
 kernel route is a `KernelRoute`: the kernel forward, the vector-Jacobian
@@ -18,9 +36,13 @@ to the queries and one-hot gradients to `vals`.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from . import df64 as _df64
 from . import fused as _fused
+from . import i8 as _i8
 from .bspline import bspline_gather as _bspline_gather
 from .cubic import cubic_rectilinear as _cubic_rect_gather
 from .cubic import cubic_regular as _cubic_reg_gather
@@ -28,6 +50,8 @@ from .linear import linear_rectilinear as _linear_rect_gather
 from .linear import linear_regular as _linear_reg_gather
 from .nearest import nearest_rectilinear as _nearest_rect_gather
 from .nearest import nearest_regular as _nearest_reg_gather
+
+F64_ENV = "INTERPN_TPU_F64"
 
 
 class KernelRoute(torch.autograd.Function):
@@ -51,6 +75,30 @@ def _impl(vals: torch.Tensor) -> str:
     return "kernel" if vals.device.type == "cuda" else "gather"
 
 
+def f64_engine() -> str:
+    """The engine INTERPN_TPU_F64 forces, read now: 'df64', 'i8', or 'auto'
+    (unset, 'auto' or any other value: the native kernels)."""
+    mode = os.environ.get(F64_ENV, "auto")
+    return mode if mode in ("df64", "i8") else "auto"
+
+
+def f64_route(vals, dims, method):
+    """(engine, prep): ('df64', the table's `df64.table_split`) or ('i8',
+    its `i8.prepare`) where INTERPN_TPU_F64 forces that engine on this call,
+    else (None, None). `method` is 'linear', 'cubic' or a spline degree (3,
+    5). The table's finiteness is cached with its split or decomposition."""
+    engine = f64_engine()
+    if engine == "auto" or _impl(vals) != "kernel" or vals.dtype != torch.float64:
+        return None, None
+    if engine == "i8" and _i8.supported(dims, method):
+        prep = _i8.prepare(dims, vals)
+        return ("i8", prep) if prep is not None else (None, None)
+    if _df64.supported(dims, method):
+        prep = _df64.table_split(vals)
+        return ("df64", prep) if prep[2] else (None, None)
+    return None, None
+
+
 def _route(kernel, gather, params, vals, obs, lead=()):
     """gather(*params, vals, *obs) on the CPU; on a CUDA tensor the kernel
     on flat contiguous queries, reshaped to (*lead, *obs[0].shape): `lead`
@@ -63,45 +111,53 @@ def _route(kernel, gather, params, vals, obs, lead=()):
     return KernelRoute.apply(kernel, gather, *tensors).reshape(*lead, *shape)
 
 
+def _regular(method, dims, starts, steps, vals, obs, gather, *lin):
+    dims = tuple(int(d) for d in dims)
+    engine, prep = f64_route(vals, dims, method)
+    if engine is None:
+        def kernel(st, sp, v, *ob):
+            return _fused.eval_regular(dims, st, sp, v, ob, method, *lin)
+    else:
+        module = _df64 if engine == "df64" else _i8
+
+        def kernel(st, sp, v, *ob):
+            return module.eval_regular(dims, st, sp, v, ob, method, *lin, prep=prep)
+    return _route(kernel, lambda st, sp, v, *ob: gather(dims, st, sp, v, ob, *lin),
+                  (starts, steps), vals, obs)
+
+
 def linear_regular(dims, starts, steps, vals, obs):
     """Multilinear eval on a regular grid; obs is a tuple of ndims tensors of
     one shape, and the result has that shape."""
-    dims = tuple(int(d) for d in dims)
-    return _route(
-        lambda st, sp, v, *ob: _fused.eval_regular(dims, st, sp, v, ob, "linear"),
-        lambda st, sp, v, *ob: _linear_reg_gather(dims, st, sp, v, ob),
-        (starts, steps), vals, obs,
-    )
+    return _regular("linear", dims, starts, steps, vals, obs, _linear_reg_gather)
 
 
 def cubic_regular(dims, starts, steps, vals, obs, linearize_extrapolation: bool):
     """Multicubic eval on a regular grid (every dim >= 4)."""
-    dims = tuple(int(d) for d in dims)
-    lin = bool(linearize_extrapolation)
-    return _route(
-        lambda st, sp, v, *ob: _fused.eval_regular(dims, st, sp, v, ob, "cubic", lin),
-        lambda st, sp, v, *ob: _cubic_reg_gather(dims, st, sp, v, ob, lin),
-        (starts, steps), vals, obs,
-    )
+    return _regular("cubic", dims, starts, steps, vals, obs, _cubic_reg_gather,
+                    bool(linearize_extrapolation))
 
 
 def nearest_regular(dims, starts, steps, vals, obs):
     """Nearest-neighbor eval on a regular grid."""
-    dims = tuple(int(d) for d in dims)
-    return _route(
-        lambda st, sp, v, *ob: _fused.eval_regular(dims, st, sp, v, ob, "nearest"),
-        lambda st, sp, v, *ob: _nearest_reg_gather(dims, st, sp, v, ob),
-        (starts, steps), vals, obs,
-    )
+    return _regular("nearest", dims, starts, steps, vals, obs, _nearest_reg_gather)
 
 
 def _rect_route(method, gather, grids, vals, obs, *extra):
     ng = len(grids)
-    return _route(
-        lambda *a: _fused.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra),
-        lambda *a: gather(a[:ng], a[ng], a[ng + 1 :], *extra),
-        tuple(grids), vals, obs,
-    )
+    dims = tuple(int(g.shape[0]) for g in grids)
+    engine, prep = f64_route(vals, dims, method)
+    if engine is None:
+        def kernel(*a):
+            return _fused.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra)
+    else:
+        module = _df64 if engine == "df64" else _i8
+
+        def kernel(*a):
+            return module.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra,
+                                           prep=prep)
+    return _route(kernel, lambda *a: gather(a[:ng], a[ng], a[ng + 1 :], *extra),
+                  tuple(grids), vals, obs)
 
 
 def linear_rectilinear(grids, vals, obs):
@@ -129,8 +185,16 @@ def bspline_eval(knots, coeffs, obs, k: int):
     `convert.bspline_from_numpy`); out-of-bounds queries extrapolate the end
     span's polynomial."""
     ng = len(knots)
+    dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
+    engine, prep = f64_route(coeffs, dims, k)
+    if engine is None:
+        def kernel(*a):
+            return _fused.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k)
+    else:
+        def kernel(*a):
+            return _df64.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k, prep=prep)
     return _route(
-        lambda *a: _fused.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k),
+        kernel,
         lambda *a: _bspline_gather(a[:ng], a[ng], a[ng + 1 :], k),
         tuple(knots), coeffs, obs,
     )

@@ -12,19 +12,27 @@
 * `eval_bspline` / `eval_bspline_stack` launch `csrc/fused_bspline.cu` /
   `fused_bspline_stack.cu`, the counterpart of `pallas_v3.eval_bspline`
   (K4, and K2's spline use) and `pallas_v3.eval_bspline_stack` (K7).
+* `launch_df64` / `launch_i8` launch `csrc/fused_df64.cu` (K8, the
+  counterpart of `interpn_tpu/ops/pallas_df64.py::_pallas_df64`) and
+  `csrc/fused_i8.cu` (K9, `interpn_tpu/ops/pallas_i8.py::_pallas_i8`), the
+  f64 contraction engines that `INTERPN_TPU_F64=df64|i8` selects
+  (`ops/dispatch.py`). Their wrappers with plain versions, and the weight
+  and table preparation around them, are `ops/df64.py` and `ops/i8.py`.
 
 A stack is (nch, prod(dims)) tables on one grid, evaluated at the same
 queries into an (nch, n) block: the stack source instantiates its family's
 kernel (`csrc/*.cuh`) with a loop over the tables after the one locate and
-weight build per query; the single-table source has no loop. The TPU kernels contract weight matrices against the whole table on
-the MXU; the Hopper kernels read only each query's stencil, so they need
-none of the TPU caps (batch floor, VMEM-bounded grid size, finite-table
-guard). See the sources for what bounds them on the card.
+weight build per query; the single-table source has no loop. The TPU
+kernels contract weight matrices against the whole table on the MXU or the
+VPU; the Hopper kernels read only each query's stencil, so they need none of
+the TPU caps (batch floor, VMEM-bounded grid size, finite-table guard). See
+the sources for what bounds them on the card.
 
 On a CPU tensor each wrapper runs its kernel's plain version (the `plain_*`
 functions below: the gather trees of `ops/linear.py`, `ops/cubic.py`,
-`ops/nearest.py` and `ops/bspline.py`, over each channel for a stack). On a
-CUDA tensor it launches the kernel or raises.
+`ops/nearest.py` and `ops/bspline.py`, over each channel for a stack;
+`df64.plain_df64` and `i8.plain_i8`). On a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -43,11 +51,13 @@ from .nearest import nearest_rectilinear, nearest_regular
 
 METHODS = ("linear", "cubic", "nearest")  # kLinear, kCubic, kNearest in csrc
 DEGREES = (3, 5)  # cubic_spline, quintic
-SOURCES = tuple(f"fused_{family}{stack}" for family in ("regular", "rectilinear", "bspline")
-                for stack in ("", "_stack"))
+F64_ENGINES = ("df64", "i8")  # K8, K9: csrc/fused_df64.cu, csrc/fused_i8.cu
+SOURCES = (*(f"fused_{family}{stack}" for family in ("regular", "rectilinear", "bspline")
+             for stack in ("", "_stack")),
+           *(f"fused_{engine}" for engine in F64_ENGINES))
 _SINGLE = (*(f"{grid}_{m}" for grid in ("regular", "rectilinear") for m in METHODS),
            *(f"bspline_k{k}" for k in DEGREES))
-KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE))
+KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES)
 
 # Kernel launches by name; a run resets and reads them to show that its main
 # path went through the kernels.
@@ -69,6 +79,11 @@ _FAMILY_ARGTYPES = {
     "regular": [_INT, _INT, _INT] + _DIMS + [_VOIDP, _VOIDP] + _TAIL,
     "rectilinear": [_INT, _INT, _INT] + _DIMS + [_PTRS] + _TAIL,
     "bspline": [_INT, _INT] + _DIMS + [_PTRS] + _TAIL,
+    # footprint, ndims, dims, locs, wh, wl, vh, vl, oh, ol, n, blocks, stream
+    "df64": [_INT] + _DIMS + [_VOIDP] * 7 + [ctypes.c_longlong, _INT, _VOIDP],
+    # footprint, group, ndims, dims, locs, wh, wl, pieces, ch, cl, sv, oh, ol,
+    # n, blocks, stream
+    "i8": [_INT, _INT] + _DIMS + [_VOIDP] * 9 + [ctypes.c_longlong, _INT, _VOIDP],
 }
 _ARGTYPES = {s: (s.replace("fused_", "interpn_"), _FAMILY_ARGTYPES[s.split("_")[1]])
              for s in SOURCES}
@@ -338,3 +353,82 @@ def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args):
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
     launches[kernel] += 1
     return out
+
+
+# --- K8 and K9: the f64 contraction engines -------------------------------------------
+
+
+def _check_f64_engine(dims, footprint, footprints, locs, wh, wl, tables) -> int:
+    """Refuse what K8/K9 do not take; return the query count. `tables`
+    maps a name to (tensor, shape, dtype)."""
+    ndims = len(dims)
+    if not 2 <= ndims <= _MAX_DIMS:
+        raise ValueError(f"ndims must be in 2..{_MAX_DIMS}, got {ndims}")
+    if footprint not in footprints or min(dims) < footprint:
+        raise ValueError(f"footprint {footprint} does not fit dims {dims}")
+    if math.prod(dims) >= _INT32_LIMIT:
+        raise ValueError(f"grid of {math.prod(dims)} points needs int64 indices")
+    n = int(locs.shape[-1])
+    if n >= _INT32_LIMIT:
+        raise ValueError(f"{n} queries need int64 indices")
+    want = {"locs": (locs, (ndims, n), torch.int32),
+            "wh": (wh, (ndims * footprint, n), torch.float32),
+            "wl": (wl, (ndims * footprint, n), torch.float32), **tables}
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    return n
+
+
+def _launch_f64(source, kernel, head, dims, n, tensors, device):
+    oh = torch.empty(n, dtype=torch.float32, device=device)
+    ol = torch.empty(n, dtype=torch.float32, device=device)
+    if n == 0:
+        return oh, ol
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    blocks = min(-(-n // _THREADS), _sm_count(index) * _BLOCKS_PER_SM)
+    with torch.cuda.device(index):
+        rc = _fn(source)(
+            *head, len(dims), (_INT * len(dims))(*dims),
+            *(t.data_ptr() for t in tensors), oh.data_ptr(), ol.data_ptr(),
+            n, blocks, torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
+    launches[kernel] += 1
+    return oh, ol
+
+
+def launch_df64(dims, footprint, locs, wh, wl, vh, vl):
+    """Launch K8 (`csrc/fused_df64.cu`) on CUDA tensors: `locs` (ndims, n)
+    int32, `wh`/`wl` (ndims * footprint, n) float32, the flat hi/lo table
+    `vh`/`vl`; returns the (oh, ol) float32 pair. The wrapper with a plain
+    version is `ops.df64.contract`."""
+    dims = tuple(int(d) for d in dims)
+    device = _device((locs, wh, wl, vh, vl))
+    size = (math.prod(dims),)
+    n = _check_f64_engine(dims, footprint, (2, 4, 6), locs, wh, wl, {
+        "vh": (vh, size, torch.float32), "vl": (vl, size, torch.float32)})
+    return _launch_f64("fused_df64", "df64", (footprint,), dims, n,
+                       (locs, wh, wl, vh, vl), device)
+
+
+def launch_i8(dims, footprint, group, locs, wh, wl, pieces, ch, cl, sv):
+    """Launch K9 (`csrc/fused_i8.cu`) on CUDA tensors: `locs`, `wh`, `wl` as
+    `launch_df64`'s, the cell-major (prod(dims), 8) int8 pieces and the
+    (lead,) float32 row centres hi/lo and scales of `ops.i8.prepare`, with
+    the trailing-axis group `group`; returns the (oh, ol) float32 pair. The
+    wrapper with a plain version is `ops.i8.contract`."""
+    dims = tuple(int(d) for d in dims)
+    device = _device((locs, wh, wl, pieces, ch, cl, sv))
+    if not 1 <= group < len(dims) or footprint**group > 2048 and group > 1:
+        raise ValueError(f"group {group} does not fit dims {dims}")
+    lead = (math.prod(dims[: len(dims) - group]),)
+    n = _check_f64_engine(dims, footprint, (2, 4), locs, wh, wl, {
+        "pieces": (pieces, (math.prod(dims), 8), torch.int8),
+        "ch": (ch, lead, torch.float32), "cl": (cl, lead, torch.float32),
+        "sv": (sv, lead, torch.float32)})
+    return _launch_f64("fused_i8", "i8", (footprint, group), dims, n,
+                       (locs, wh, wl, pieces, ch, cl, sv), device)

@@ -25,6 +25,7 @@ import torch
 
 from . import ops
 from .config import default_device
+from .ops.df64 import host_tensor
 
 __all__ = [
     "interpn_linear_regular_f64",
@@ -187,6 +188,15 @@ def _prep(device, *arrays) -> tuple[torch.Tensor, ...]:
     )
 
 
+def _prep_table(device, vals) -> torch.Tensor:
+    """`vals` as `_prep` makes it; one from numpy carries the array, so that
+    the f64 engines' per-table caches key it by content
+    (`ops/df64.py::host_tensor`)."""
+    if isinstance(vals, torch.Tensor):
+        return vals.reshape(-1).contiguous()
+    return host_tensor(np.ascontiguousarray(np.asarray(vals).ravel()), device=device)
+
+
 def _finish(result, out):
     """Write `result` into `out` in place and return `out`."""
     if isinstance(out, torch.Tensor):
@@ -227,7 +237,8 @@ def _interpn_regular(method, dtype, dims, starts, steps, vals, obs, out, lin=Tru
         min_size=min_size, size_msg=_SIZE_MSG[min_size][0],
     )
     device = _device(starts, steps, vals, *obs, out)
-    starts_t, steps_t, vals_t = _prep(device, starts, steps, vals)
+    starts_t, steps_t = _prep(device, starts, steps)
+    vals_t = _prep_table(device, vals)
     obs_t = _prep(device, *obs)
     if method == "cubic":
         result = ops.cubic_regular(dims, starts_t, steps_t, vals_t, obs_t, bool(lin))
@@ -247,7 +258,7 @@ def _interpn_rectilinear(method, dtype, grids, vals, obs, out, lin=True):
     )
     device = _device(*grids, vals, *obs, out)
     grids_t = _prep(device, *grids)
-    (vals_t,) = _prep(device, vals)
+    vals_t = _prep_table(device, vals)
     obs_t = _prep(device, *obs)
     if method == "cubic":
         result = ops.cubic_rectilinear(grids_t, vals_t, obs_t, bool(lin))

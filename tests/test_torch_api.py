@@ -500,7 +500,8 @@ def test_import_leaves_jax_out():
         "                                               'interpn_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "for name in ('ops.bspline', 'ops.stack', 'ops.fused', 'utils.profiling'):\n"
+        "for name in ('ops.bspline', 'ops.stack', 'ops.fused', 'ops.df64', 'ops.i8',\n"
+        "             'utils.profiling'):\n"
         "    assert 'interpn_tpu_torch.' + name in names, name\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"

@@ -18,7 +18,7 @@ import torch
 
 import interpn_tpu_torch
 from interpn_tpu_torch import config, convert
-from interpn_tpu_torch.ops import bspline, cubic, dispatch, fused, linear, nearest, stack
+from interpn_tpu_torch.ops import bspline, cubic, df64, dispatch, fused, i8, linear, nearest, stack
 from interpn_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
@@ -457,3 +457,159 @@ def test_timer_lets_exceptions_through(cuda):
     for timer in (profiling.cuda_time, profiling.profiled_time):
         with pytest.raises(KeyError, match="from the timed function"):
             timer(boom, [0] * 4)
+
+
+# --- the f64 contraction engines (K8, K9) -------------------------------------------
+
+
+def _engine_inputs(kind, dims, method, lin, device, n, seed):
+    """(locs, wh, wl, vals) of K8/K9 for a random grid of `kind` with
+    random_case-like queries (NaN and +-inf mixed in), all on `device`."""
+    if kind == "regular":
+        dims_, st, sp, vals, obs = _case(dims, torch.float64, device, n, seed)
+        locs, wh, wl, _ = df64.weights_f64(dims, st, sp, None, obs, method, lin)
+    elif kind == "rectilinear":
+        grids, vals, obs = _rect_case(dims, torch.float64, device, n, seed)
+        locs, wh, wl, _ = df64.weights_f64(dims, None, None, grids, obs, method, lin)
+    else:
+        kt, vals, obs = _spline_case(dims, method, torch.float64, device, n, seed=seed)
+        locs, wh, wl, _ = df64.spline_weights_f64(kt, obs, method)
+    return locs, wh, wl, vals
+
+
+F64_CASES = [(kind, dims, method, lin)
+             for dims in DIMS[1:]
+             for kind, method, lin in (("regular", "linear", True), ("regular", "cubic", True),
+                                       ("regular", "cubic", False),
+                                       ("rectilinear", "linear", True),
+                                       ("rectilinear", "cubic", False))]
+
+
+@pytest.mark.parametrize("kind,dims,method,lin", F64_CASES,
+                         ids=[f"{k}-{m}-{lin}-{len(d)}d" for k, d, m, lin in F64_CASES])
+def test_df64_kernel_equals_plain(cuda, kind, dims, method, lin):
+    locs, wh, wl, vals = _engine_inputs(kind, dims, method, lin, cuda, _n(dims, 20_000), 3)
+    vh, vl, finite = df64.table_split(vals)
+    fp = df64.FOOTPRINT[method]
+    got = _launched("df64", lambda: df64.contract(dims, fp, locs, wh, wl, vh, vl))
+    want = df64.plain_df64(dims, fp, locs, wh, wl, vh, vl)
+    assert finite
+    for g, w in zip(got, want):
+        _equal(g, w)
+
+
+@pytest.mark.parametrize("dims", DIMS[1:], ids=lambda d: f"{len(d)}d")
+@pytest.mark.parametrize("k", [3, 5])
+def test_df64_spline_kernel_equals_plain(cuda, dims, k):
+    dims = tuple(max(d, k + 1) for d in dims)
+    locs, wh, wl, coeffs = _engine_inputs("bspline", dims, k, True, cuda,
+                                          max(64, min(20_000, 2**24 // (k + 1) ** len(dims))), 4)
+    vh, vl, _ = df64.table_split(coeffs)
+    got = _launched("df64", lambda: df64.contract(dims, k + 1, locs, wh, wl, vh, vl))
+    for g, w in zip(got, df64.plain_df64(dims, k + 1, locs, wh, wl, vh, vl)):
+        _equal(g, w)
+
+
+I8_CASES = [(kind, dims, method, lin)
+            for dims in DIMS[1:] + [(12, 12, 12, 12)]
+            for kind, method, lin in (("regular", "linear", True), ("regular", "cubic", True),
+                                      ("rectilinear", "cubic", False))]
+
+
+@pytest.mark.parametrize("kind,dims,method,lin", I8_CASES,
+                         ids=[f"{k}-{m}-{lin}-{'x'.join(map(str, d))}" for k, d, m, lin in I8_CASES])
+def test_i8_kernel_equals_plain(cuda, kind, dims, method, lin):
+    locs, wh, wl, vals = _engine_inputs(kind, dims, method, lin, cuda, _n(dims, 5_000), 5)
+    pieces, ch, cl, sv, _ = i8.prepare(dims, vals)
+    fp = df64.FOOTPRINT[method]
+    got = _launched("i8", lambda: i8.contract(dims, fp, locs, wh, wl, pieces, ch, cl, sv))
+    for g, w in zip(got, i8.plain_i8(dims, fp, locs, wh, wl, pieces, ch, cl, sv)):
+        _equal(g, w)
+
+
+def test_forced_engines_route_and_agree(cuda, monkeypatch):
+    """INTERPN_TPU_F64=df64|i8 sends f64 CUDA linear/cubic (and splines, to
+    K8) to the engines, within the JAX package's bars of the native kernel;
+    nearest, f32 and non-finite tables keep their kernels."""
+    dims, st, sp, vals, _ = _case((9, 8, 10), torch.float64, cuda, n=2000, seed=6)
+    kt, ct, _ = _spline_case((9, 8, 10), 3, torch.float64, cuda, n=2000, seed=6)
+    # queries up to one cell past each side, the JAX package's test range
+    u = torch.rand(3, 2000, dtype=torch.float64, device=cuda, generator=torch.Generator(cuda))
+    obs = tuple(st[k] + sp[k] * (u[k] * (dims[k] + 1) - 1) for k in range(3))
+    sob = tuple(t[3] + u[k] * (t[-4] - t[3]) for k, t in enumerate(kt))
+    native = {"linear": dispatch.linear_regular(dims, st, sp, vals, obs),
+              "cubic": dispatch.cubic_regular(dims, st, sp, vals, obs, True),
+              "spline": dispatch.bspline_eval(kt, ct, sob, 3)}
+    for engine in ("df64", "i8"):
+        monkeypatch.setenv("INTERPN_TPU_F64", engine)
+        for name, call, kernel, tol in (
+                ("linear", lambda: dispatch.linear_regular(dims, st, sp, vals, obs), engine, 1e-13),
+                ("cubic", lambda: dispatch.cubic_regular(dims, st, sp, vals, obs, True), engine,
+                 1e-12),
+                ("spline", lambda: dispatch.bspline_eval(kt, ct, sob, 3), "df64", 1e-12)):
+            fused.reset_launches()
+            got = call()
+            assert fused.launches == {k: int(k == kernel) for k in fused.launches}, (engine, name)
+            torch.testing.assert_close(got, native[name], rtol=tol, atol=tol)
+        for call, kernel in ((lambda: dispatch.nearest_regular(dims, st, sp, vals, obs),
+                              "regular_nearest"),
+                             (lambda: dispatch.linear_regular(dims, st.float(), sp.float(),
+                                                              vals.float(), [o.float() for o in obs]),
+                              "regular_linear")):
+            fused.reset_launches()
+            call()
+            assert fused.launches == {k: int(k == kernel) for k in fused.launches}, engine
+        bad = vals.clone()
+        bad[5] = float("nan")
+        fused.reset_launches()
+        dispatch.cubic_regular(dims, st, sp, bad, obs, True)
+        assert fused.launches == {k: int(k == "regular_cubic") for k in fused.launches}, engine
+
+
+@pytest.mark.parametrize("engine", ["df64", "i8"])
+def test_forced_engine_caches_numpy_tables_by_content(cuda, monkeypatch, engine):
+    """raw called twice with one numpy table (a fresh CUDA tensor each
+    call) prepares the table once: one host decomposition (i8), one split
+    (df64), and no copy of the table kept in the cache."""
+    monkeypatch.setenv("INTERPN_TPU_F64", engine)
+    built = []
+    decompose, split = i8.decompose, df64.split_f64
+    monkeypatch.setattr(i8, "decompose", lambda *a: built.append("i8") or decompose(*a))
+    monkeypatch.setattr(df64, "split_f64", lambda a: built.append(a.numel()) or split(a))
+    rng = np.random.default_rng(11)
+    dims = np.array([9, 8, 10])
+    starts, steps = np.zeros(3), np.ones(3)
+    vals = rng.standard_normal(720)
+    obs = [rng.uniform(0, d - 1, 300) for d in dims]
+    cache = df64._SPLITS if engine == "df64" else i8._PREPS
+    before = set(cache.entries)
+    outs = []
+    for _ in range(2):
+        out = np.zeros(300)
+        fused.reset_launches()
+        interpn_tpu_torch.raw.interpn_cubic_regular_f64(dims, starts, steps, vals, True, obs, out)
+        assert fused.launches[engine] == 1
+        outs.append(out)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert built.count("i8" if engine == "i8" else 720) == 1
+    (key,) = set(cache.entries) - before
+    assert key[0] == "h" and cache.entries[key][0] is None
+
+
+def test_forced_engine_grads_equal_cpu_grads(cuda, monkeypatch):
+    dims = (5, 4, 6)
+    cpu_args = _case(dims, torch.float64, "cpu", n=500, seed=5)
+    cpu_args = (*cpu_args[:4], tuple(torch.nan_to_num(o, posinf=9.0, neginf=-9.0)
+                                     for o in cpu_args[4]))
+    cot = torch.from_numpy(np.random.default_rng(6).standard_normal(500))
+    for engine in ("df64", "i8"):
+        monkeypatch.setenv("INTERPN_TPU_F64", engine)
+        grads = {}
+        for dev in ("cpu", cuda):
+            leaves = [t.detach().to(dev).requires_grad_() for t in (*cpu_args[1:4], *cpu_args[4])]
+            fused.reset_launches()
+            dispatch.cubic_regular(dims, *leaves[:3], leaves[3:], False).backward(cot.to(dev))
+            assert fused.launches[engine] == int(dev != "cpu")
+            grads[str(dev)] = _grads(leaves)
+        for a, b in zip(grads["cpu"], grads[str(cuda)]):
+            torch.testing.assert_close(b, a, rtol=1e-12, atol=1e-12, msg=engine)
