@@ -13,14 +13,18 @@ call computes the same function, that call.
 
     python3 chip_smoke.py
 
-Phases: 1 build (seconds, registers, spills), 2 kernel vs plain, bitwise
+Phases: 1 build (seconds, registers, spills; for K1/K5 also shared memory
+and blocks an SM of every instantiation), 2 kernel vs plain, bitwise
 (f32/f64, 1-8D, both cubic extrapolation modes, spline degrees 3 and 5,
-stacks of 1, 3 and 8, NaN and +-inf; K8 and K9 on f64 2-8D), 3 nodes (exact,
-splines within 1e-11, K8 to the table's hi + lo, K9 within 1e-13), 4 the
-paths (launch counts and checks), 5 timing: each kernel from CUDA events
-behind a head start (`utils/profiling.py::cuda_time`), each plain version
-from the profiler's device events (`profiled_time`), and for K8/K9 also the
-whole engine call with its float64 weight build. A failed
+stacks of 1, 3 and 8, NaN and +-inf; K1's staged, quads and direct routes,
+100^3 and tables at odd offsets; the pack and the interleave; K8 and K9 on
+f64 2-8D), 3 nodes (exact, splines within 1e-11, K8 to the table's hi +
+lo, K9 within 1e-13), 4 the paths (launch counts, the quads route's pack
+beside K1 and the interleave beside K5, and checks), 5 timing: each kernel
+from CUDA events behind a head start (`utils/profiling.py::cuda_time`),
+each plain version from the profiler's device events (`profiled_time`),
+for K8/K9 also the whole engine call with its float64 weight build, and the
+two layout kernels. A failed
 check raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
 card's name and power limit, the kernels' JSON record and {"ok": true,
@@ -75,6 +79,19 @@ class Path:
     def counter(self) -> str:
         """The key of ops.fused.launches that the path launches."""
         return self.engine or self.kernel
+
+    @property
+    def companion(self) -> str | None:
+        """The key of ops.fused.launches that the path launches beside its
+        kernel, once a call: the layout kernel of its route (the quads
+        route's pack, the interleaved route's interleave)."""
+        from interpn_tpu_torch.ops import fused
+
+        if self.engine or self.kind != "regular":
+            return None
+        route = fused.regular_route((self.n,) * self.ndims, self.dtype, self.method,
+                                    NCH if self.stacked else None)
+        return {"quads": fused.PACK, "interleaved": fused.INTERLEAVE}.get(route)
 
     @property
     def native(self) -> "Path":
@@ -639,6 +656,9 @@ def build_phase():
         if source in ("fused_df64", "fused_i8"):
             engine_build_log(source, ptxas, built)
             continue
+        if source.startswith("fused_regular"):
+            regular_build_log(source, built)
+            continue
         table = {}
         for m in re.finditer(
             r"_kernelI([fd])Li(\d)ELi(\d)E\S*' for \S+\n[^\n]*\n\s+\d+ bytes stack frame, "
@@ -655,6 +675,35 @@ def build_phase():
         for (method, dt), by_nd in sorted(table.items()):
             cells = ", ".join(f"{nd}D {r}/{s}" for nd, (r, s) in sorted(by_nd.items()))
             log(f"phase 1   {source} {method} {dt}: registers/spill-store bytes {cells}")
+
+
+def regular_build_log(source, built):
+    """Phase 1 for K1 and K5: registers, static shared memory and local
+    (spill) bytes of every instantiation (method, route, dtype, 1-8D), and
+    the blocks an SM holds at once as the launch sizes its grid: with the
+    route's reservation of dynamic shared memory (the largest staged table,
+    STAGE_BYTES, on the staged route; none on the others). Staged and quads
+    serve linear only, quads one table only, interleaved the linear and
+    nearest stacks."""
+    from interpn_tpu_torch.ops import fused
+
+    stacked = source.endswith("_stack")
+    log(f"phase 1 build: {source}.cu {built} (one nvcc per source, all at once)")
+    for method, route in itertools.product(fused.METHODS, fused.ROUTES):
+        if ((route in ("staged", "quads") and method != "linear")
+                or (route == "quads" and stacked)
+                or (route == "interleaved" and (method == "cubic" or not stacked))):
+            continue
+        for dtype in (F32, F64):
+            cells = []
+            for nd in range(1, 9):
+                i = fused.regular_info(method, dtype, nd, route, stacked)
+                cells.append(f"{nd}D {i['registers']}/{i['static_smem']}/{i['local_bytes']}/"
+                             f"{i['blocks_per_sm']}")
+            log(f"phase 1   {source} {method} {route} {SHORT[dtype]}: "
+                f"registers/static shared bytes/local bytes/blocks an SM"
+                f"{' at a table of STAGE_BYTES' if route == 'staged' else ''} "
+                f"{', '.join(cells)}")
 
 
 def engine_build_log(source, ptxas, built):
@@ -734,6 +783,58 @@ def kernel_vs_plain_phase(cuda):
                 f"(extrapolation, NaN, +-inf), stacks of 1, 3, 8 in turn: all {results} "
                 "results bitwise equal to the gather tree; each stack's first table bitwise "
                 "equal to the single-table kernel")
+
+
+# per ndims, a table under STAGE_BYTES in f32 and f64 and one over it in both
+ROUTE_DIMS = [((50,), (40_000,)), ((20, 20), (200, 200)), ((20,) * 3, (40,) * 3),
+              ((12,) * 4, (14,) * 4), ((6,) * 5, (8,) * 5), ((4,) * 6, (6,) * 6),
+              ((3,) * 7, (5,) * 7), ((3,) * 8, (4,) * 8)]
+
+
+def regular_routes_phase(cuda):
+    """Phase 2 for K1's routes: linear and nearest at 1-8D on a table under
+    the staging cap and one over it (staged, quads, direct), the bench's
+    100^3 table (quads, and its pack against `plain_pack`), and tables that
+    are views at an odd offset (the staged copy's unaligned head and tail),
+    each bitwise against its plain version with extrapolated, NaN and +-inf
+    queries; and the interleave of stacks of 1-16 tables against
+    `plain_interleave`."""
+    from interpn_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(13)
+    routes, results = {}, 0
+    cases = [(dims, dtype, 0) for pair in ROUTE_DIMS for dims in pair for dtype in (F32, F64)]
+    cases += [((100,) * 3, F32, 0), ((100,) * 3, F64, 0)]
+    cases += [(dims, dtype, off) for dims in ((20,) * 3, (7, 9), (3,)) for dtype in (F32, F64)
+              for off in (1, 2, 3)]
+    for dims, dtype, off in cases:
+        grid, obs = random_case("regular", dims, dtype, N_CHECK // 5, rng, cuda)
+        if off:  # the same table as a view `off` entries into a larger tensor
+            base = torch.empty(off + grid[2].numel(), dtype=dtype, device=cuda)
+            base[off:] = grid[2]
+            grid = (grid[0], grid[1], base[off:])
+        for method in ("linear", "nearest"):
+            route = fused.regular_route(dims, dtype, method)
+            routes[route] = routes.get(route, 0) + 1
+            what = f"regular {method} {dims} {SHORT[dtype]} {route} offset {off}"
+            got = fused.eval_regular(dims, *grid, obs, method)
+            results += bitwise(got, fused.plain_regular(dims, *grid, obs, method), what)
+        if fused.regular_route(dims, dtype, "linear") == "quads":
+            bitwise(fused.pack(dims, grid[2]), fused.plain_pack(dims, grid[2]),
+                    f"pack {dims} {SHORT[dtype]}")
+    stacks = 0
+    for dims, nch in itertools.product(((50,), (20,) * 3, (12,) * 4, (4,) * 8), (1, 3, 8, 9, 16)):
+        for dtype in (F32, F64):
+            vals = torch.as_tensor(rng.standard_normal((nch, math.prod(dims))), dtype=dtype,
+                                   device=cuda)
+            stacks += bitwise(fused.interleave(vals), fused.plain_interleave(vals),
+                              f"interleave of {nch} {dims} {SHORT[dtype]} tables")
+    log(f"phase 2 kernel vs plain K1 routes: linear and nearest at 1-8D under and over the "
+        f"staging cap of {fused.STAGE_BYTES} bytes, 100^3, and views at odd offsets 1-3 "
+        f"(f32, f64; {', '.join(f'{r} {c}' for r, c in sorted(routes.items()))} launches): "
+        f"all {results} results bitwise equal to the gather tree; every packed copy equal to "
+        f"plain_pack; the interleave of stacks of 1, 3, 8, 9, 16 tables at 1, 3, 4, 8D "
+        f"(f32, f64): all {stacks} values equal to plain_interleave")
 
 
 def engine_vs_plain_phase(cuda):
@@ -947,7 +1048,7 @@ def drive_path(p: Path, cuda, rng):
     numpy, where the default device is the card; raw from numpy too for a
     single-table interpolator; then `cuda_entry` from CUDA tensors; launch
     counts; results checked. Returns (launches of its kernel,
-    kernel-vs-plain max_abs_err)."""
+    kernel-vs-plain max_abs_err, launches of its companion by name)."""
     import interpn_tpu_torch
     from interpn_tpu_torch import convert
     from interpn_tpu_torch.ops import fused
@@ -985,10 +1086,15 @@ def drive_path(p: Path, cuda, rng):
         results[name] = call()
         counts.append(fused.launches[p.counter])
     torch.cuda.synchronize()
-    others = {k: v for k, v in fused.launches.items() if k != p.counter and v}
-    if counts != list(range(1, len(calls) + 1)) or others:
-        raise AssertionError(f"{p.label}: launch counts after each call {counts}, others {others}")
+    others = {k: v for k, v in fused.launches.items() if k not in (p.counter, p.companion) and v}
+    expected = list(range(1, len(calls) + 1))
+    if counts != expected or others or (p.companion and
+                                        fused.launches[p.companion] != len(calls)):
+        raise AssertionError(f"{p.label}: launch counts after each call {counts}, others "
+                             f"{others}, {p.companion} {fused.launches.get(p.companion)}")
     launches = fused.launches[p.counter]
+    companions = {p.companion: fused.launches[p.companion]} if p.companion else {}
+    companion = "".join(f", {k} launches {v} (one a call)" for k, v in companions.items())
 
     via_entry = results[entry]
     out_shape = (NCH, N_MAIN) if p.stacked else (N_MAIN,)
@@ -1042,12 +1148,13 @@ def drive_path(p: Path, cuda, rng):
     ref_name = ("a scipy make_interp_spline / BSpline.design_matrix float64 reference"
                 if p.kind == "bspline" else "a float64 numpy reference")
     log(f"phase 4 path {p.label} x {N_MAIN} queries: {', '.join(calls)}; {p.counter} launches "
-        f"after each call {counts}, no other kernel; finite, equal across entry points, kernel "
+        f"after each call {counts}{companion}, no other kernel; finite, equal across entry "
+        f"points, kernel "
         f"bitwise equal to its plain version, within rtol {tol:g}, atol {atol:.3g} of the CPU "
         f"gather tree on "
         f"{N_REF} queries and of {ref_name} on the {covered} of them it covers, every table "
         f"(rtol {REF_TOL[p.dtype]['rtol']:g}, atol {REF_TOL[p.dtype]['atol']:g})")
-    return launches, err
+    return launches, err, companions
 
 
 def grid_sample_call(vals: torch.Tensor, n: int, mode: str, nch: int = 1):
@@ -1224,12 +1331,88 @@ def timing_phase(p: Path, cuda, gen, smi):
             "library_ms": lib_ms, **whole}
 
 
+# the layout kernels (their counter in ops.fused.launches) and the path
+# whose route launches each
+LAYOUT_PATHS = {"regular_pack": Path("regular_linear", F32, 100, 3),
+                "regular_interleave": Path("regular_linear_stack", F32, 20, 3)}
+
+
+def layout_phase(name, cuda, smi, driven) -> dict:
+    """Phase 5 for a layout kernel (`name`: the quads route's pack, the
+    interleaved route's interleave) on its path's table: bitwise against its
+    plain version; its device time and the plain version's from CUDA events
+    behind a head start (the profiler came back from the pack's one-call
+    trace empty on this card), in turns (plain, kernel, kernel, plain), each
+    call laying out the one table as the path does; its bound (the table
+    read once, the copy written once); and the one PyTorch call that
+    computes the same copy: `.contiguous()` of the table's 2x2 windows
+    (`unfold`) for the pack, the plain version's `.t().contiguous()` itself
+    for the interleave. Returns its entry of the kernels record."""
+    from interpn_tpu_torch.ops import fused
+    from interpn_tpu_torch.utils.profiling import cuda_time
+
+    p = LAYOUT_PATHS[name]
+    dims = (p.n,) * p.ndims
+    vals = path_grid(p, cuda)[2]
+    if name == fused.PACK:
+        kern, plain = (lambda v: fused.pack(dims, v)), (lambda v: fused.plain_pack(dims, v))
+        lib = (lambda v: v.reshape(dims[0], dims[1], -1).unfold(0, 2, 1).unfold(1, 2, 1)
+               .transpose(-1, -2).contiguous())
+        lib_name, what = "the unfold windows' .contiguous()", "the pack of the quads route"
+    else:
+        kern, plain, lib = fused.interleave, fused.plain_interleave, fused.plain_interleave
+        lib_name, what = ".t().contiguous()", "the interleave of the interleaved route"
+    got, want = kern(vals), plain(vals)
+    bitwise(got, want, f"{name} vs its plain version")
+    if name == fused.PACK:
+        windows = (vals.reshape(dims[0], dims[1], -1).unfold(0, 2, 1).unfold(1, 2, 1)
+                   .transpose(-1, -2))
+        bitwise(windows.contiguous().reshape(want.shape), want, "unfold windows vs plain_pack")
+    err = max_abs_err(got, want)
+    b_ms = (vals.numel() + got.numel()) * vals.element_size() / PEAK_BYTES * 1e3
+    del got, want
+    same = [vals] * N_BATCHES
+    k_runs, p_runs = [], []
+    for step in ("plain", "kernel", "kernel", "plain"):
+        if step == "kernel":
+            k_runs.append(cuda_time(kern, same))
+        else:
+            p_runs.append(cuda_time(plain, same))
+    lib_ms = (None if lib is plain else
+              min(cuda_time(lib, same).device_ms for _ in range(2)))
+    k_best = min(k_runs, key=lambda t: t.device_ms)
+    ahead = all(t.ahead for t in k_runs)
+    p_dev = min(t.device_ms for t in p_runs)
+    lib_ms = p_dev if lib_ms is None else lib_ms
+    log(f"phase 5 timing {what} on the {p.label} table [{smi}]: kernel "
+        f"{k_best.device_ms:.4f} ms/call by CUDA events behind a head start "
+        f"({'held' if ahead else 'DID NOT hold'}), {k_best.loop_ms:.4f} ms/call back to back; "
+        f"bound {b_ms:.4f} ms by bytes ({b_ms / k_best.device_ms:.1%} of it); plain version "
+        f"{p_dev:.4f} ms/call and {lib_name} {lib_ms:.4f} ms/call, by CUDA events behind a "
+        "head start")
+    return {
+        "name": f"fused_{name}",
+        "route": "cuda",
+        "source": f"interpn_tpu_torch/csrc/fused_regular{'_stack' if p.stacked else ''}.cu",
+        "replaces": replaces(p),
+        "config": f"{what.split(' of the ')[0].removeprefix('the ')} of the {p.label} table",
+        "launches": driven[p][2][name],
+        "max_abs_err": err,
+        "ms": k_best.device_ms,
+        "ahead": ahead,
+        "plain_ms": p_dev,
+        "bound_ms": b_ms,
+        "bound_by": "bytes",
+        "library_ms": lib_ms,
+    }
+
+
 def kernels_record(driven, timed) -> list[dict]:
     """One entry per kernel, from its headline path (its first in PATHS)."""
     kernels = []
     for counter in dict.fromkeys(p.counter for p in PATHS):
         p = next(q for q in PATHS if q.counter == counter)
-        launches, err = driven[p]
+        launches, err, _ = driven[p]
         source = p.engine or f"{p.kind}{'_stack' if p.stacked else ''}"
         kernels.append({
             "name": f"fused_{counter}",
@@ -1258,6 +1441,7 @@ def main() -> None:
 
     build_phase()
     kernel_vs_plain_phase(cuda)
+    regular_routes_phase(cuda)
     engine_vs_plain_phase(cuda)
     nodes_phase(cuda)
 
@@ -1272,10 +1456,11 @@ def main() -> None:
     for p in PATHS:
         with f64_engine(p.engine):
             timed[p] = timing_phase(p, cuda, gen, smi)
+    layouts = [layout_phase(name, cuda, smi, driven) for name in LAYOUT_PATHS]
 
     # the last three lines, unprefixed: the card, the kernels, the result
     print(smi)
-    print(json.dumps({"kernels": kernels_record(driven, timed)}))
+    print(json.dumps({"kernels": [*kernels_record(driven, timed), *layouts]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

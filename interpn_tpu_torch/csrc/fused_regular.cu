@@ -5,23 +5,58 @@
 // whose body is `_build_kernel(..., rect=False)` with the per-axis weights of
 // `_linear_axis_weights`, `_cubic_axis_weights` and `_nearest_axis_weights`,
 // and serves float64 natively (on the TPU, pallas_df64/pallas_i8 serve f64).
-// The kernel, what it computes, its design and what bounds it on this card
-// are in regular.cuh; `fused_regular_stack.cu` instantiates it for stacks.
+// The kernel, what it computes, what bounds it on this card and the layouts
+// it reads (the table staged in shared memory, packed quads for a linear
+// table above the cap, or the table itself) are in regular.cuh;
+// `fused_regular_stack.cu` instantiates it for stacks. The entry here also
+// launches the quads route's pack.
 
 #include "interp_common.cuh"
 #include "regular.cuh"
 
 // Launches the kernel on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success). `method` is 0 linear, 1 cubic,
-// 2 nearest; `linearize` selects linearized cubic extrapolation. `dims` and
-// `obs` are host arrays of `ndims` entries; `obs`, `starts`, `steps`, `vals`
-// and `out` hold device pointers of the type selected by `is_f64`. The
-// caller guarantees 1 <= ndims <= 8, every dim >= 2 (>= 4 for cubic),
-// prod(dims) < 2^31, 0 < n < 2^31 and nch == 1.
+// cudaGetLastError() (0 on success), or the error that sizing the grid met.
+// `method` is 0 linear, 1 cubic, 2 nearest; `linearize` selects linearized
+// cubic extrapolation; `route` is the layout the wrapper chose
+// (regular.cuh): 0 direct, 1 staged (linear, the table within kStageBytes),
+// 2 quads (linear: the pack of `vals` into `work`, (d0-1)(d1-1) prod(d2..)
+// cells of 4 values, or d0-1 pairs of a 1-D table, is launched first and
+// the kernel reads it). `work` is unused on the other routes. `dims` and
+// `obs` are host arrays of `ndims` entries; `obs`, `starts`, `steps`,
+// `work`, `vals` and `out` hold device pointers of the type selected by
+// `is_f64`. The caller guarantees 1 <= ndims <= 8, every dim >= 2 (>= 4 for
+// cubic), prod(dims) < 2^31, 0 < n < 2^31 and nch == 1. The grid holds as
+// many blocks as the card runs at once, at most one query a thread.
 extern "C" int interpn_regular(int method, int linearize, int is_f64, int ndims,
                                const int* dims, const void* starts, const void* steps,
-                               const void* vals, const void* const* obs, void* out,
-                               long long n, int nch, int blocks, void* stream) {
+                               void* work, const void* vals, const void* const* obs,
+                               void* out, long long n, int nch, int route, void* stream) {
   return interp::regular_entry<false>(method, linearize, is_f64, ndims, dims, starts, steps,
-                                      vals, obs, out, n, nch, blocks, stream);
+                                      work, vals, obs, out, n, nch, route, stream);
+}
+
+// Registers a thread, static shared bytes, local (spill) bytes a thread and
+// the blocks an SM holds at once with the route's reservation of dynamic
+// shared memory, of the instantiation `interpn_regular` launches for
+// (method, is_f64, ndims, route), into out[0..3].
+extern "C" int interpn_regular_info(int method, int is_f64, int ndims, int route, int* out) {
+  return interp::regular_info_entry<false>(method, is_f64, ndims, route, out);
+}
+
+// The pack of the quads route alone, as `interpn_regular` launches it on
+// that route: `out` receives the packed copy of `vals` (regular.cuh,
+// `pack_kernel`). Launched on `stream` without synchronising; returns
+// cudaGetLastError(). The caller guarantees 1 <= ndims <= 8, every dim >= 2
+// and prod(dims) < 2^31.
+extern "C" int interpn_regular_pack(int is_f64, int ndims, const int* dims, const void* vals,
+                                    void* out, void* stream) {
+  if (ndims < 1 || ndims > interp::kMaxDims) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_f64 ? interp::launch_pack(ndims, dims, static_cast<const double*>(vals),
+                                   static_cast<double*>(out), s)
+             : interp::launch_pack(ndims, dims, static_cast<const float*>(vals),
+                                   static_cast<float*>(out), s));
 }

@@ -50,24 +50,46 @@ __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(
 __device__ __forceinline__ double floor_(double a) { return floor(a); }
 __device__ __forceinline__ double clamp_(double a, double hi) { return fmin(fmax(a, 0.0), hi); }
 
-// Value of the D-dimensional sub-cell at `base`: the two (D-1)-dimensional
-// halves along dim D-1, lerped with t[D-1]. Depth first, so at most D
-// partial sums are live; the pairing is the level-by-level tree's.
-template <typename T, int D>
-struct LerpTree {
-  static __device__ __forceinline__ T eval(const T* __restrict__ vals, int base,
-                                           const int* stride, const T* t) {
-    const T y0 = LerpTree<T, D - 1>::eval(vals, base, stride, t);
-    const T y1 = LerpTree<T, D - 1>::eval(vals, base + stride[D - 1], stride, t);
-    return add_rn(y0, mul_rn(t[D - 1], sub_rn(y1, y0)));
-  }
+// W values side by side: the channels of one table entry that a stack
+// kernel reduces together (W = 1 for one table).
+template <typename T, int W>
+struct Lanes {
+  T v[W];
 };
 
+template <typename T, int W>
+__device__ __forceinline__ Lanes<T, W> lerp(const Lanes<T, W>& y0, const Lanes<T, W>& y1, T t) {
+  Lanes<T, W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.v[j] = add_rn(y0.v[j], mul_rn(t, sub_rn(y1.v[j], y0.v[j])));
+  return r;
+}
+
+// The leaf that reads one table entry through the read-only cache.
 template <typename T>
-struct LerpTree<T, 0> {
-  static __device__ __forceinline__ T eval(const T* __restrict__ vals, int base,
-                                           const int*, const T*) {
-    return __ldg(vals + base);
+struct Ldg {
+  const T* p;
+
+  __device__ __forceinline__ Lanes<T, 1> operator()(int off) const { return {__ldg(p + off)}; }
+};
+
+// Value of the D-dimensional sub-cell at `base`: the two (D-1)-dimensional
+// halves along dim D-1, lerped with t[D-1], down to the leaf, which returns
+// the sub-cell of its first LEAF dims (table entries for LEAF = 0, a pair or
+// quad already reduced otherwise). Depth first, so at most D partials are
+// live; the pairing is the level-by-level tree's (dim 0 first).
+template <typename T, int D, int LEAF = 0>
+struct LerpTree {
+  template <typename Leaf>
+  static __device__ __forceinline__ auto eval(const Leaf& leaf, int base, const int* stride,
+                                              const T* t) {
+    if constexpr (D == LEAF) {
+      return leaf(base);
+    } else {
+      const auto y0 = LerpTree<T, D - 1, LEAF>::eval(leaf, base, stride, t);
+      const auto y1 = LerpTree<T, D - 1, LEAF>::eval(leaf, base + stride[D - 1], stride, t);
+      return lerp(y0, y1, t[D - 1]);
+    }
   }
 };
 

@@ -128,13 +128,14 @@ __global__ void __launch_bounds__(kThreads)
           if constexpr (METHOD == kNearest) {
             out[c * n + i] = __ldg(vals + c * table + base);
           } else {
-            out[c * n + i] = LerpTree<T, NDIMS>::eval(vals + c * table, base, stride, t);
+            out[c * n + i] =
+                LerpTree<T, NDIMS>::eval(Ldg<T>{vals + c * table}, base, stride, t).v[0];
           }
         }
       } else if constexpr (METHOD == kNearest) {
         out[i] = __ldg(vals + base);
       } else {
-        out[i] = LerpTree<T, NDIMS>::eval(vals, base, stride, t);
+        out[i] = LerpTree<T, NDIMS>::eval(Ldg<T>{vals}, base, stride, t).v[0];
       }
     }
   }

@@ -4,49 +4,293 @@
 //
 // What it computes, per query:
 // - linear: the 2^N cell corners reduced by the reference's lerp tree
-//   (`ops/linear.py`), cell and t located as `locate_regular_linear` does;
+//   (`ops/linear.py`: dim 0 first), cell and t located as
+//   `locate_regular_linear` does;
 // - cubic: the 4^N stencil reduced by the Hermite tree of `ops/cubic.py`,
 //   with the 5-region saturation of `locate_regular_cubic`, optional
 //   linearized extrapolation, and exact values at grid nodes;
 // - nearest: one table read, the lower index winning the tie
 //   (`ops/nearest.py`).
 // Every rounding step is the plain PyTorch version's, so the two agree bit
-// for bit (see interp_common.cuh).
+// for bit (see interp_common.cuh). Only how the table values reach the
+// registers differs between the routes below; the trees are the same.
 //
-// Design: the TPU kernel contracts per-query weight matrices against the
-// whole table on the MXU, because Mosaic has no per-lane gather. A Hopper
-// thread gathers, so this kernel reads only the stencil: one thread per
-// query (grid-stride loop), table reads through the read-only cache. The
-// stack instantiation (kStack) locates each query once and then loops over
-// the channels, channel c reading its stencil at the same offsets in table c
-// and writing row c of the (nch, n) output. The single-table instantiation
-// has no loop: a runtime channel loop there cost K1 linear 45% and
-// rectilinear cubic f64 80% on an H100 (more registers, fewer blocks per SM).
+// The TPU kernel contracts per-query weight matrices against the whole
+// table on the MXU, because Mosaic has no per-lane gather. A Hopper thread
+// gathers, so this kernel reads only the stencil: one thread per query in a
+// grid-stride loop over as many blocks as the card holds at once (sized from
+// the occupancy of each instantiation, `Regular::launch`).
 //
-// What bounds it on this card: each query streams sizeof(T)*(ndims+nch)
-// bytes in and out of device memory. Linear and nearest add 2^N or 1 table
-// reads per table that hit L1/L2 (a 20^3 f32 table is 32 KB; 100^3 is 4 MB,
-// within the 50 MB L2) and are bound by the query stream and the scattered
-// reads. Cubic does about 20 floating-point operations per tree node,
-// (4^N - 1)/3 nodes per query and table, and is bound by arithmetic from 3D
-// up (f64 most of all).
+// What bounds it on this card. Each query streams sizeof(T)*(ndims+nch)
+// bytes of coordinates and results through device memory. Linear and
+// nearest add scattered table reads: a warp's 32 queries touch up to 32
+// lines per corner, and each line is one L1 tag lookup, so at 2^N corners
+// the lookups, not the bytes, set the pace (reading every corner direct,
+// linear ran at 28% of its byte bound at 20^3 f32 and at 10% at 100^3, whose
+// table misses L1). Cubic does about 20
+// operations per tree node, (4^N - 1)/3 nodes per query and table, and is
+// bound by arithmetic from 3D up.
+//
+// The routes. The wrapper alone picks one, from dims, dtype, method and nch
+// (`ops/fused.py::regular_route`), lays the table out for it and passes its
+// code; the entry launches the route's instantiation and works nothing out
+// again. f64 is never staged nor packed: direct timed ahead of both at 20^3
+// and 100^3 on an H100.
+// - kStaged (f32 linear; a table, or a stack of fewer than 8, of at most
+//   kStageBytes): each block copies the table into shared memory once, by
+//   one bulk asynchronous copy (`cp.async.bulk`, TMA's 1-D form) completing
+//   on an mbarrier, its unaligned head and tail by plain loads, and then
+//   reads the stencil there: bank conflicts, a few wavefronts a warp, in
+//   place of up to 32 L1 tag lookups. The copies cost L2 bandwidth at the
+//   start of the kernel, so the route runs 1024-thread blocks. Nearest, one
+//   read a query, did not repay the copies and reads the table direct.
+// - kQuads (f32 linear, one table above that cap whose packed copy fits
+//   16 MiB): the entry first launches the pack (`pack_kernel`) into a
+//   buffer the wrapper allocates each call, so that cell (i, j, ...) holds
+//   the four corners of axes 0 and 1 together, one 16-byte sector; a 1-D
+//   table is packed as pairs. A query then reads 2^(N-2) quads instead of
+//   2^N values. Axes 0 and 1 are the lerp tree's first two levels, so each
+//   quad is one leaf of the depth-first tree and at most N - 2 partial sums
+//   stay live.
+// - kInterleaved (a linear or nearest stack of at least kRunBytes of
+//   channels a table entry: 8 f32, 4 f64 tables, at 1-8D): the entry
+//   first launches the interleave (`interleave_kernel`) into a buffer the
+//   wrapper allocates each call, (prod(dims), nch), so a query reads each
+//   corner's channels as one run (two 16-byte loads a corner, one sector)
+//   and runs the per-channel trees on them together, kRunBytes of channels
+//   at a time. A smaller stack, and a cubic one, keeps its tables one after
+//   another and runs one table at a time: its runs would fill part of a
+//   sector and leave lanes idle (interleaved, stacks of 1 and 3 f32 tables
+//   ran 2-3x slower than staged on an H100, `scripts/torch_regular_ab.py`),
+//   and a cubic tree over 8 lanes (4^N entries each) would not fit the
+//   registers.
+// - kDirect (the rest): the stencil straight from the table through the
+//   read-only cache, a stack's tables one at a time.
 
 #pragma once
+
+#include <mutex>
 
 #include "interp_common.cuh"
 
 namespace interp {
 
+// routes: ops/fused.py::ROUTES, chosen by the wrapper alone
+constexpr int kDirect = 0;
+constexpr int kStaged = 1;
+constexpr int kQuads = 2;
+constexpr int kInterleaved = 3;
+
+// Threads a block of the staged route. A staged block copies the whole
+// table, so the route runs the largest blocks, one or two copies an SM
+// (256-thread blocks made up to eight, and ran slower on an H100).
+constexpr int kStagedThreads = 1024;
+// The largest staged table in bytes (ops/fused.py::STAGE_BYTES): half of
+// the 227 KB a block may use, so that two blocks share an SM.
+constexpr int kStageBytes = 112 * 1024;
+// Bytes of channels an interleaved stack reads and runs together: one
+// 32-byte sector, by two 16-byte loads (8 f32, 4 f64 channels).
+constexpr int kRunBytes = 32;
+
+template <int ROUTE>
+constexpr int threads_of() {
+  return ROUTE == kStaged ? kStagedThreads : kThreads;
+}
+
+// Dynamic shared memory a block of the route reserves: the largest staged
+// table and its offset from a 16-byte boundary.
+template <int ROUTE>
+constexpr size_t reserve_of() {
+  return ROUTE == kStaged ? kStageBytes + 16 : 0;
+}
+
+// Channels of a stack that run together: a sector of them, interleaved;
+// one table at a time on the other routes.
+template <typename T, int ROUTE>
+__host__ __device__ constexpr int lanes_of() {
+  return ROUTE == kInterleaved ? kRunBytes / static_cast<int>(sizeof(T)) : 1;
+}
+
+// Whether the route has an instantiation for the method: staged serves
+// linear, one table or a stack read table by table; quads single-table
+// linear; interleaved the linear and nearest stacks.
+constexpr bool serves(int route, int method, bool stack) {
+  return route == kDirect || (route == kStaged && method == kLinear) ||
+         (route == kQuads && method == kLinear && !stack) ||
+         (route == kInterleaved && method != kCubic && stack);
+}
+
 struct GridArgs {
   int dim[kMaxDims];     // points per axis
-  int stride[kMaxDims];  // C-order strides in elements
+  int stride[kMaxDims];  // strides in elements (stacks) or quads of the layout read
 };
 
-template <typename T, int NDIMS, int METHOD, bool kStack>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+struct Vec16;  // the 16-byte vector of T
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static __device__ __forceinline__ void put(float* v, float4 q) {
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static __device__ __forceinline__ void put(double* v, double2 q) {
+    v[0] = q.x;
+    v[1] = q.y;
+  }
+};
+
+// *p from the staged copy in shared memory, or through the read-only cache
+template <bool kShared, typename V>
+__device__ __forceinline__ V load(const V* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
+// Channels c0 .. c0 + count - 1 (count <= W) of the entry at element offset
+// `off`, from the table in device memory or its copy in shared memory: W
+// values by 16-byte loads where `vec` (count == W and every run 16-byte
+// aligned), else one load per channel; lanes past count read as 0.
+template <typename T, int W, bool kShared>
+struct Channels {
+  const T* p;  // the table at channel c0
+  int count;
+  bool vec;
+
+  __device__ __forceinline__ Lanes<T, W> operator()(int off) const {
+    Lanes<T, W> r;
+    constexpr int kPer = 16 / sizeof(T);
+    if constexpr (W == 1) {
+      r.v[0] = load<kShared>(p + off);
+      return r;
+    } else if constexpr (W % kPer == 0) {
+      if (vec) {
+        using V = typename Vec16<T>::type;
+        const V* q = reinterpret_cast<const V*>(p + off);
+#pragma unroll
+        for (int j = 0; j < W / kPer; ++j) Vec16<T>::put(r.v + j * kPer, load<kShared>(q + j));
+        return r;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) r.v[j] = j < count ? load<kShared>(p + off + j) : T(0);
+    return r;
+  }
+};
+
+// The leaf of the packed route: the pair (LEAF = 1: entries i, i+1 of a 1-D
+// table) or quad (LEAF = 2: (i, j), (i+1, j), (i, j+1), (i+1, j+1) of axes 0
+// and 1) at `cell`, reduced by the tree's first LEAF levels.
+template <typename T, int LEAF>
+struct Packed {
+  const T* q;  // the packed copy, 2^LEAF entries a cell
+  const T* t;
+
+  __device__ __forceinline__ Lanes<T, 1> operator()(int cell) const {
+    T v[1 << LEAF];
+    if constexpr (LEAF == 1) {
+      if constexpr (sizeof(T) == 4) {
+        const float2 p = __ldg(reinterpret_cast<const float2*>(q) + cell);
+        v[0] = p.x;
+        v[1] = p.y;
+      } else {
+        Vec16<T>::put(v, __ldg(reinterpret_cast<const double2*>(q) + cell));
+      }
+    } else {
+      using V = typename Vec16<T>::type;
+      constexpr int kVecs = 4 * sizeof(T) / 16;
+      const V* p = reinterpret_cast<const V*>(q) + static_cast<int64_t>(cell) * kVecs;
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) Vec16<T>::put(v + j * (16 / sizeof(T)), __ldg(p + j));
+    }
+    Lanes<T, 1> r;
+    r.v[0] = add_rn(v[0], mul_rn(t[0], sub_rn(v[1], v[0])));
+    if constexpr (LEAF == 2) {
+      const T b = add_rn(v[2], mul_rn(t[0], sub_rn(v[3], v[2])));
+      r.v[0] = add_rn(r.v[0], mul_rn(t[1], sub_rn(b, r.v[0])));
+    }
+    return r;
+  }
+};
+
+// --- staging the table in shared memory -------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies `entries` values from `vals` into shared memory so that entry e sits
+// at s[e], s = smem + (vals & 15): the 16-byte-aligned middle by one bulk
+// copy that thread 0 issues and that completes on `bar`, the unaligned head
+// and tail (under 16 bytes each) by plain loads, visible after the
+// __syncthreads here. Returns s; sets *bulk when a bulk copy is in flight
+// (block-uniform), which `await_bulk` waits for.
+template <typename T>
+__device__ __forceinline__ const T* stage_table(const T* __restrict__ vals, int64_t entries,
+                                                unsigned char* smem, uint64_t* bar, bool* bulk) {
+  const uintptr_t g = reinterpret_cast<uintptr_t>(vals);
+  const uintptr_t a = (g + 15) & ~uintptr_t(15);
+  const uintptr_t e = (g + entries * sizeof(T)) & ~uintptr_t(15);
+  T* s = reinterpret_cast<T*>(smem + (g & 15));
+  *bulk = a < e;
+  const int64_t head = *bulk ? static_cast<int64_t>((a - g) / sizeof(T)) : entries;
+  const int64_t tail = *bulk ? static_cast<int64_t>((e - g) / sizeof(T)) : entries;
+  for (int64_t k = threadIdx.x; k < head; k += blockDim.x) s[k] = __ldg(vals + k);
+  for (int64_t k = tail + threadIdx.x; k < entries; k += blockDim.x) s[k] = __ldg(vals + k);
+  if (*bulk && threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (*bulk && threadIdx.x == 0) {
+    const uint32_t bytes = static_cast<uint32_t>(e - a);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_addr(bar)),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(smem_addr(s + head)),
+        "l"(vals + head), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  }
+  return s;
+}
+
+// Waits until the bulk copy of `stage_table` has landed (phase 0 of `bar`
+// complete).
+__device__ __forceinline__ void await_bulk(uint64_t* bar) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar))
+        : "memory");
+  } while (!done);
+}
+
+// --- the kernel -------------------------------------------------------------------------
+
+template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
+__global__ void __launch_bounds__(threads_of<ROUTE>())
     regular_kernel(GridArgs grid, ObsPtrs<T> obs, const T* __restrict__ starts,
                    const T* __restrict__ steps, const T* __restrict__ vals, int64_t table,
                    int nch, T* __restrict__ out, int64_t n, bool lin) {
+  constexpr bool kShared = ROUTE == kStaged;
+  constexpr int W = lanes_of<T, ROUTE>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bar;
   T start[NDIMS], step[NDIMS], dimmax[NDIMS], high_at[NDIMS];
   int stride[NDIMS];
 #pragma unroll
@@ -59,6 +303,11 @@ __global__ void __launch_bounds__(kThreads)
     high_at[k] = static_cast<T>(grid.dim[k] - 3);
     stride[k] = grid.stride[k];
   }
+  const T* src = vals;
+  bool pending = false;  // a bulk copy into shared memory not yet awaited
+  if constexpr (kShared) src = stage_table(vals, table * nch, smem, &bar, &pending);
+  // 16-byte loads of a stack's channel runs: every entry's run aligned
+  const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 && (nch * sizeof(T)) % 16 == 0;
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += nthreads) {
@@ -82,10 +331,10 @@ __global__ void __launch_bounds__(kThreads)
         ax[k].high = high;
         ax[k].outside = iloc < T(-1) || (!low && iloc > high_at[k]);
       }
-      if constexpr (kStack) {
+      if constexpr (kStack) {  // tables one after another
         for (int c = 0; c < nch; ++c) {
-          out[c * n + i] = CubicTree<T, RegularCubicAxis<T>, NDIMS>::eval(
-              vals + c * table, base, stride, ax, lin);
+          out[c * n + i] = CubicTree<T, RegularCubicAxis<T>, NDIMS>::eval(vals + c * table, base,
+                                                                          stride, ax, lin);
         }
       } else {
         out[i] = CubicTree<T, RegularCubicAxis<T>, NDIMS>::eval(vals, base, stride, ax, lin);
@@ -104,21 +353,214 @@ __global__ void __launch_bounds__(kThreads)
         // nearest: the lower index at the tie; NaN t fails <= and takes +1
         base += (METHOD == kNearest ? loc + (t[k] <= T(0.5) ? 0 : 1) : loc) * stride[k];
       }
-      if constexpr (kStack) {
+      if constexpr (kShared) {
+        if (pending) {
+          await_bulk(&bar);
+          pending = false;
+        }
+      }
+      if constexpr (ROUTE == kQuads) {
+        constexpr int LEAF = NDIMS == 1 ? 1 : 2;
+        out[i] = LerpTree<T, NDIMS, LEAF>::eval(Packed<T, LEAF>{vals, t}, base, stride, t).v[0];
+      } else if constexpr (W == 1) {  // one table, or a stack's tables one at a time
         for (int c = 0; c < nch; ++c) {
+          const Channels<T, 1, kShared> at{src + c * table, 1, false};
           if constexpr (METHOD == kNearest) {
-            out[c * n + i] = __ldg(vals + c * table + base);
+            out[c * n + i] = at(base).v[0];
           } else {
-            out[c * n + i] = LerpTree<T, NDIMS>::eval(vals + c * table, base, stride, t);
+            out[c * n + i] = LerpTree<T, NDIMS>::eval(at, base, stride, t).v[0];
+          }
+          if constexpr (!kStack) break;
+        }
+      } else {  // channel-interleaved, W channels at a time
+        for (int c0 = 0; c0 < nch; c0 += W) {
+          const int count = nch - c0 < W ? nch - c0 : W;
+          const Channels<T, W, kShared> at{src + c0, count, vec && count == W};
+          Lanes<T, W> y;
+          if constexpr (METHOD == kNearest) {
+            y = at(base);
+          } else {
+            y = LerpTree<T, NDIMS>::eval(at, base, stride, t);
+          }
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            if (j < count) out[(c0 + j) * n + i] = y.v[j];
           }
         }
-      } else if constexpr (METHOD == kNearest) {
-        out[i] = __ldg(vals + base);
-      } else {
-        out[i] = LerpTree<T, NDIMS>::eval(vals, base, stride, t);
       }
     }
   }
+  if constexpr (kShared) {
+    // a thread that read no table still lets the copy land before its
+    // block's shared memory is released
+    if (pending) await_bulk(&bar);
+  }
+}
+
+// The pack of the kQuads route: cell q of the (d0-1, d1-1, d2, ...) cells
+// holds the corners (i, j), (i+1, j), (i, j+1), (i+1, j+1) of axes 0 and 1
+// at the cell's other indices; a 1-D table (d1 = 0) packs (i, i+1). Plain
+// version: `ops/fused.py::plain_pack`.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    pack_kernel(const T* __restrict__ vals, T* __restrict__ out, int cells, int d1, int rest) {
+  using V = typename Vec16<T>::type;
+  const int nthreads = gridDim.x * blockDim.x;
+  for (int q = blockIdx.x * blockDim.x + threadIdx.x; q < cells; q += nthreads) {
+    if (d1 == 0) {
+      const T v0 = __ldg(vals + q), v1 = __ldg(vals + q + 1);
+      if constexpr (sizeof(T) == 4) {
+        reinterpret_cast<float2*>(out)[q] = make_float2(v0, v1);
+      } else {
+        reinterpret_cast<double2*>(out)[q] = make_double2(v0, v1);
+      }
+      continue;
+    }
+    const int r = q % rest;
+    const int ij = q / rest;
+    const int j = ij % (d1 - 1);
+    const int i = ij / (d1 - 1);
+    const int64_t row = static_cast<int64_t>(d1) * rest;  // axis 0's stride
+    const T* p = vals + i * row + static_cast<int64_t>(j) * rest + r;
+    const T v0 = __ldg(p), v1 = __ldg(p + row), v2 = __ldg(p + rest), v3 = __ldg(p + row + rest);
+    if constexpr (sizeof(T) == 4) {
+      reinterpret_cast<V*>(out)[q] = make_float4(v0, v1, v2, v3);
+    } else {
+      V* o = reinterpret_cast<V*>(out) + 2 * static_cast<int64_t>(q);
+      o[0] = make_double2(v0, v1);
+      o[1] = make_double2(v2, v3);
+    }
+  }
+}
+
+// The layout of the kInterleaved route: entry e of table c of the (nch,
+// table) stack lands at out[e * nch + c], a corner's channels side by side.
+// Plain version: `ops/fused.py::plain_interleave`.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    interleave_kernel(const T* __restrict__ vals, T* __restrict__ out, int64_t table, int nch) {
+  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < table;
+       e += nthreads) {
+    for (int c = 0; c < nch; ++c) out[e * nch + c] = __ldg(vals + c * table + e);
+  }
+}
+
+// --- launching ----------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// Blocks of one kernel instantiation that an SM holds at once with its
+// route's reservation of dynamic shared memory (`reserve_of`), and the SM
+// count, per device: computed at the first launch on the device, after
+// raising the instantiation's dynamic shared-memory limit to the
+// reservation where that is above the default 48 KB. The limit is set to
+// that one value only, under the lock, before any launch on the device
+// reads the cache, so no launch finds it lowered; a launch's table may use
+// less of it.
+struct Occupancy {
+  std::mutex mu;
+  int per_sm[kMaxDevices] = {};  // 0: not computed yet
+  int sms[kMaxDevices] = {};
+};
+
+template <typename Kernel>
+cudaError_t occupancy_of(Kernel kernel, int threads, size_t reserve, int device, int* per_sm,
+                         int* sms) {
+  cudaError_t err = cudaSuccess;
+  if (reserve > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(reserve));
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, reserve);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+}
+
+template <typename Kernel>
+cudaError_t occupancy(Occupancy& o, Kernel kernel, int threads, size_t reserve, int* per_sm,
+                      int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(o.mu);
+  if (o.per_sm[device] == 0) {
+    int got = 0, count = 0;
+    err = occupancy_of(kernel, threads, reserve, device, &got, &count);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // reported here; not again by the next launch's check
+      return err;
+    }
+    o.sms[device] = count;
+    o.per_sm[device] = got;
+  }
+  *per_sm = o.per_sm[device];
+  *sms = o.sms[device];
+  return cudaSuccess;
+}
+
+// min(ceil(n / threads), SMs x resident blocks); an error where no block
+// fits.
+template <typename Kernel>
+cudaError_t grid_blocks(Occupancy& o, Kernel kernel, int threads, size_t reserve, int64_t n,
+                        int* blocks) {
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = occupancy(o, kernel, threads, reserve, &per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  const int64_t want = (n + threads - 1) / threads;
+  const int64_t most = static_cast<int64_t>(per_sm) * sms;
+  *blocks = static_cast<int>(want < most ? want : most);
+  return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <typename T>
+struct PackKey {};
+template <typename T>
+struct InterleaveKey {};
+
+namespace {
+// One cache per kernel, keyed by a type. Internal linkage: a static of an
+// inline function with external linkage is one object per process, shared
+// by every library built from this header (two builds of one source loaded
+// side by side would share, and skip, each other's shared-memory opt-in).
+template <typename Key>
+Occupancy& occupancy_cache() {
+  static Occupancy o;
+  return o;
+}
+}  // namespace
+
+// Launches the pack of the quads route on `stream`: `out` receives the
+// (d0-1) pairs of a 1-D table, or the (d0-1)(d1-1) prod(d2..) quads.
+template <typename T>
+cudaError_t launch_pack(int ndims, const int* dims, const T* vals, T* out, cudaStream_t stream) {
+  const bool pairs = ndims == 1;
+  int rest = 1;
+  for (int k = 2; k < ndims; ++k) rest *= dims[k];
+  const int cells = pairs ? dims[0] - 1 : (dims[0] - 1) * (dims[1] - 1) * rest;
+  const auto kernel = pack_kernel<T>;
+  int blocks = 0;
+  const cudaError_t err =
+      grid_blocks(occupancy_cache<PackKey<T>>(), kernel, kThreads, 0, cells, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, 0, stream>>>(vals, out, cells, pairs ? 0 : dims[1], rest);
+  return cudaGetLastError();
+}
+
+// Launches the layout of the interleaved route on `stream`: `out` receives
+// the (nch, table) stack `vals` as (table, nch).
+template <typename T>
+cudaError_t launch_interleave(const T* vals, T* out, int64_t table, int nch,
+                              cudaStream_t stream) {
+  const auto kernel = interleave_kernel<T>;
+  int blocks = 0;
+  const cudaError_t err =
+      grid_blocks(occupancy_cache<InterleaveKey<T>>(), kernel, kThreads, 0, table, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, 0, stream>>>(vals, out, table, nch);
+  return cudaGetLastError();
 }
 
 // What every launch of one call shares.
@@ -127,82 +569,178 @@ struct RegularLaunch {
   const void* const* obs;
   const void* starts;
   const void* steps;
-  const void* vals;
-  int64_t table;  // entries per table: the channel stride of vals
+  const void* vals;  // the table, its interleaved stack or its packed copy
+  int64_t table;     // entries of one table
   int nch;
   void* out;
   int64_t n;
   bool lin;
-  int blocks;
   cudaStream_t stream;
 };
 
-template <typename T, int NDIMS, int METHOD, bool kStack>
-cudaError_t regular_launch(const RegularLaunch& a) {
-  ObsPtrs<T> ptrs{};
-  for (int k = 0; k < NDIMS; ++k) ptrs.p[k] = static_cast<const T*>(a.obs[k]);
-  regular_kernel<T, NDIMS, METHOD, kStack><<<a.blocks, kThreads, 0, a.stream>>>(
-      a.grid, ptrs, static_cast<const T*>(a.starts), static_cast<const T*>(a.steps),
-      static_cast<const T*>(a.vals), a.table, a.nch, static_cast<T*>(a.out), a.n, a.lin);
-  return cudaGetLastError();
-}
+template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
+struct Regular {
+  static cudaError_t launch(const RegularLaunch& a) {
+    const auto kernel = regular_kernel<T, NDIMS, METHOD, kStack, ROUTE>;
+    constexpr int threads = threads_of<ROUTE>();
+    constexpr size_t reserve = reserve_of<ROUTE>();
+    // the staged table and its offset from a 16-byte boundary
+    const size_t smem = ROUTE == kStaged ? a.table * a.nch * sizeof(T) + 16 : 0;
+    if (smem > reserve) return cudaErrorInvalidValue;  // above the staging cap
+    int blocks = 0;
+    const cudaError_t err = grid_blocks(occupancy_cache<Regular>(),
+                                        kernel, threads, reserve, a.n, &blocks);
+    if (err != cudaSuccess) return err;
+    ObsPtrs<T> ptrs{};
+    for (int k = 0; k < NDIMS; ++k) ptrs.p[k] = static_cast<const T*>(a.obs[k]);
+    kernel<<<blocks, threads, smem, a.stream>>>(
+        a.grid, ptrs, static_cast<const T*>(a.starts), static_cast<const T*>(a.steps),
+        static_cast<const T*>(a.vals), a.table, a.nch, static_cast<T*>(a.out), a.n, a.lin);
+    return cudaGetLastError();
+  }
 
-template <typename T, int METHOD, bool kStack>
-cudaError_t regular_ndims(int ndims, const RegularLaunch& a) {
-  switch (ndims) {
-    case 1: return regular_launch<T, 1, METHOD, kStack>(a);
-    case 2: return regular_launch<T, 2, METHOD, kStack>(a);
-    case 3: return regular_launch<T, 3, METHOD, kStack>(a);
-    case 4: return regular_launch<T, 4, METHOD, kStack>(a);
-    case 5: return regular_launch<T, 5, METHOD, kStack>(a);
-    case 6: return regular_launch<T, 6, METHOD, kStack>(a);
-    case 7: return regular_launch<T, 7, METHOD, kStack>(a);
-    case 8: return regular_launch<T, 8, METHOD, kStack>(a);
-    default: return cudaErrorInvalidValue;
+  // info[0..3]: registers a thread, static shared bytes, local (spill)
+  // bytes a thread, blocks an SM holds at once with the route's
+  // reservation of dynamic shared memory.
+  static cudaError_t info(int* out) {
+    const auto kernel = regular_kernel<T, NDIMS, METHOD, kStack, ROUTE>;
+    cudaFuncAttributes attr{};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    int sms = 0;
+    err = occupancy(occupancy_cache<Regular>(), kernel,
+                    threads_of<ROUTE>(), reserve_of<ROUTE>(), &out[3], &sms);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[2] = static_cast<int>(attr.localSizeBytes);
+    return err;
+  }
+};
+
+// Calls op.template run<Regular<...>>() for the instantiation of (dtype,
+// method, ndims, route); cudaErrorInvalidValue for a combination that has
+// none (`serves`).
+template <bool kStack, int ROUTE, typename T, int METHOD, typename Op>
+cudaError_t visit_ndims(int ndims, Op& op) {
+  if constexpr (!serves(ROUTE, METHOD, kStack)) {
+    return cudaErrorInvalidValue;
+  } else {
+    switch (ndims) {
+      case 1: return op.template run<Regular<T, 1, METHOD, kStack, ROUTE>>();
+      case 2: return op.template run<Regular<T, 2, METHOD, kStack, ROUTE>>();
+      case 3: return op.template run<Regular<T, 3, METHOD, kStack, ROUTE>>();
+      case 4: return op.template run<Regular<T, 4, METHOD, kStack, ROUTE>>();
+      case 5: return op.template run<Regular<T, 5, METHOD, kStack, ROUTE>>();
+      case 6: return op.template run<Regular<T, 6, METHOD, kStack, ROUTE>>();
+      case 7: return op.template run<Regular<T, 7, METHOD, kStack, ROUTE>>();
+      case 8: return op.template run<Regular<T, 8, METHOD, kStack, ROUTE>>();
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
-template <typename T, bool kStack>
-cudaError_t regular_method(int method, int ndims, const RegularLaunch& a) {
+template <bool kStack, int ROUTE, typename T, typename Op>
+cudaError_t visit_method(int method, int ndims, Op& op) {
   switch (method) {
-    case kLinear: return regular_ndims<T, kLinear, kStack>(ndims, a);
-    case kCubic: return regular_ndims<T, kCubic, kStack>(ndims, a);
-    case kNearest: return regular_ndims<T, kNearest, kStack>(ndims, a);
+    case kLinear: return visit_ndims<kStack, ROUTE, T, kLinear>(ndims, op);
+    case kCubic: return visit_ndims<kStack, ROUTE, T, kCubic>(ndims, op);
+    case kNearest: return visit_ndims<kStack, ROUTE, T, kNearest>(ndims, op);
     default: return cudaErrorInvalidValue;
   }
 }
+
+template <bool kStack, typename T, typename Op>
+cudaError_t visit_route(int route, int method, int ndims, Op& op) {
+  switch (route) {
+    case kDirect: return visit_method<kStack, kDirect, T>(method, ndims, op);
+    case kStaged: return visit_method<kStack, kStaged, T>(method, ndims, op);
+    case kQuads: return visit_method<kStack, kQuads, T>(method, ndims, op);
+    case kInterleaved: return visit_method<kStack, kInterleaved, T>(method, ndims, op);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kStack, typename Op>
+cudaError_t visit(int is_f64, int route, int method, int ndims, Op& op) {
+  if (ndims < 1 || ndims > kMaxDims) return cudaErrorInvalidValue;
+  return is_f64 ? visit_route<kStack, double>(route, method, ndims, op)
+                : visit_route<kStack, float>(route, method, ndims, op);
+}
+
+struct LaunchOp {
+  const RegularLaunch& a;
+  template <typename R>
+  cudaError_t run() {
+    return R::launch(a);
+  }
+};
+
+struct InfoOp {
+  int* out;
+  template <typename R>
+  cudaError_t run() {
+    return R::info(out);
+  }
+};
 
 // The body of the sources' C entry points (see fused_regular.cu).
 template <bool kStack>
 int regular_entry(int method, int linearize, int is_f64, int ndims, const int* dims,
-                  const void* starts, const void* steps, const void* vals,
-                  const void* const* obs, void* out, long long n, int nch, int blocks,
+                  const void* starts, const void* steps, void* work, const void* vals,
+                  const void* const* obs, void* out, long long n, int nch, int route,
                   void* stream) {
-  if (ndims < 1 || ndims > kMaxDims || n <= 0 || nch <= 0 || blocks <= 0 ||
-      (!kStack && nch != 1)) {
+  const bool relaid = route == kQuads || route == kInterleaved;
+  if (ndims < 1 || ndims > kMaxDims || n <= 0 || nch <= 0 || (!kStack && nch != 1) ||
+      method < kLinear || method > kNearest || !serves(route, method, kStack) ||
+      (relaid && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RegularLaunch a{};
-  int acc = 1;
+  // strides of the layout read: the table's in entries (times nch for an
+  // interleaved stack; another stack's tables lie one after another); the
+  // packed copy's in cells, over (d0-1, d1-1, d2, ...)
+  int acc = route == kInterleaved ? nch : 1;
+  int64_t table = 1;
   for (int k = ndims - 1; k >= 0; --k) {
-    a.grid.stride[k] = acc;
     a.grid.dim[k] = dims[k];
-    acc *= dims[k];
+    a.grid.stride[k] = acc;
+    acc *= route == kQuads && k < 2 && ndims > 1 ? dims[k] - 1 : dims[k];
+    table *= dims[k];
   }
+  a.stream = static_cast<cudaStream_t>(stream);
+  a.vals = relaid ? work : vals;
+  // the route's layout into `work`, then the kernel that reads it
+  cudaError_t err = cudaSuccess;
+  if (route == kQuads) {
+    err = is_f64 ? launch_pack(ndims, dims, static_cast<const double*>(vals),
+                               static_cast<double*>(work), a.stream)
+                 : launch_pack(ndims, dims, static_cast<const float*>(vals),
+                               static_cast<float*>(work), a.stream);
+  } else if (route == kInterleaved) {
+    err = is_f64 ? launch_interleave(static_cast<const double*>(vals),
+                                     static_cast<double*>(work), table, nch, a.stream)
+                 : launch_interleave(static_cast<const float*>(vals),
+                                     static_cast<float*>(work), table, nch, a.stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   a.obs = obs;
   a.starts = starts;
   a.steps = steps;
-  a.vals = vals;
-  a.table = acc;
+  a.table = table;
   a.nch = nch;
   a.out = out;
   a.n = n;
   a.lin = linearize != 0;
-  a.blocks = blocks;
-  a.stream = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_f64 ? regular_method<double, kStack>(method, ndims, a)
-                                 : regular_method<float, kStack>(method, ndims, a);
-  return static_cast<int>(err);
+  LaunchOp op{a};
+  return static_cast<int>(visit<kStack>(is_f64, route, method, ndims, op));
+}
+
+// The body of the sources' info entry points: registers, shared memory,
+// spills and resident blocks of one instantiation (see fused_regular.cu).
+template <bool kStack>
+int regular_info_entry(int method, int is_f64, int ndims, int route, int* out) {
+  InfoOp op{out};
+  return static_cast<int>(visit<kStack>(is_f64, route, method, ndims, op));
 }
 
 }  // namespace interp

@@ -5,10 +5,11 @@ and the gather trees (`ops.linear`, `ops.cubic`, `ops.nearest`,
 `ops.bspline`); both stay importable from their submodules. `raw` wraps the
 single-table ones with the reference-compatible flat API; `interpn_stack`
 wraps the stacked ones (`ops.stack`). B-spline tables come from
-`ops.bspline.prep_bspline`.
+`prep_bspline`.
 """
 
 from .bounds import check_bounds_rectilinear, check_bounds_regular
+from .bspline import prep_bspline
 from .dispatch import (
     bspline_eval,
     cubic_rectilinear,
@@ -45,4 +46,5 @@ __all__ = [
     "nearest_rectilinear_stack",
     "nearest_regular",
     "nearest_regular_stack",
+    "prep_bspline",
 ]

@@ -27,6 +27,12 @@ changes nothing: the port makes no automatic choice of these engines, and
 the JAX package's auto-mode gates (`_prefer_i8`, the cost model, the spike
 and depth gates) have no counterpart yet.
 
+Every evaluator takes the JAX package's keyword-only `vals_finite` and
+ignores it: there it tells the engine choice whether the table is finite
+(the TPU kernels contract the whole table, so one inf would spoil every
+result); the kernels here read only each query's stencil, and the forced
+f64 engines check the table themselves.
+
 The kernels have no backward kernel (nor had the TPU kernels), so each
 kernel route is a `KernelRoute`: the kernel forward, the vector-Jacobian
 product of the gather tree backward, as the JAX package's `_with_gather_jvp`
@@ -126,19 +132,20 @@ def _regular(method, dims, starts, steps, vals, obs, gather, *lin):
                   (starts, steps), vals, obs)
 
 
-def linear_regular(dims, starts, steps, vals, obs):
+def linear_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
     """Multilinear eval on a regular grid; obs is a tuple of ndims tensors of
     one shape, and the result has that shape."""
     return _regular("linear", dims, starts, steps, vals, obs, _linear_reg_gather)
 
 
-def cubic_regular(dims, starts, steps, vals, obs, linearize_extrapolation: bool):
+def cubic_regular(dims, starts, steps, vals, obs, linearize_extrapolation: bool, *,
+                  vals_finite=None):
     """Multicubic eval on a regular grid (every dim >= 4)."""
     return _regular("cubic", dims, starts, steps, vals, obs, _cubic_reg_gather,
                     bool(linearize_extrapolation))
 
 
-def nearest_regular(dims, starts, steps, vals, obs):
+def nearest_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
     """Nearest-neighbor eval on a regular grid."""
     return _regular("nearest", dims, starts, steps, vals, obs, _nearest_reg_gather)
 
@@ -160,25 +167,25 @@ def _rect_route(method, gather, grids, vals, obs, *extra):
                   tuple(grids), vals, obs)
 
 
-def linear_rectilinear(grids, vals, obs):
+def linear_rectilinear(grids, vals, obs, *, vals_finite=None):
     """Multilinear eval on a rectilinear grid; grids is a tuple of sorted
     1-D tensors, one per dim."""
     return _rect_route("linear", _linear_rect_gather, grids, vals, obs)
 
 
-def cubic_rectilinear(grids, vals, obs, linearize_extrapolation: bool):
+def cubic_rectilinear(grids, vals, obs, linearize_extrapolation: bool, *, vals_finite=None):
     """Multicubic eval on a rectilinear grid (every axis >= 4 entries)."""
     return _rect_route(
         "cubic", _cubic_rect_gather, grids, vals, obs, bool(linearize_extrapolation)
     )
 
 
-def nearest_rectilinear(grids, vals, obs):
+def nearest_rectilinear(grids, vals, obs, *, vals_finite=None):
     """Nearest-neighbor eval on a rectilinear grid."""
     return _rect_route("nearest", _nearest_rect_gather, grids, vals, obs)
 
 
-def bspline_eval(knots, coeffs, obs, k: int):
+def bspline_eval(knots, coeffs, obs, k: int, *, vals_finite=None):
     """Tensor-product B-spline of degree k (3: cubic_spline, 5: quintic) at
     `obs`, shaped like obs[0]. `knots` and `coeffs` come from
     `ops.bspline.prep_bspline` (carried into tensors by

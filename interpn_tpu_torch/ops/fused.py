@@ -3,7 +3,10 @@
 * `eval_regular` / `eval_regular_stack` launch `csrc/fused_regular.cu` /
   `fused_regular_stack.cu` (linear, cubic, nearest), the counterpart of
   `interpn_tpu/ops/pallas_v3.py::eval_regular` (K1) and
-  `eval_regular_stack` (K5).
+  `eval_regular_stack` (K5). The layout their kernel reads is
+  `regular_route`'s alone: the table staged in shared memory, its packed
+  quads or a stack channel-interleaved (each laid out every call by the
+  same entry, `pack` and `interleave` alone), or the table itself.
 * `eval_rectilinear` / `eval_rectilinear_stack` launch
   `csrc/fused_rectilinear.cu` / `fused_rectilinear_stack.cu`, the
   counterpart of `pallas_v3.eval_rectilinear_pre` (K2: linear, cubic),
@@ -57,14 +60,35 @@ SOURCES = (*(f"fused_{family}{stack}" for family in ("regular", "rectilinear", "
            *(f"fused_{engine}" for engine in F64_ENGINES))
 _SINGLE = (*(f"{grid}_{m}" for grid in ("regular", "rectilinear") for m in METHODS),
            *(f"bspline_k{k}" for k in DEGREES))
-KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES)
+PACK = "regular_pack"  # the quads route's pack, in csrc/fused_regular.cu
+INTERLEAVE = "regular_interleave"  # the interleaved route's, in csrc/fused_regular_stack.cu
+KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES, PACK, INTERLEAVE)
 
 # Kernel launches by name; a run resets and reads them to show that its main
 # path went through the kernels.
 launches = dict.fromkeys(KERNELS, 0)
 
+# the route codes of csrc/regular.cuh: kDirect, kStaged, kQuads, kInterleaved
+ROUTES = ("direct", "staged", "quads", "interleaved")
+# An f32 linear table (a stack read table by table: all its tables) of at
+# most this many bytes is staged in shared memory (kStageBytes in
+# csrc/regular.cuh, which refuses a larger one). Nearest reads one entry a
+# query, too few to pay for the copies, and reads the table direct.
+STAGE_BYTES = 112 * 1024
+# A single f32 linear table above STAGE_BYTES is read as packed quads while
+# the packed copy (about 4x the table) stays within this many bytes. The
+# pack is paid every call: at 1e6 queries on an H100 the 15.7 MB copy of a
+# 100^3 table paid for itself twice over; the 31 MB copy of the f64 one did
+# not, so f64 reads its table direct (`scripts/torch_regular_ab.py`).
+QUAD_BYTES = 16 * 2**20
+# A linear or nearest stack with this many bytes of channels a table entry
+# or more (8 f32, 4 f64 tables) is read channel-interleaved (kRunBytes).
+RUN_BYTES = 32
+
 _THREADS = 256  # kThreads in the sources
-_BLOCKS_PER_SM = 8  # 2048 resident threads per SM at 256 threads a block
+# 2048 resident threads per SM at 256 threads a block; the regular family
+# sizes its grid from each instantiation's occupancy instead
+_BLOCKS_PER_SM = 8
 _MAX_DIMS = 8
 _INT32_LIMIT = 2**31
 _VOIDP = ctypes.c_void_p
@@ -74,9 +98,11 @@ _DIMS = [_INT, ctypes.POINTER(_INT)]  # ndims, dims
 _TAIL = [_VOIDP, _PTRS, _VOIDP, ctypes.c_longlong, _INT, _INT, _VOIDP]
 _FAMILY_ARGTYPES = {
     # (method, linearize, is_f64 | degree, is_f64), ndims, dims, the grid
-    # (starts, steps | columns | knots), then vals, obs, out, n, nch, blocks,
-    # stream; a family's single-table and stack sources take the same
-    "regular": [_INT, _INT, _INT] + _DIMS + [_VOIDP, _VOIDP] + _TAIL,
+    # (starts, steps, the layout buffer of the quads and interleaved routes |
+    # columns | knots), then
+    # vals, obs, out, n, nch, blocks (regular: the route), stream; a family's
+    # single-table and stack sources take the same
+    "regular": [_INT, _INT, _INT] + _DIMS + [_VOIDP, _VOIDP, _VOIDP] + _TAIL,
     "rectilinear": [_INT, _INT, _INT] + _DIMS + [_PTRS] + _TAIL,
     "bspline": [_INT, _INT] + _DIMS + [_PTRS] + _TAIL,
     # footprint, ndims, dims, locs, wh, wl, vh, vl, oh, ol, n, blocks, stream
@@ -94,11 +120,25 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+# the regular sources' other entries: method, is_f64, ndims, route, out[4]
+# (`interpn_regular[_stack]_info`); is_f64, ndims, dims, vals, out, stream
+# (`interpn_regular_pack`); is_f64, table, nch, vals, out, stream
+# (`interpn_regular_stack_interleave`)
+_ENTRY_ARGTYPES = {
+    "_info": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
+    "_pack": [_INT, *_DIMS, _VOIDP, _VOIDP, _VOIDP],
+    "_interleave": [_INT, ctypes.c_longlong, _INT, _VOIDP, _VOIDP, _VOIDP],
+}
+
+
 @cache
-def _fn(source: str):
-    """The kernel entry of `csrc/<source>.cu`, built first if needed."""
+def _fn(source: str, entry: str = ""):
+    """The kernel entry `interpn_<family>[_stack]<entry>` of
+    `csrc/<source>.cu`, built first if needed."""
     name, argtypes = _ARGTYPES[source]
-    fn = getattr(_build.load(source), name)
+    if entry:
+        argtypes = _ENTRY_ARGTYPES[entry]
+    fn = getattr(_build.load(source), name + entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -135,6 +175,24 @@ def plain_regular(dims, starts, steps, vals, obs, method="linear", linearize=Tru
         return cubic_regular(dims, starts, steps, vals, obs, linearize)
     plain = linear_regular if method == "linear" else nearest_regular
     return plain(dims, starts, steps, vals, obs)
+
+
+def plain_pack(dims, vals):
+    """The quads route's packed copy of a flat table (what `pack` launches
+    the kernel of): (d0-1, 2) pairs (i, i+1) of a 1-D table, else
+    (d0-1, d1-1, d2, ..., 4) quads whose slot a + 2b holds corner
+    (i + a, j + b) of axes 0 and 1."""
+    v = vals.reshape(dims)
+    if len(dims) == 1:
+        return torch.stack([v[:-1], v[1:]], dim=-1)
+    return torch.stack([v[:-1, :-1], v[1:, :-1], v[:-1, 1:], v[1:, 1:]], dim=-1)
+
+
+def plain_interleave(vals_stack):
+    """The interleaved route's copy of an (nch, prod(dims)) stack (what
+    `interleave` launches the kernel of): (prod(dims), nch), a corner's
+    channels side by side."""
+    return vals_stack.t().contiguous()
 
 
 def plain_rectilinear(grids, vals, obs, method="linear", linearize=True):
@@ -187,6 +245,105 @@ def eval_regular_stack(dims, starts, steps, vals_stack, obs, method="linear", li
     return _regular(dims, starts, steps, vals_stack, obs, method, linearize, stacked=True)
 
 
+def regular_route(dims, dtype, method, nch=None) -> str:
+    """The layout the regular kernel reads for a table of `dims` (a stack
+    of `nch` tables; None for one table) in `dtype` by `method`, one of
+    ROUTES: 'interleaved' (a linear or nearest stack of RUN_BYTES of
+    channels or more, read as (prod(dims), nch)), 'staged' (f32
+    linear, one table or a stack read table by table, all of it within
+    STAGE_BYTES, copied into shared memory by each block), 'quads' (f32
+    linear, one table above that, packed copy within QUAD_BYTES) or 'direct'
+    (the rest; f64 is never staged nor packed). A function of these
+    arguments alone, and the only place the choice is made."""
+    if nch is not None and method != "cubic" and nch * dtype.itemsize >= RUN_BYTES:
+        return "interleaved"
+    if method != "linear" or dtype != torch.float32:
+        return "direct"
+    if math.prod(dims) * (nch or 1) * dtype.itemsize <= STAGE_BYTES:
+        return "staged"
+    if nch is None and _packed_size(dims) * dtype.itemsize <= QUAD_BYTES:
+        return "quads"
+    return "direct"
+
+
+def _packed_shape(dims) -> tuple:
+    """The shape of `plain_pack`'s copy."""
+    if len(dims) == 1:
+        return (dims[0] - 1, 2)
+    return (dims[0] - 1, dims[1] - 1, *dims[2:], 4)
+
+
+def _packed_size(dims) -> int:
+    """Entries of `plain_pack`'s copy."""
+    return math.prod(_packed_shape(dims))
+
+
+def pack(dims, vals):
+    """The quads route's packed copy of the flat table `vals` (f32 or f64,
+    every dim >= 2), shaped as `plain_pack`'s: its kernel alone
+    (`interpn_regular_pack`; `eval_regular` launches it with the kernel that
+    reads it) on a CUDA tensor, `plain_pack` on a CPU one."""
+    dims = tuple(int(d) for d in dims)
+    if _device((vals,)).type == "cpu":
+        return plain_pack(dims, vals)
+    if not 1 <= len(dims) <= _MAX_DIMS or min(dims) < 2 or math.prod(dims) >= _INT32_LIMIT:
+        raise ValueError(f"no packed copy of a grid of dims {dims}")
+    if vals.shape != (math.prod(dims),) or not vals.is_contiguous():
+        raise ValueError(f"vals must be flat and contiguous with {math.prod(dims)} entries")
+    if vals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel takes float32 or float64, got {vals.dtype}")
+    out = torch.empty(_packed_shape(dims), dtype=vals.dtype, device=vals.device)
+    with torch.cuda.device(vals.device):
+        rc = _fn("fused_regular", "_pack")(
+            _is_f64(vals), len(dims), (_INT * len(dims))(*dims), vals.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_regular pack launch failed: CUDA error {rc}")
+    launches[PACK] += 1
+    return out
+
+
+def interleave(vals_stack):
+    """The interleaved route's copy of the (nch, prod(dims)) stack
+    `vals_stack` (f32 or f64), shaped as `plain_interleave`'s: its kernel
+    alone (`interpn_regular_stack_interleave`; `eval_regular_stack` launches
+    it with the kernel that reads it) on a CUDA tensor, `plain_interleave`
+    on a CPU one."""
+    if _device((vals_stack,)).type == "cpu":
+        return plain_interleave(vals_stack)
+    if vals_stack.dim() != 2 or not vals_stack.is_contiguous() or vals_stack.numel() == 0:
+        raise ValueError("vals_stack must be a contiguous, non-empty (nch, prod(dims)) tensor")
+    if vals_stack.numel() >= _INT32_LIMIT:
+        raise ValueError(f"stack of {vals_stack.numel()} values needs int64 indices")
+    if vals_stack.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel takes float32 or float64, got {vals_stack.dtype}")
+    nch, table = vals_stack.shape
+    out = torch.empty((table, nch), dtype=vals_stack.dtype, device=vals_stack.device)
+    with torch.cuda.device(vals_stack.device):
+        rc = _fn("fused_regular_stack", "_interleave")(
+            _is_f64(vals_stack), table, nch, vals_stack.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_regular_stack interleave launch failed: CUDA error {rc}")
+    launches[INTERLEAVE] += 1
+    return out
+
+
+def regular_info(method, dtype, ndims, route, stacked=False) -> dict:
+    """Registers a thread, static shared bytes, local (spill) bytes a thread
+    and resident blocks an SM (with the route's reservation of dynamic
+    shared memory: the largest staged table on the staged route) of the
+    regular kernel's instantiation for (method, dtype, ndims, route), one
+    table's or a stack's, on the current CUDA device."""
+    got = (_INT * 4)()
+    source = _name("fused_regular", stacked)
+    rc = _fn(source, "_info")(_method(method), int(dtype == torch.float64), ndims,
+                              ROUTES.index(route), got)
+    if rc != 0:
+        raise RuntimeError(f"{source} info failed: CUDA error {rc}")
+    return dict(zip(("registers", "static_smem", "local_bytes", "blocks_per_sm"), got))
+
+
 def _regular(dims, starts, steps, vals, obs, method, linearize, *, stacked):
     code = _method(method)
     dims = tuple(int(d) for d in dims)
@@ -195,11 +352,25 @@ def _regular(dims, starts, steps, vals, obs, method, linearize, *, stacked):
         plain = plain_regular_stack if stacked else plain_regular
         return plain(dims, starts, steps, vals, obs, method, linearize)
     n = _check(dims, starts, steps, vals, obs, method, stacked)
-    return _launch(
+    nch = int(vals.shape[0]) if stacked else None
+    route = regular_route(dims, vals.dtype, method, nch)
+    if route == "interleaved" and math.prod(dims) * nch >= _INT32_LIMIT:
+        raise ValueError(f"stack of {nch} tables of {math.prod(dims)} points needs int64 "
+                         "indices")
+    layout = {"quads": PACK, "interleaved": INTERLEAVE}.get(route) if n else None
+    work = None
+    if layout:  # the entry lays the table out in this buffer, then reads it
+        size = _packed_size(dims) if route == "quads" else vals.numel()
+        work = torch.empty(size, dtype=vals.dtype, device=vals.device)
+    out = _launch(
         _name("fused_regular", stacked), _name(f"regular_{method}", stacked),
         (code, int(bool(linearize)), _is_f64(vals)), dims, vals, obs, n, stacked,
-        starts.data_ptr(), steps.data_ptr(),
+        starts.data_ptr(), steps.data_ptr(), None if work is None else work.data_ptr(),
+        route=route,
     )
+    if layout:
+        launches[layout] += 1
+    return out
 
 
 def eval_rectilinear(grids, vals, obs, method="linear", linearize=True):
@@ -324,8 +495,10 @@ def _check_common(dims, vals, obs, params, need, stacked) -> int:
     return n
 
 
-def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args):
-    """Launch `csrc/<source>.cu` on the current stream; count the launch."""
+def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route=None):
+    """Launch `csrc/<source>.cu` on the current stream; count the launch.
+    The regular family takes its `route` where the others take a block
+    count."""
     nch = int(vals.shape[0]) if stacked else 1
     out = torch.empty((nch, n) if stacked else (n,), dtype=vals.dtype, device=vals.device)
     if n == 0 or nch == 0:
@@ -334,7 +507,10 @@ def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args):
     index = vals.device.index
     if index is None:
         index = torch.cuda.current_device()
-    blocks = min(-(-n // _THREADS), _sm_count(index) * _BLOCKS_PER_SM)
+    if route is None:
+        last = min(-(-n // _THREADS), _sm_count(index) * _BLOCKS_PER_SM)
+    else:
+        last = ROUTES.index(route)
     with torch.cuda.device(index):
         rc = _fn(source)(
             *head,
@@ -346,7 +522,7 @@ def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args):
             out.data_ptr(),
             n,
             nch,
-            blocks,
+            last,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

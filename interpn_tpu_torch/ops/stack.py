@@ -8,8 +8,8 @@ source's kernel with the channel count (`ops/fused.py`, K5-K7: one locate
 and weight build per query for every table, f32 and f64 alike); a CPU tensor
 to the single-table gather tree over each channel. The JAX package's f64
 channel loop and `vals_finite` guard answer TPU limits and have no
-counterpart. Gradients come from the per-channel gather tree, as in
-`ops/dispatch.py`.
+counterpart: `vals_finite` is accepted and ignored. Gradients come from the
+per-channel gather tree, as in `ops/dispatch.py`.
 """
 
 from __future__ import annotations
@@ -41,40 +41,41 @@ def _rectilinear_stack(method, grids, vals_stack, obs, lin=True):
     )
 
 
-def linear_regular_stack(dims, starts, steps, vals_stack, obs):
+def linear_regular_stack(dims, starts, steps, vals_stack, obs, *, vals_finite=None):
     """Multilinear eval of an (nch, prod(dims)) stack on a regular grid."""
     return _regular_stack("linear", dims, starts, steps, vals_stack, obs)
 
 
-def nearest_regular_stack(dims, starts, steps, vals_stack, obs):
+def nearest_regular_stack(dims, starts, steps, vals_stack, obs, *, vals_finite=None):
     """Nearest-neighbor eval of a stack on a regular grid."""
     return _regular_stack("nearest", dims, starts, steps, vals_stack, obs)
 
 
 def cubic_regular_stack(dims, starts, steps, vals_stack, obs,
-                        linearize_extrapolation: bool = True):
+                        linearize_extrapolation: bool = True, *, vals_finite=None):
     """Multicubic eval of a stack on a regular grid (every dim >= 4)."""
     return _regular_stack("cubic", dims, starts, steps, vals_stack, obs,
                           bool(linearize_extrapolation))
 
 
-def linear_rectilinear_stack(grids, vals_stack, obs):
+def linear_rectilinear_stack(grids, vals_stack, obs, *, vals_finite=None):
     """Multilinear eval of a stack on a rectilinear grid."""
     return _rectilinear_stack("linear", grids, vals_stack, obs)
 
 
-def nearest_rectilinear_stack(grids, vals_stack, obs):
+def nearest_rectilinear_stack(grids, vals_stack, obs, *, vals_finite=None):
     """Nearest-neighbor eval of a stack on a rectilinear grid."""
     return _rectilinear_stack("nearest", grids, vals_stack, obs)
 
 
-def cubic_rectilinear_stack(grids, vals_stack, obs, linearize_extrapolation: bool = True):
+def cubic_rectilinear_stack(grids, vals_stack, obs, linearize_extrapolation: bool = True, *,
+                            vals_finite=None):
     """Multicubic eval of a stack on a rectilinear grid (every axis >= 4
     entries)."""
     return _rectilinear_stack("cubic", grids, vals_stack, obs, bool(linearize_extrapolation))
 
 
-def bspline_eval_stack(knots, coeffs_stack, obs, k: int):
+def bspline_eval_stack(knots, coeffs_stack, obs, k: int, *, vals_finite=None):
     """An (nch, prod(dims)) stack of B-spline coefficient tables sharing one
     knot set, at `obs`: (nch, *obs[0].shape)."""
     ng = len(knots)

@@ -1,0 +1,242 @@
+#!/usr/bin/env python3
+"""Times the port's regular-grid kernels, K1 (one table) and K5 (a stack),
+against an earlier checkout's on one CUDA card, in turns.
+
+    PYTHONPATH=. python3 scripts/torch_regular_ab.py --parent DIR
+
+DIR is the root of an earlier checkout of the repository (unpacked with
+`git archive` into a gitignored directory). Its `interpn_tpu_torch`, whose
+imports are relative, is imported beside this checkout's under another
+name, and each builds its two regular sources with its own `_build.py`, all
+four at once.
+
+Each case of CASES is a table on a [0, 10] grid (random values from a
+seed) and 1e6 queries uniform in [-0.5, 10.5]: every K1 and K5 path of
+`chip_smoke.py`, the routes' crossings, and stacks at 4, 5 and 8D. On each:
+
+1. the kernels: each checkout's public evaluator
+   (`ops.fused.eval_regular[_stack]`; this checkout's on the route that
+   `ops.fused.regular_route` picks) and this checkout's entry on each other
+   route listed, every result bitwise equal to the earlier checkout's,
+   timed by CUDA events behind a head start
+   (`interpn_tpu_torch/utils/profiling.py::cuda_time`) over 20 distinct
+   batches, in the order earlier, picked, the others, and back, with the
+   layout kernel (interleave, pack) inside the timed call; on the 3D linear
+   and nearest cases also `F.grid_sample` on in-grid queries beside both
+   kernels;
+2. back to back: the two public evaluators in turns (earlier, this, this,
+   earlier), each over five passes of the 20 batches after three warm-up
+   calls: CUDA events around each pass (the time a caller that loops
+   sees, host included) and the host clock around queueing it (the host's
+   own time a call).
+
+One line per case, then the card's name and power limit and one JSON
+object of every time; exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from interpn_tpu_torch import _build
+from interpn_tpu_torch.ops import fused
+from interpn_tpu_torch.utils.profiling import cuda_time
+
+SOURCES = ("fused_regular", "fused_regular_stack")
+N, BATCHES, LO, HI = 1_000_000, 20, -0.5, 10.5
+DTYPES = {"f32": torch.float32, "f64": torch.float64}
+# (method, points an axis, ndims, dtype, tables of a stack or None, the
+# routes timed beside the one `regular_route` picks)
+CASES = [
+    ("linear", 20, 3, "f32", None, ("staged", "quads", "direct")),
+    ("linear", 20, 3, "f64", None, ("staged", "quads", "direct")),
+    ("linear", 30, 3, "f32", None, ("staged", "quads", "direct")),
+    ("linear", 12, 4, "f64", None, ("quads", "direct")),
+    ("linear", 100, 3, "f32", None, ("quads", "direct")),
+    ("linear", 100, 3, "f64", None, ("quads", "direct")),
+    ("cubic", 20, 3, "f32", None, ()),
+    ("cubic", 20, 3, "f64", None, ()),
+    ("cubic", 20, 4, "f32", None, ()),
+    ("cubic", 12, 5, "f64", None, ()),
+    ("nearest", 20, 3, "f32", None, ()),
+    ("nearest", 20, 3, "f64", None, ()),
+    ("linear", 20, 3, "f32", 8, ("interleaved", "direct")),
+    ("cubic", 20, 3, "f32", 8, ()),
+    ("nearest", 20, 3, "f32", 8, ("interleaved", "direct")),
+    ("linear", 20, 3, "f32", 1, ("staged", "interleaved", "direct")),
+    ("linear", 20, 3, "f32", 3, ("staged", "interleaved", "direct")),
+    ("linear", 20, 3, "f64", 4, ("interleaved", "direct")),
+    ("linear", 20, 3, "f64", 8, ("interleaved", "direct")),
+    *((method, n, nd, dt, nch, ("interleaved", "direct"))
+      for method in ("linear", "nearest") for n, nd in ((12, 4), (8, 5), (4, 8))
+      for dt, nch in (("f32", 8), ("f64", 4))),
+]
+def label(case) -> str:
+    method, n, nd, dt, nch, _ = case
+    stack = f"stack of {nch} " if nch else ""
+    return f"K{5 if nch else 1} {method} {stack}{n}^{nd} {dt}"
+
+
+def grid(case, cuda):
+    """starts, steps and the table (a stack: (nch, prod(dims))) of a case."""
+    method, n, nd, dt, nch, _ = case
+    rng = np.random.default_rng(n * 10 + nd)
+    size = n**nd
+    table = rng.standard_normal((nch, size) if nch else size)
+    dtype = DTYPES[dt]
+    return (torch.zeros(nd, dtype=dtype, device=cuda),
+            torch.full((nd,), 10.0 / (n - 1), dtype=dtype, device=cuda),
+            torch.as_tensor(table, dtype=dtype, device=cuda))
+
+
+def batches(case, cuda, lo=LO, hi=HI, seed=7):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    nd, dtype = case[2], DTYPES[case[3]]
+    return [tuple(torch.rand(N, generator=gen, device=cuda, dtype=dtype) * (hi - lo) + lo
+                  for _ in range(nd)) for _ in range(BATCHES)]
+
+
+def public(fused_module, case, st, sp, vals):
+    """A checkout's public evaluator on the case's table."""
+    method, n, nd, _, nch, _ = case
+    f = fused_module.eval_regular_stack if nch else fused_module.eval_regular
+    return lambda ob: f((n,) * nd, st, sp, vals, ob, method)
+
+
+def back_to_back(fn, main, passes=5):
+    """Per call, over `passes` passes of the batches: the events' time of
+    each pass (host included) and the host's time to queue it."""
+    for b in main[:3]:
+        fn(b)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    loop, issue = [], []
+    for _ in range(passes):
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        for b in main:
+            fn(b)
+        t1 = time.perf_counter()
+        end.record()
+        end.synchronize()
+        loop.append(start.elapsed_time(end) / len(main))
+        issue.append((t1 - t0) * 1e3 / len(main))
+    return loop, issue
+
+
+def this_kernel(case, st, sp, vals, route):
+    """This checkout's entry on `route`, with the buffer of the route's
+    layout (which the entry lays out before the kernel reads it) allocated
+    inside the call."""
+    method, n, nd, _, nch, _ = case
+    dims = (n,) * nd
+    source = "fused_regular_stack" if nch else "fused_regular"
+    head = (fused.METHODS.index(method), 1, int(vals.dtype == torch.float64))
+    size = {"quads": fused._packed_size(dims), "interleaved": vals.numel()}.get(route)
+
+    def call(ob):
+        work = None if size is None else torch.empty(size, dtype=vals.dtype, device=vals.device)
+        return fused._launch(source, f"regular_{method}{'_stack' if nch else ''}", head, dims,
+                             vals, ob, ob[0].shape[0], bool(nch), st.data_ptr(), sp.data_ptr(),
+                             None if work is None else work.data_ptr(), route=route)
+    return call
+
+
+def load_earlier(parent: Path):
+    """The earlier checkout's `ops.fused`, its package imported as
+    `earlier_port`."""
+    pkg = parent / "interpn_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "earlier_port", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["earlier_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("earlier_port.ops.fused")
+
+
+def case_times(case, earlier, cuda) -> dict:
+    """Parts 1 and 2 on one case; `earlier` is the earlier `ops.fused`."""
+    import chip_smoke as cs
+
+    method, n, nd, dt, nch, others = case
+    st, sp, vals = grid(case, cuda)
+    picked = fused.regular_route((n,) * nd, DTYPES[dt], method, nch)
+    fns = {"earlier": public(earlier, case, st, sp, vals), picked: public(fused, case, st, sp, vals)}
+    fns.update({r: this_kernel(case, st, sp, vals, r) for r in others if r != picked})
+    main = batches(case, cuda)
+    want = fns["earlier"](main[0])
+    for r in fns:
+        cs.bitwise(fns[r](main[0]), want, f"{label(case)}: {r} vs earlier")
+    ms = {}
+    for name in [*fns, *reversed(fns)]:
+        ms.setdefault(name, []).append(cuda_time(fns[name], main).device_ms)
+    entry = {"case": label(case), "route": picked, "kernel_ms": ms, "loop_ms": {},
+             "issue_ms": {}}
+    for side in ("earlier", "this", "this", "earlier"):
+        loop, issue = back_to_back(fns["earlier" if side == "earlier" else picked], main)
+        entry["loop_ms"].setdefault(side, []).extend(loop)
+        entry["issue_ms"].setdefault(side, []).extend(issue)
+    del main
+    if nd == 3 and method in ("linear", "nearest"):
+        inside = batches(case, cuda, 0.0, 10.0, seed=8)
+        prepare, call = cs.grid_sample_call(vals, n, "bilinear" if method == "linear" else
+                                            "nearest", nch or 1)
+        prepared = [prepare(b) for b in inside]
+        grid_ms = {}
+        for name in ("grid_sample", "earlier", picked, picked, "earlier", "grid_sample"):
+            fn, arg = (call, prepared) if name == "grid_sample" else (fns[name], inside)
+            grid_ms.setdefault(name, []).append(cuda_time(fn, arg).device_ms)
+        entry["in_grid_ms"] = grid_ms
+    return entry
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", type=Path, required=True,
+                        help="root of the earlier checkout")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_regular_ab: torch.cuda.is_available() is False; needs a CUDA device")
+    cuda = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    earlier = load_earlier(args.parent.resolve())
+    with ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(b.build_all, SOURCES) for b in (_build, earlier._build)]:
+            built.result()
+    record = []
+    for case in CASES:
+        entry = case_times(case, earlier, cuda)
+        record.append(entry)
+        best = {k: min(v) for k, v in entry["kernel_ms"].items()}
+        kern = "; ".join(f"{k} {v:.4f}" for k, v in best.items())
+        loop = ", ".join(f"{k} {statistics.median(v):.4f}" for k, v in entry["loop_ms"].items())
+        issue = ", ".join(f"{k} {statistics.median(v):.4f}"
+                          for k, v in entry["issue_ms"].items())
+        extra = ""
+        if "in_grid_ms" in entry:
+            extra = "; in the grid: " + ", ".join(
+                f"{k} {min(v):.4f}" for k, v in entry["in_grid_ms"].items())
+        print(f"{entry['case']} ({entry['route']}) [{smi}]: kernel ms, best of two: {kern}; "
+              f"{best['earlier'] / best[entry['route']]:.2f}x; back to back ms/call, median "
+              f"of 10 passes: {loop}; host ms/call: {issue}{extra}", flush=True)
+    print(smi)
+    print(json.dumps({"card": smi, "cases": record}))
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,7 @@ FMA contraction, so the two are compared bit for bit.
 """
 
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -90,6 +91,126 @@ def test_kernel_equals_plain(cuda, dims, dtype):
     args = _case(dims, dtype, cuda, n=100_000, seed=len(dims))
     got = _launched("regular_linear", lambda: fused.eval_regular(*args))
     _equal(got, linear.linear_regular(*args))
+
+
+def _cap_dims(dtype, ndims, over):
+    """A table of exactly STAGE_BYTES (one row more where `over`)."""
+    at = fused.STAGE_BYTES // torch.empty((), dtype=dtype).element_size()
+    dims = {1: (at,), 2: (at // 256, 256), 3: (at // 1024, 32, 32)}[ndims]
+    return (dims[0] + over, *dims[1:])
+
+
+@pytest.mark.parametrize("ndims", [1, 2, 3])
+@pytest.mark.parametrize("over", [False, True], ids=["at_cap", "over_cap"])
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_routes_around_the_stage_cap(cuda, ndims, over, method, dtype):
+    """K1 on a table of exactly the staging cap's bytes and one row over
+    it: f32 linear staged, then quads; nearest, and f64, direct on both."""
+    dims = _cap_dims(dtype, ndims, over)
+    route = fused.regular_route(dims, dtype, method)
+    f32_linear = method == "linear" and dtype == torch.float32
+    assert route == ("quads" if over else "staged") if f32_linear else route == "direct"
+    args = _case(dims, dtype, cuda, n=50_000, seed=ndims)
+    fused.reset_launches()
+    got = fused.eval_regular(*args, method)
+    assert fused.launches[f"regular_{method}"] == 1
+    assert fused.launches[fused.PACK] == int(route == "quads")
+    _equal(got, fused.plain_regular(*args, method))
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("dims", [(3,), (7, 9), (20, 20, 20)], ids=lambda d: f"{len(d)}d")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_staged_table_at_an_unaligned_offset(cuda, dims, offset, dtype):
+    """A table that is a view `offset` entries into its storage: f32 linear
+    stages it with its unaligned head and tail loaded apart from the bulk
+    copy (f64 and nearest read it direct), and the staged route forced on
+    f64 copies it the same way."""
+    dims_, st, sp, vals, ob = _case(dims, dtype, cuda, n=20_000, seed=offset)
+    storage = torch.zeros(offset + vals.numel() + 5, dtype=dtype, device=cuda)
+    view = storage[offset:offset + vals.numel()]
+    view.copy_(vals)
+    assert view.data_ptr() % 16 != 0
+    for method in ("linear", "nearest"):
+        got = fused.eval_regular(dims_, st, sp, view, ob, method)
+        _equal(got, fused.plain_regular(dims_, st, sp, view, ob, method))
+        _equal(got, fused.eval_regular(dims_, st, sp, vals, ob, method))
+    staged = fused._launch("fused_regular", "regular_linear", (0, 1, fused._is_f64(view)),
+                           dims_, view, ob, ob[0].shape[0], False, st.data_ptr(),
+                           sp.data_ptr(), None, route="staged")
+    _equal(staged, fused.plain_regular(dims_, st, sp, view, ob))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_quads_at_100_cubed(cuda, dtype):
+    """The bench's 100^3 table: linear f32 packs it (one pack a call) and
+    reads quads, f64 reads it direct, as nearest does; all bitwise, the
+    pack (f32 and f64) equal to plain_pack."""
+    args = _case((100,) * 3, dtype, cuda, n=200_000, seed=3)
+    dims, vals = args[0], args[3]
+    quads = fused.regular_route(dims, dtype, "linear") == "quads"
+    assert quads == (dtype == torch.float32)
+    fused.reset_launches()
+    got = fused.eval_regular(*args)
+    assert fused.launches["regular_linear"] == 1 and fused.launches[fused.PACK] == quads
+    _equal(got, linear.linear_regular(*args))
+    _equal(fused.pack(dims, vals), fused.plain_pack(dims, vals))
+    assert fused.regular_route(dims, dtype, "nearest") == "direct"
+    _equal(fused.eval_regular(*args, "nearest"), nearest.nearest_regular(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_staged_grid_fits_the_shared_memory(cuda, dtype):
+    """At the staging cap the shared memory admits two 1024-thread blocks
+    an SM: the grid holds as many as the registers allow, at least one;
+    every route's grid fits at least one block, a stack's too."""
+    for nd in range(1, 9):
+        for stacked in (False, True):
+            info = fused.regular_info("linear", dtype, nd, "staged", stacked)
+            warp_regs = -(-info["registers"] * 32 // 256) * 256  # allocated per warp in 256s
+            by_registers = 65536 // (warp_regs * 32)
+            assert info["blocks_per_sm"] == min(2, by_registers) >= 1, (nd, stacked, info)
+        for method, route in (("linear", "quads"), ("linear", "direct"), ("nearest", "direct"),
+                              ("cubic", "direct")):
+            assert fused.regular_info(method, dtype, nd, route)["blocks_per_sm"] >= 1
+            if route == "direct":
+                assert fused.regular_info(method, dtype, nd, route, True)["blocks_per_sm"] >= 1
+        for method in ("linear", "nearest"):
+            info = fused.regular_info(method, dtype, nd, "interleaved", True)
+            assert info["blocks_per_sm"] >= 1
+
+
+def test_staged_sizes_alternate_across_threads(cuda):
+    """Two host threads, each on its own stream, alternate staged tables of
+    two sizes (one above the default 48 KB of dynamic shared memory, one
+    below) through the same instantiation: every launch succeeds and every
+    result is bitwise the plain version's."""
+    cases = [_case(dims, torch.float32, cuda, n=20_000, seed=i)
+             for i, dims in enumerate(((160, 160), (60, 60)))]
+    assert [fused.regular_route(c[0], torch.float32, "linear") for c in cases] == ["staged"] * 2
+    assert math.prod(cases[0][0]) * 4 > 48 * 1024 > math.prod(cases[1][0]) * 4
+    want = [fused.plain_regular(*c) for c in cases]
+    errors = []
+
+    def work(first):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                for i in range(40):
+                    k = (first + i) % 2
+                    got = fused.eval_regular(*cases[k])
+                    stream.synchronize()
+                    _equal(got, want[k])
+        except Exception as e:  # noqa: BLE001 - reported on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(first,)) for first in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
 
 
 @pytest.mark.parametrize("dims", DIMS, ids=lambda d: f"{len(d)}d")
@@ -353,6 +474,44 @@ def test_stack_kernels_equal_plain(cuda, dims, nch, method, lin, dtype):
                     lambda: fused.eval_rectilinear_stack(grids, vals, ob, method, lin))
     _equal(got, fused.plain_rectilinear_stack(grids, vals, ob, method, lin))
     _equal(got[-1], fused.eval_rectilinear(grids, vals[-1], ob, method, lin))
+
+
+@pytest.mark.parametrize("nch", [1, 3, 4, 8])
+@pytest.mark.parametrize("method,lin", [("linear", True), ("cubic", True), ("cubic", False),
+                                        ("nearest", True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_stacks_around_the_stage_cap(cuda, nch, method, lin, dtype):
+    """K5 on 20^3 stacks of 1, 3, 4 and 8 tables: f32 linear staged up to 3
+    tables (the whole stack within the cap, read table by table), linear
+    and nearest interleaved from 8 f32 or 4 f64 tables, the rest direct;
+    bitwise against the plain version and, table by table, against the
+    single-table kernel."""
+    rng = np.random.default_rng(nch)
+    dims, st, sp, _, ob = _case((20, 20, 20), dtype, cuda, n=20_000, seed=nch)
+    vals = torch.as_tensor(rng.standard_normal((nch, 8000)), dtype=dtype, device=cuda)
+    interleaved = fused.regular_route(dims, dtype, method, nch) == "interleaved"
+    assert interleaved == (method != "cubic" and nch * vals.element_size() >= 32)
+    fused.reset_launches()
+    got = fused.eval_regular_stack(dims, st, sp, vals, ob, method, lin)
+    want = {f"regular_{method}_stack": 1, fused.INTERLEAVE: int(interleaved)}
+    assert fused.launches == {k: want.get(k, 0) for k in fused.launches}
+    _equal(got, fused.plain_regular_stack(dims, st, sp, vals, ob, method, lin))
+    for c in range(nch):
+        _equal(got[c], fused.eval_regular(dims, st, sp, vals[c], ob, method, lin))
+
+
+@pytest.mark.parametrize("nch", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_interleave_equals_plain(cuda, nch, dtype):
+    """The interleaved route's layout kernel alone: (prod(dims), nch) with a
+    corner's channels side by side, equal to plain_interleave, one launch."""
+    rng = np.random.default_rng(nch)
+    for entries in (1, 50, 8000, 65536):
+        vals = torch.as_tensor(rng.standard_normal((nch, entries)), dtype=dtype, device=cuda)
+        fused.reset_launches()
+        got = fused.interleave(vals)
+        assert fused.launches[fused.INTERLEAVE] == 1
+        _equal(got, fused.plain_interleave(vals))
 
 
 @pytest.mark.parametrize("dims", STACK_DIMS, ids=lambda d: f"{len(d)}d")
