@@ -16,15 +16,17 @@ call computes the same function, that call.
 Phases: 1 build (seconds, registers, spills; for K1/K5 also shared memory
 and blocks an SM of every instantiation), 2 kernel vs plain, bitwise
 (f32/f64, 1-8D, both cubic extrapolation modes, spline degrees 3 and 5,
-stacks of 1, 3 and 8, NaN and +-inf; K1's staged, quads and direct routes,
-100^3 and tables at odd offsets; the pack and the interleave; K8 and K9 on
-f64 2-8D), 3 nodes (exact, splines within 1e-11, K8 to the table's hi +
-lo, K9 within 1e-13), 4 the paths (launch counts, the quads route's pack
-beside K1 and the interleave beside K5, and checks), 5 timing: each kernel
-from CUDA events behind a head start (`utils/profiling.py::cuda_time`),
-each plain version from the profiler's device events (`profiled_time`),
-for K8/K9 also the whole engine call with its float64 weight build, and the
-two layout kernels. A failed
+stacks of 1, 3 and 8, NaN and +-inf; K1's linear and nearest routes
+(staged, quads, direct) and cubic routes (staged, taps at 2D, four lanes
+on the taps from 3D, direct) under and over each cap, 100^3 and tables at
+odd offsets; the two packs and the interleave; K8 and K9 on f64 2-8D), 3
+nodes (exact, splines within 1e-11, K8 to the table's hi + lo, K9 within
+1e-13), 4 the paths (launch counts, the quads route's pack and the taps
+routes' cubic pack beside K1 and the interleave beside K5, and checks), 5
+timing: each kernel from CUDA events behind a head start
+(`utils/profiling.py::cuda_time`), each plain version from the profiler's
+device events (`profiled_time`), for K8/K9 also the whole engine call with
+its float64 weight build, and the three layout kernels. A failed
 check raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
 card's name and power limit, the kernels' JSON record and {"ok": true,
@@ -84,14 +86,15 @@ class Path:
     def companion(self) -> str | None:
         """The key of ops.fused.launches that the path launches beside its
         kernel, once a call: the layout kernel of its route (the quads
-        route's pack, the interleaved route's interleave)."""
+        route's pack, the taps routes' cubic pack, the interleaved route's
+        interleave)."""
         from interpn_tpu_torch.ops import fused
 
         if self.engine or self.kind != "regular":
             return None
         route = fused.regular_route((self.n,) * self.ndims, self.dtype, self.method,
                                     NCH if self.stacked else None)
-        return {"quads": fused.PACK, "interleaved": fused.INTERLEAVE}.get(route)
+        return fused.LAYOUTS.get(route)
 
     @property
     def native(self) -> "Path":
@@ -194,6 +197,25 @@ def replaces(p: Path) -> str:
         return REPLACES_F64[p.engine]
     stack = "_stack" if p.stacked else ""
     return REPLACES.get(p.kernel, REPLACES[f"{p.kind}{stack}"])
+
+
+def served(method: str, route: str, stacked: bool, ndims: int) -> bool:
+    """Whether K1 (K5 where `stacked`) has an instantiation for the method
+    on the route (csrc/regular.cuh::serves): staged serves linear and
+    single-table cubic, quads single-table linear, interleaved the linear
+    and nearest stacks, taps single-table cubic at 2D, tap lanes from 3D."""
+    from interpn_tpu_torch.ops import fused
+
+    if route == "staged":
+        return method == "linear" or (method == "cubic" and not stacked)
+    if route == "quads":
+        return method == "linear" and not stacked
+    if route == "interleaved":
+        return method != "cubic" and stacked
+    if route in fused.TAP_ROUTES:
+        return method == "cubic" and not stacked and (ndims == 2 if route == "taps"
+                                                      else ndims >= 3)
+    return True
 
 
 @contextlib.contextmanager
@@ -657,7 +679,7 @@ def build_phase():
             engine_build_log(source, ptxas, built)
             continue
         if source.startswith("fused_regular"):
-            regular_build_log(source, built)
+            regular_build_log(source, ptxas, built)
             continue
         table = {}
         for m in re.finditer(
@@ -677,26 +699,35 @@ def build_phase():
             log(f"phase 1   {source} {method} {dt}: registers/spill-store bytes {cells}")
 
 
-def regular_build_log(source, built):
+def regular_build_log(source, ptxas, built):
     """Phase 1 for K1 and K5: registers, static shared memory and local
     (spill) bytes of every instantiation (method, route, dtype, 1-8D), and
     the blocks an SM holds at once as the launch sizes its grid: with the
     route's reservation of dynamic shared memory (the largest staged table,
-    STAGE_BYTES, on the staged route; none on the others). Staged and quads
-    serve linear only, quads one table only, interleaved the linear and
-    nearest stacks."""
+    STAGE_BYTES, on the staged route; none on the others), for every
+    (method, route) that has instantiations (`served`); and the registers
+    and spill stores of the layout kernels (the packs, the interleave) from
+    the ptxas log."""
     from interpn_tpu_torch.ops import fused
 
     stacked = source.endswith("_stack")
     log(f"phase 1 build: {source}.cu {built} (one nvcc per source, all at once)")
+    layouts = re.findall(
+        r"interp\d+(\w+?_kernel)I([fd])E\S*' for \S+\n[^\n]*\n\s+\d+ bytes stack frame, "
+        r"(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers", ptxas)
+    if len(layouts) != 6:  # each source builds the entry's three, f32 and f64
+        raise AssertionError(f"{source}: unexpected layout kernels in the ptxas log: {layouts}")
+    log(f"phase 1   {source} layout kernels: registers/spill-store bytes "
+        + ", ".join(f"{name} {'f32' if t == 'f' else 'f64'} {regs}/{spill}"
+                    for name, t, spill, regs in sorted(layouts)))
     for method, route in itertools.product(fused.METHODS, fused.ROUTES):
-        if ((route in ("staged", "quads") and method != "linear")
-                or (route == "quads" and stacked)
-                or (route == "interleaved" and (method == "cubic" or not stacked))):
+        if not served(method, route, stacked, 8):
             continue
         for dtype in (F32, F64):
             cells = []
             for nd in range(1, 9):
+                if not served(method, route, stacked, nd):
+                    continue
                 i = fused.regular_info(method, dtype, nd, route, stacked)
                 cells.append(f"{nd}D {i['registers']}/{i['static_smem']}/{i['local_bytes']}/"
                              f"{i['blocks_per_sm']}")
@@ -791,37 +822,64 @@ ROUTE_DIMS = [((50,), (40_000,)), ((20, 20), (200, 200)), ((20,) * 3, (40,) * 3)
               ((3,) * 7, (5,) * 7), ((3,) * 8, (4,) * 8)]
 
 
+def cubic_cap_dims(ndims, dtype):
+    """Cubic tables (d0, 4, ..., 4) of `ndims` axes at each cap of the
+    cubic route and one row over it: the table at STAGE_BYTES (staged,
+    then the pack) and at L1_BYTES (f64 at 2-3D: direct, then the pack),
+    the pack at TAP_BYTES (the pack, then direct); a cap that even a 4-row
+    table exceeds gives only its row over."""
+    from interpn_tpu_torch.ops import fused
+
+    rest = 4 ** (ndims - 1)
+    item = torch.empty((), dtype=dtype).element_size()
+    at = [fused.STAGE_BYTES // (rest * item), fused.L1_BYTES // (rest * item),
+          fused.TAP_BYTES // (4 * rest * item) + 3]
+    rows = sorted({d for a in at for d in (a, a + 1) if d >= 4})
+    return [(d, *(4,) * (ndims - 1)) for d in rows]
+
+
 def regular_routes_phase(cuda):
     """Phase 2 for K1's routes: linear and nearest at 1-8D on a table under
-    the staging cap and one over it (staged, quads, direct), the bench's
-    100^3 table (quads, and its pack against `plain_pack`), and tables that
-    are views at an odd offset (the staged copy's unaligned head and tail),
-    each bitwise against its plain version with extrapolated, NaN and +-inf
-    queries; and the interleave of stacks of 1-16 tables against
-    `plain_interleave`."""
+    the staging cap and one over it (staged, quads, direct), cubic at 1-8D
+    at and over each of its caps (`cubic_cap_dims`: staged, taps, tap
+    lanes, direct) in both extrapolation modes, the
+    bench's 100^3 table (quads, and its pack against `plain_pack`), and
+    tables that are views at an odd offset (the staged copy's unaligned head
+    and tail), each bitwise against its plain version with extrapolated,
+    NaN and +-inf queries; every cubic pack against `plain_cubic_pack`; and
+    the interleave of stacks of 1-16 tables against `plain_interleave`."""
     from interpn_tpu_torch.ops import fused
 
     rng = np.random.default_rng(13)
     routes, results = {}, 0
     cases = [(dims, dtype, 0) for pair in ROUTE_DIMS for dims in pair for dtype in (F32, F64)]
+    cases += [(dims, dtype, 0) for nd in range(1, 9) for dtype in (F32, F64)
+              for dims in cubic_cap_dims(nd, dtype)]
     cases += [((100,) * 3, F32, 0), ((100,) * 3, F64, 0)]
-    cases += [(dims, dtype, off) for dims in ((20,) * 3, (7, 9), (3,)) for dtype in (F32, F64)
-              for off in (1, 2, 3)]
+    cases += [(dims, dtype, off) for dims in ((20,) * 3, (30,) * 3, (12,) * 4, (7, 9), (3,))
+              for dtype in (F32, F64) for off in (1, 2, 3)]
     for dims, dtype, off in cases:
-        grid, obs = random_case("regular", dims, dtype, N_CHECK // 5, rng, cuda)
+        n = min(N_CHECK // 5, 2**26 // 4 ** len(dims))
+        grid, obs = random_case("regular", dims, dtype, n, rng, cuda)
         if off:  # the same table as a view `off` entries into a larger tensor
             base = torch.empty(off + grid[2].numel(), dtype=dtype, device=cuda)
             base[off:] = grid[2]
             grid = (grid[0], grid[1], base[off:])
-        for method in ("linear", "nearest"):
+        methods = [(m, True) for m in ("linear", "nearest")]
+        if min(dims) >= 4:
+            methods += [("cubic", True), ("cubic", False)]
+        for method, lin in methods:
             route = fused.regular_route(dims, dtype, method)
-            routes[route] = routes.get(route, 0) + 1
-            what = f"regular {method} {dims} {SHORT[dtype]} {route} offset {off}"
-            got = fused.eval_regular(dims, *grid, obs, method)
-            results += bitwise(got, fused.plain_regular(dims, *grid, obs, method), what)
+            routes[method, route] = routes.get((method, route), 0) + 1
+            what = f"regular {method} lin={lin} {dims} {SHORT[dtype]} {route} offset {off}"
+            got = fused.eval_regular(dims, *grid, obs, method, lin)
+            results += bitwise(got, fused.plain_regular(dims, *grid, obs, method, lin), what)
         if fused.regular_route(dims, dtype, "linear") == "quads":
             bitwise(fused.pack(dims, grid[2]), fused.plain_pack(dims, grid[2]),
                     f"pack {dims} {SHORT[dtype]}")
+        if min(dims) >= 4 and fused.regular_route(dims, dtype, "cubic") in fused.TAP_ROUTES:
+            bitwise(fused.cubic_pack(dims, grid[2]), fused.plain_cubic_pack(dims, grid[2]),
+                    f"cubic pack {dims} {SHORT[dtype]} offset {off}")
     stacks = 0
     for dims, nch in itertools.product(((50,), (20,) * 3, (12,) * 4, (4,) * 8), (1, 3, 8, 9, 16)):
         for dtype in (F32, F64):
@@ -829,12 +887,18 @@ def regular_routes_phase(cuda):
                                    device=cuda)
             stacks += bitwise(fused.interleave(vals), fused.plain_interleave(vals),
                               f"interleave of {nch} {dims} {SHORT[dtype]} tables")
+    cubic = [r for r in fused.ROUTES if ("cubic", r) in routes]
+    if cubic != [r for r in fused.ROUTES
+                 if any(served("cubic", r, False, nd) for nd in range(1, 9))]:
+        raise AssertionError(f"phase 2 ran K1 cubic on the routes {cubic} only")
     log(f"phase 2 kernel vs plain K1 routes: linear and nearest at 1-8D under and over the "
-        f"staging cap of {fused.STAGE_BYTES} bytes, 100^3, and views at odd offsets 1-3 "
-        f"(f32, f64; {', '.join(f'{r} {c}' for r, c in sorted(routes.items()))} launches): "
+        f"staging cap of {fused.STAGE_BYTES} bytes, cubic (linearize True and False) at 1-8D "
+        f"at and over each cap of its route, 100^3, and views at odd offsets 1-3 (f32, f64; "
+        f"{', '.join(f'{m} {r} {c}' for (m, r), c in sorted(routes.items()))} launches): "
         f"all {results} results bitwise equal to the gather tree; every packed copy equal to "
-        f"plain_pack; the interleave of stacks of 1, 3, 8, 9, 16 tables at 1, 3, 4, 8D "
-        f"(f32, f64): all {stacks} values equal to plain_interleave")
+        f"plain_pack and every cubic pack to plain_cubic_pack; the interleave of stacks of 1, "
+        f"3, 8, 9, 16 tables at 1, 3, 4, 8D (f32, f64): all {stacks} values equal to "
+        f"plain_interleave")
 
 
 def engine_vs_plain_phase(cuda):
@@ -1334,20 +1398,23 @@ def timing_phase(p: Path, cuda, gen, smi):
 # the layout kernels (their counter in ops.fused.launches) and the path
 # whose route launches each
 LAYOUT_PATHS = {"regular_pack": Path("regular_linear", F32, 100, 3),
+                "regular_cubic_pack": Path("regular_cubic", F32, 20, 4),
                 "regular_interleave": Path("regular_linear_stack", F32, 20, 3)}
 
 
 def layout_phase(name, cuda, smi, driven) -> dict:
-    """Phase 5 for a layout kernel (`name`: the quads route's pack, the
-    interleaved route's interleave) on its path's table: bitwise against its
-    plain version; its device time and the plain version's from CUDA events
-    behind a head start (the profiler came back from the pack's one-call
-    trace empty on this card), in turns (plain, kernel, kernel, plain), each
-    call laying out the one table as the path does; its bound (the table
-    read once, the copy written once); and the one PyTorch call that
-    computes the same copy: `.contiguous()` of the table's 2x2 windows
-    (`unfold`) for the pack, the plain version's `.t().contiguous()` itself
-    for the interleave. Returns its entry of the kernels record."""
+    """Phase 5 for a layout kernel (`name`: the quads route's pack, the taps
+    routes' cubic pack, the interleaved route's interleave) on its path's
+    table: bitwise against its plain version; its device time and the plain
+    version's from CUDA events behind a head start (the profiler came back
+    from the pack's one-call trace empty on this card), in turns (plain,
+    kernel, kernel, plain), each call laying out the one table as the path
+    does; its bound (the table read once, the copy written once); and the
+    one PyTorch call that computes the same copy: `.contiguous()` of the
+    table's 2x2 windows (`unfold`) for the pack, of its windows of four
+    along axis 0 for the cubic pack, the plain version's
+    `.t().contiguous()` itself for the interleave. Returns its entry of the
+    kernels record."""
     from interpn_tpu_torch.ops import fused
     from interpn_tpu_torch.utils.profiling import cuda_time
 
@@ -1359,15 +1426,18 @@ def layout_phase(name, cuda, smi, driven) -> dict:
         lib = (lambda v: v.reshape(dims[0], dims[1], -1).unfold(0, 2, 1).unfold(1, 2, 1)
                .transpose(-1, -2).contiguous())
         lib_name, what = "the unfold windows' .contiguous()", "the pack of the quads route"
+    elif name == fused.CUBIC_PACK:
+        kern = lambda v: fused.cubic_pack(dims, v)  # noqa: E731
+        plain = lambda v: fused.plain_cubic_pack(dims, v)  # noqa: E731
+        lib = lambda v: v.reshape(dims).unfold(0, 4, 1).contiguous()  # noqa: E731
+        lib_name, what = "the unfold windows' .contiguous()", "the cubic pack of the taps routes"
     else:
         kern, plain, lib = fused.interleave, fused.plain_interleave, fused.plain_interleave
         lib_name, what = ".t().contiguous()", "the interleave of the interleaved route"
     got, want = kern(vals), plain(vals)
     bitwise(got, want, f"{name} vs its plain version")
-    if name == fused.PACK:
-        windows = (vals.reshape(dims[0], dims[1], -1).unfold(0, 2, 1).unfold(1, 2, 1)
-                   .transpose(-1, -2))
-        bitwise(windows.contiguous().reshape(want.shape), want, "unfold windows vs plain_pack")
+    if lib is not plain:
+        bitwise(lib(vals).reshape(want.shape), want, f"{lib_name} vs {name}'s plain version")
     err = max_abs_err(got, want)
     b_ms = (vals.numel() + got.numel()) * vals.element_size() / PEAK_BYTES * 1e3
     del got, want

@@ -7,9 +7,9 @@
 // and serves float64 natively (on the TPU, pallas_df64/pallas_i8 serve f64).
 // The kernel, what it computes, what bounds it on this card and the layouts
 // it reads (the table staged in shared memory, packed quads for a linear
-// table above the cap, or the table itself) are in regular.cuh;
-// `fused_regular_stack.cu` instantiates it for stacks. The entry here also
-// launches the quads route's pack.
+// table above the cap, the cubic pack of axis 0's taps, or the table
+// itself) are in regular.cuh; `fused_regular_stack.cu` instantiates it for
+// stacks. The entry here also launches the quads and taps routes' packs.
 
 #include "interp_common.cuh"
 #include "regular.cuh"
@@ -18,10 +18,14 @@
 // cudaGetLastError() (0 on success), or the error that sizing the grid met.
 // `method` is 0 linear, 1 cubic, 2 nearest; `linearize` selects linearized
 // cubic extrapolation; `route` is the layout the wrapper chose
-// (regular.cuh): 0 direct, 1 staged (linear, the table within kStageBytes),
-// 2 quads (linear: the pack of `vals` into `work`, (d0-1)(d1-1) prod(d2..)
-// cells of 4 values, or d0-1 pairs of a 1-D table, is launched first and
-// the kernel reads it). `work` is unused on the other routes. `dims` and
+// (regular.cuh): 0 direct, 1 staged (linear and cubic, the table within
+// kStageBytes), 2 quads (linear: the pack of `vals` into `work`,
+// (d0-1)(d1-1) prod(d2..) cells of 4 values, or d0-1 pairs of a 1-D table,
+// is launched first and the kernel reads it), 4 taps and 5 taps on four
+// lanes a query (from 2D) (cubic: the cubic pack of `vals` into `work`,
+// (d0-3) prod(d1..) cells of 4 values, is launched first and the kernel
+// reads it). `work` is unused
+// on the other routes. `dims` and
 // `obs` are host arrays of `ndims` entries; `obs`, `starts`, `steps`,
 // `work`, `vals` and `out` hold device pointers of the type selected by
 // `is_f64`. The caller guarantees 1 <= ndims <= 8, every dim >= 2 (>= 4 for
@@ -59,4 +63,22 @@ extern "C" int interpn_regular_pack(int is_f64, int ndims, const int* dims, cons
                                    static_cast<double*>(out), s)
              : interp::launch_pack(ndims, dims, static_cast<const float*>(vals),
                                    static_cast<float*>(out), s));
+}
+
+// The pack of the taps routes alone, as `interpn_regular` launches it on
+// those routes: `out` receives the cubic pack of `vals` (regular.cuh,
+// `cubic_pack_kernel`). Launched on `stream` without synchronising; returns
+// cudaGetLastError(). The caller guarantees 1 <= ndims <= 8, dims[0] >= 4
+// and prod(dims) < 2^31.
+extern "C" int interpn_regular_cubic_pack(int is_f64, int ndims, const int* dims,
+                                          const void* vals, void* out, void* stream) {
+  if (ndims < 1 || ndims > interp::kMaxDims || dims[0] < 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_f64 ? interp::launch_cubic_pack(ndims, dims, static_cast<const double*>(vals),
+                                         static_cast<double*>(out), s)
+             : interp::launch_cubic_pack(ndims, dims, static_cast<const float*>(vals),
+                                         static_cast<float*>(out), s));
 }

@@ -37,10 +37,10 @@ extern "C" int interpn_regular_stack_info(int method, int is_f64, int ndims, int
 }
 
 // The interleave of the interleaved route alone, as `interpn_regular_stack`
-// launches it on that route: `out` receives the (nch, table) stack `vals` as
-// (table, nch) (regular.cuh, `interleave_kernel`). Launched on `stream`
-// without synchronising; returns cudaGetLastError(). The caller guarantees
-// table * nch < 2^31.
+// launches it on that route: `out` (16-byte aligned) receives the (nch,
+// table) stack `vals` as (table, nch) (regular.cuh, `interleave_kernel`).
+// Launched on `stream` without synchronising; returns cudaGetLastError().
+// The caller guarantees table * nch < 2^31.
 extern "C" int interpn_regular_stack_interleave(int is_f64, long long table, int nch,
                                                 const void* vals, void* out, void* stream) {
   if (table <= 0 || nch <= 0) return static_cast<int>(cudaErrorInvalidValue);

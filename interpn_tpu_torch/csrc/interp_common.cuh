@@ -172,41 +172,42 @@ struct RectCubicAxis {
 };
 
 // Value of the D-dimensional 4^D sub-stencil at `base`: the four
-// (D-1)-dimensional sub-stencils along dim D-1 reduced by axis D-1's node.
-// The inner kCubicUnrolled levels unroll; each outer level runs its four
-// children in a loop and keeps them in registers through selects (a
-// dynamically indexed array would live in local memory).
-template <typename T, typename Axis, int D>
+// (D-1)-dimensional sub-stencils along dim D-1 reduced by axis D-1's node,
+// down to the leaf, which returns the sub-stencil of its first LEAF dims (a
+// table entry for LEAF = 0, `Ldg`; axis 0's four taps already reduced by
+// its node for LEAF = 1, regular.cuh's `Taps`). The inner kCubicUnrolled
+// levels unroll; each outer level runs its four children in a loop and
+// keeps them in registers through selects (a dynamically indexed array
+// would live in local memory).
+template <typename T, typename Axis, int D, int LEAF = 0>
 struct CubicTree {
-  static __device__ __forceinline__ T eval(const T* __restrict__ vals, int base,
-                                           const int* stride, const Axis* ax, bool lin) {
-    const int s = stride[D - 1];
-    if constexpr (D <= kCubicUnrolled) {
-      const T v0 = CubicTree<T, Axis, D - 1>::eval(vals, base, stride, ax, lin);
-      const T v1 = CubicTree<T, Axis, D - 1>::eval(vals, base + s, stride, ax, lin);
-      const T v2 = CubicTree<T, Axis, D - 1>::eval(vals, base + 2 * s, stride, ax, lin);
-      const T v3 = CubicTree<T, Axis, D - 1>::eval(vals, base + 3 * s, stride, ax, lin);
-      return ax[D - 1].node(v0, v1, v2, v3, lin);
+  template <typename Leaf>
+  static __device__ __forceinline__ T eval(const Leaf& leaf, int base, const int* stride,
+                                           const Axis* ax, bool lin) {
+    if constexpr (D == LEAF) {
+      return leaf(base).v[0];
     } else {
-      T v0 = T(0), v1 = T(0), v2 = T(0), v3 = T(0);
+      using Sub = CubicTree<T, Axis, D - 1, LEAF>;
+      const int s = stride[D - 1];
+      if constexpr (D <= kCubicUnrolled) {
+        const T v0 = Sub::eval(leaf, base, stride, ax, lin);
+        const T v1 = Sub::eval(leaf, base + s, stride, ax, lin);
+        const T v2 = Sub::eval(leaf, base + 2 * s, stride, ax, lin);
+        const T v3 = Sub::eval(leaf, base + 3 * s, stride, ax, lin);
+        return ax[D - 1].node(v0, v1, v2, v3, lin);
+      } else {
+        T v0 = T(0), v1 = T(0), v2 = T(0), v3 = T(0);
 #pragma unroll 1
-      for (int j = 0; j < 4; ++j) {
-        const T y = CubicTree<T, Axis, D - 1>::eval(vals, base + j * s, stride, ax, lin);
-        v0 = j == 0 ? y : v0;
-        v1 = j == 1 ? y : v1;
-        v2 = j == 2 ? y : v2;
-        v3 = j == 3 ? y : v3;
+        for (int j = 0; j < 4; ++j) {
+          const T y = Sub::eval(leaf, base + j * s, stride, ax, lin);
+          v0 = j == 0 ? y : v0;
+          v1 = j == 1 ? y : v1;
+          v2 = j == 2 ? y : v2;
+          v3 = j == 3 ? y : v3;
+        }
+        return ax[D - 1].node(v0, v1, v2, v3, lin);
       }
-      return ax[D - 1].node(v0, v1, v2, v3, lin);
     }
-  }
-};
-
-template <typename T, typename Axis>
-struct CubicTree<T, Axis, 0> {
-  static __device__ __forceinline__ T eval(const T* __restrict__ vals, int base,
-                                           const int*, const Axis*, bool) {
-    return __ldg(vals + base);
   }
 };
 

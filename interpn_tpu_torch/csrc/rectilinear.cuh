@@ -28,8 +28,11 @@
 //
 // What bounds it on this card: the query stream (sizeof(T)*(ndims+nch) bytes
 // per query) for linear and nearest, plus about log2(dim) dependent column
-// reads per axis for the bisection; cubic adds about 30 floating-point
-// operations per tree node and table, and is bound by arithmetic from 3D up.
+// reads per axis for the bisection. Cubic reads its 4^N stencil entries one
+// scalar at a time, the reads that bounded K1 cubic on the same tree before
+// its cubic routes (regular.cuh), and adds about 30 floating-point
+// operations per tree node and table; which of the two sets its pace has
+// not been measured.
 
 #pragma once
 
@@ -102,11 +105,11 @@ __global__ void __launch_bounds__(kThreads)
       }
       if constexpr (kStack) {
         for (int c = 0; c < nch; ++c) {
-          out[c * n + i] = CubicTree<T, RectCubicAxis<T>, NDIMS>::eval(vals + c * table, base,
-                                                                       stride, ax, lin);
+          out[c * n + i] = CubicTree<T, RectCubicAxis<T>, NDIMS>::eval(
+              Ldg<T>{vals + c * table}, base, stride, ax, lin);
         }
       } else {
-        out[i] = CubicTree<T, RectCubicAxis<T>, NDIMS>::eval(vals, base, stride, ax, lin);
+        out[i] = CubicTree<T, RectCubicAxis<T>, NDIMS>::eval(Ldg<T>{vals}, base, stride, ax, lin);
       }
     } else {
       T t[NDIMS];

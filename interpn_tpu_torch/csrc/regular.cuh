@@ -22,28 +22,32 @@
 // the occupancy of each instantiation, `Regular::launch`).
 //
 // What bounds it on this card. Each query streams sizeof(T)*(ndims+nch)
-// bytes of coordinates and results through device memory. Linear and
-// nearest add scattered table reads: a warp's 32 queries touch up to 32
-// lines per corner, and each line is one L1 tag lookup, so at 2^N corners
-// the lookups, not the bytes, set the pace (reading every corner direct,
-// linear ran at 28% of its byte bound at 20^3 f32 and at 10% at 100^3, whose
-// table misses L1). Cubic does about 20
-// operations per tree node, (4^N - 1)/3 nodes per query and table, and is
-// bound by arithmetic from 3D up.
+// bytes of coordinates and results through device memory, and reads its
+// stencil scattered: a warp's 32 queries touch up to 32 lines per stencil
+// read, and each line is one L1 tag lookup, or one L2 request where the
+// table misses L1, so the reads, not the bytes, set the pace (reading every
+// corner direct, linear ran at 28% of its byte bound at 20^3 f32 and at 10%
+// at 100^3). Cubic reads 4^N entries a query, and so is bound by its reads
+// too, not by its ~20 operations a tree node: reading each entry as a
+// scalar, it ran at 1.3-11% of its operation bound at 20^3-12^5 on an H100,
+// worst where the table misses L1 and the tree's outer levels run as
+// dependent batches of 64 reads (20^4 f32, 12^5 f64). The cubic routes cut
+// the lookups a query and split the batches.
 //
 // The routes. The wrapper alone picks one, from dims, dtype, method and nch
 // (`ops/fused.py::regular_route`), lays the table out for it and passes its
 // code; the entry launches the route's instantiation and works nothing out
-// again. f64 is never staged nor packed: direct timed ahead of both at 20^3
-// and 100^3 on an H100.
-// - kStaged (f32 linear; a table, or a stack of fewer than 8, of at most
-//   kStageBytes): each block copies the table into shared memory once, by
-//   one bulk asynchronous copy (`cp.async.bulk`, TMA's 1-D form) completing
-//   on an mbarrier, its unaligned head and tail by plain loads, and then
-//   reads the stencil there: bank conflicts, a few wavefronts a warp, in
-//   place of up to 32 L1 tag lookups. The copies cost L2 bandwidth at the
-//   start of the kernel, so the route runs 1024-thread blocks. Nearest, one
-//   read a query, did not repay the copies and reads the table direct.
+// again. Linear f64 is never staged nor packed: direct timed ahead of both
+// at 20^3 and 100^3 on an H100.
+// - kStaged (f32 linear, a table or a stack of fewer than 8, and cubic
+//   below; at most kStageBytes): each block copies the table into shared
+//   memory once, by one bulk asynchronous copy (`cp.async.bulk`, TMA's 1-D
+//   form) completing on an mbarrier, its unaligned head and tail by plain
+//   loads, and then reads the stencil there: bank conflicts, a few
+//   wavefronts a warp, in place of up to 32 L1 tag lookups. The copies cost
+//   L2 bandwidth at the start of the kernel, so the route runs 1024-thread
+//   blocks. Nearest, one read a query, did not repay the copies and reads
+//   the table direct.
 // - kQuads (f32 linear, one table above that cap whose packed copy fits
 //   16 MiB): the entry first launches the pack (`pack_kernel`) into a
 //   buffer the wrapper allocates each call, so that cell (i, j, ...) holds
@@ -52,6 +56,25 @@
 //   2^N values. Axes 0 and 1 are the lerp tree's first two levels, so each
 //   quad is one leaf of the depth-first tree and at most N - 2 partial sums
 //   stay live.
+// - kStaged for one cubic table of at most kStageBytes: the table as it
+//   is, copied into each block's shared memory the same way, its stencil
+//   read there (1.3-1.9x direct at 20^3-30^3 f32, 20^3 f64, 12^4 f32;
+//   ahead of the cubic pack staged, of 4x the bytes, at 20^3 f32).
+// - kTaps (2D) and kTapLanes (3D and up), one cubic table above that whose
+//   pack fits 32 MiB: the entry first launches the cubic pack
+//   (`cubic_pack_kernel`) into a buffer the wrapper allocates each call,
+//   so that cell (i, r) holds axis 0's four taps (i..i+3, r) side by side,
+//   one 16-byte vector of f32 or two of f64 in one sector. Axis 0 is the
+//   tree's first level, so each cell is one leaf (`Taps`) and a query reads
+//   4^(N-1) cells in place of 4^N entries. On kTapLanes four lanes of a
+//   warp run one query, lane j the subtree of child j of the outermost
+//   axis, and gather the four by shuffles for its node: the same
+//   arithmetic on the same values, with a quarter of the dependent batches
+//   and of the live registers a lane (20^4 f32 0.214 against 0.457 ms with
+//   one lane a query, 12^5 f64 1.389 against 2.336; at 2D one lane a query
+//   led, 0.024 against 0.043 ms at 200^2 f32). A 1-D table reads direct:
+//   its taps lie side by side already. So does an f64 table of at most 256
+//   KB at 2D or 3D, whose scalar reads hit L1 where its pack would not.
 // - kInterleaved (a linear or nearest stack of at least kRunBytes of
 //   channels a table entry: 8 f32, 4 f64 tables, at 1-8D): the entry
 //   first launches the interleave (`interleave_kernel`) into a buffer the
@@ -65,7 +88,7 @@
 //   and a cubic tree over 8 lanes (4^N entries each) would not fit the
 //   registers.
 // - kDirect (the rest): the stencil straight from the table through the
-//   read-only cache, a stack's tables one at a time.
+//   read-only cache, a stack's tables one at a time (a cubic stack too).
 
 #pragma once
 
@@ -80,6 +103,8 @@ constexpr int kDirect = 0;
 constexpr int kStaged = 1;
 constexpr int kQuads = 2;
 constexpr int kInterleaved = 3;
+constexpr int kTaps = 4;
+constexpr int kTapLanes = 5;
 
 // Threads a block of the staged route. A staged block copies the whole
 // table, so the route runs the largest blocks, one or two copies an SM
@@ -91,6 +116,15 @@ constexpr int kStageBytes = 112 * 1024;
 // Bytes of channels an interleaved stack reads and runs together: one
 // 32-byte sector, by two 16-byte loads (8 f32, 4 f64 channels).
 constexpr int kRunBytes = 32;
+
+// Whether the route reads the cubic pack (`cubic_pack_kernel`).
+__host__ __device__ constexpr bool taps(int route) {
+  return route == kTaps || route == kTapLanes;
+}
+
+// Lanes of a warp that run one query: the four children of the outermost
+// axis on four lanes on kTapLanes, one lane on the others.
+__host__ __device__ constexpr int group_of(int route) { return route == kTapLanes ? 4 : 1; }
 
 template <int ROUTE>
 constexpr int threads_of() {
@@ -111,13 +145,17 @@ __host__ __device__ constexpr int lanes_of() {
   return ROUTE == kInterleaved ? kRunBytes / static_cast<int>(sizeof(T)) : 1;
 }
 
-// Whether the route has an instantiation for the method: staged serves
-// linear, one table or a stack read table by table; quads single-table
-// linear; interleaved the linear and nearest stacks.
-constexpr bool serves(int route, int method, bool stack) {
-  return route == kDirect || (route == kStaged && method == kLinear) ||
+// Whether the route has an instantiation for the method and ndims: staged
+// serves linear, one table or a stack read table by table, and single-table
+// cubic; quads single-table linear; interleaved the linear and nearest
+// stacks; taps single-table cubic at 2D, tap lanes from 3D.
+constexpr bool serves(int route, int method, bool stack, int ndims) {
+  return route == kDirect ||
+         (route == kStaged && (method == kLinear || (method == kCubic && !stack))) ||
          (route == kQuads && method == kLinear && !stack) ||
-         (route == kInterleaved && method != kCubic && stack);
+         (route == kInterleaved && method != kCubic && stack) ||
+         (taps(route) && method == kCubic && !stack &&
+          (route == kTaps ? ndims == 2 : ndims >= 3));
 }
 
 struct GridArgs {
@@ -222,6 +260,26 @@ struct Packed {
   }
 };
 
+// The leaf of the taps routes: axis 0's four taps (i..i+3) at `cell` of the
+// cubic pack, one 16-byte (f32) or two (f64, one sector) vector loads
+// through the read-only cache, reduced by axis 0's node.
+template <typename T>
+struct Taps {
+  const T* q;  // the pack, 4 entries a cell
+  RegularCubicAxis<T> a0;
+  bool lin;
+
+  __device__ __forceinline__ Lanes<T, 1> operator()(int cell) const {
+    using V = typename Vec16<T>::type;
+    constexpr int kPer = 16 / sizeof(T);
+    const V* p = reinterpret_cast<const V*>(q) + static_cast<int64_t>(cell) * (4 / kPer);
+    T v[4];
+#pragma unroll
+    for (int j = 0; j < 4 / kPer; ++j) Vec16<T>::put(v + j * kPer, __ldg(p + j));
+    return {a0.node(v[0], v[1], v[2], v[3], lin)};
+  }
+};
+
 // --- staging the table in shared memory -------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -289,6 +347,7 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
                    int nch, T* __restrict__ out, int64_t n, bool lin) {
   constexpr bool kShared = ROUTE == kStaged;
   constexpr int W = lanes_of<T, ROUTE>();
+  constexpr int kGroup = group_of(ROUTE);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint64_t bar;
   T start[NDIMS], step[NDIMS], dimmax[NDIMS], high_at[NDIMS];
@@ -308,9 +367,9 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
   if constexpr (kShared) src = stage_table(vals, table * nch, smem, &bar, &pending);
   // 16-byte loads of a stack's channel runs: every entry's run aligned
   const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 && (nch * sizeof(T)) % 16 == 0;
-  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += nthreads) {
+  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x / kGroup;
+  for (int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kGroup;
+       i < n; i += nthreads) {
     int base = 0;
     if constexpr (METHOD == kCubic) {
       RegularCubicAxis<T> ax[NDIMS];
@@ -331,13 +390,37 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
         ax[k].high = high;
         ax[k].outside = iloc < T(-1) || (!low && iloc > high_at[k]);
       }
+      if constexpr (kShared) {
+        if (pending) {
+          await_bulk(&bar);
+          pending = false;
+        }
+      }
+      using Axis = RegularCubicAxis<T>;
       if constexpr (kStack) {  // tables one after another
         for (int c = 0; c < nch; ++c) {
-          out[c * n + i] = CubicTree<T, RegularCubicAxis<T>, NDIMS>::eval(vals + c * table, base,
-                                                                          stride, ax, lin);
+          out[c * n + i] =
+              CubicTree<T, Axis, NDIMS>::eval(Ldg<T>{vals + c * table}, base, stride, ax, lin);
         }
+      } else if constexpr (kGroup == 4) {
+        // lane j of the query's four runs child j of the outermost axis;
+        // each lane gathers the four and evaluates its node, lane 0 stores
+        const Taps<T> leaf{vals, ax[0], lin};
+        const int j = threadIdx.x & 3;
+        const unsigned group = 0xFu << (threadIdx.x & 28);
+        const T y = CubicTree<T, Axis, NDIMS - 1, 1>::eval(leaf, base + j * stride[NDIMS - 1],
+                                                           stride, ax, lin);
+        const T v0 = __shfl_sync(group, y, 0, 4);
+        const T v1 = __shfl_sync(group, y, 1, 4);
+        const T v2 = __shfl_sync(group, y, 2, 4);
+        const T v3 = __shfl_sync(group, y, 3, 4);
+        if (j == 0) out[i] = ax[NDIMS - 1].node(v0, v1, v2, v3, lin);
+      } else if constexpr (taps(ROUTE)) {
+        out[i] = CubicTree<T, Axis, NDIMS, 1>::eval(Taps<T>{vals, ax[0], lin}, base, stride, ax,
+                                                    lin);
       } else {
-        out[i] = CubicTree<T, RegularCubicAxis<T>, NDIMS>::eval(vals, base, stride, ax, lin);
+        out[i] = CubicTree<T, Axis, NDIMS>::eval(Channels<T, 1, kShared>{src, 1, false}, base,
+                                                 stride, ax, lin);
       }
     } else {
       T t[NDIMS];
@@ -433,16 +516,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The pack of the taps routes: cell q = (i, r) of the (d0-3, rest) cells,
+// rest = d1 * ... * dN-1, holds axis 0's four taps (i + a, r), a = 0..3,
+// side by side. Entry (i, r) of the table is at i * rest + r = q. Each
+// thread stores one 16-byte vector of the pack (a cell of f32, half a cell
+// of f64), so a warp's store is one contiguous run of 512 bytes. Plain
+// version: `ops/fused.py::plain_cubic_pack`.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    cubic_pack_kernel(const T* __restrict__ vals, T* __restrict__ out, int cells, int rest) {
+  using V = typename Vec16<T>::type;
+  constexpr int kPer = 16 / sizeof(T);  // taps a vector
+  const int64_t vecs = static_cast<int64_t>(cells) * (4 / kPer);
+  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; v < vecs;
+       v += nthreads) {
+    const int q = static_cast<int>(v / (4 / kPer));
+    const T* p = vals + q + static_cast<int64_t>(v % (4 / kPer)) * kPer * rest;
+    if constexpr (sizeof(T) == 4) {
+      reinterpret_cast<V*>(out)[v] =
+          make_float4(__ldg(p), __ldg(p + rest), __ldg(p + 2 * rest), __ldg(p + 3 * rest));
+    } else {
+      reinterpret_cast<V*>(out)[v] = make_double2(__ldg(p), __ldg(p + rest));
+    }
+  }
+}
+
 // The layout of the kInterleaved route: entry e of table c of the (nch,
 // table) stack lands at out[e * nch + c], a corner's channels side by side.
-// Plain version: `ops/fused.py::plain_interleave`.
+// Each thread gathers one 16-byte vector of the copy from the tables and
+// stores it whole (the ragged end value by value), so a warp's store is one
+// contiguous run of 512 bytes and its loads of one slot touch a few runs of
+// consecutive entries. `out` is 16-byte aligned. Plain version:
+// `ops/fused.py::plain_interleave`.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     interleave_kernel(const T* __restrict__ vals, T* __restrict__ out, int64_t table, int nch) {
+  using V = typename Vec16<T>::type;
+  constexpr int kPer = 16 / sizeof(T);
+  const int64_t total = table * nch;
+  const int64_t vecs = (total + kPer - 1) / kPer;
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < table;
-       e += nthreads) {
-    for (int c = 0; c < nch; ++c) out[e * nch + c] = __ldg(vals + c * table + e);
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; q < vecs;
+       q += nthreads) {
+    const int64_t f = q * kPer;  // the vector's first entry of the copy
+    int64_t e = f / nch;
+    int c = static_cast<int>(f - e * nch);
+    T v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      v[j] = f + j < total ? __ldg(vals + c * table + e) : T(0);
+      if (++c == nch) {
+        c = 0;
+        ++e;
+      }
+    }
+    if (f + kPer <= total) {
+      if constexpr (sizeof(T) == 4) {
+        reinterpret_cast<V*>(out)[q] = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        reinterpret_cast<V*>(out)[q] = make_double2(v[0], v[1]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (f + j < total) out[f + j] = v[j];
+      }
+    }
   }
 }
 
@@ -518,6 +658,8 @@ cudaError_t grid_blocks(Occupancy& o, Kernel kernel, int threads, size_t reserve
 template <typename T>
 struct PackKey {};
 template <typename T>
+struct CubicPackKey {};
+template <typename T>
 struct InterleaveKey {};
 
 namespace {
@@ -549,15 +691,34 @@ cudaError_t launch_pack(int ndims, const int* dims, const T* vals, T* out, cudaS
   return cudaGetLastError();
 }
 
-// Launches the layout of the interleaved route on `stream`: `out` receives
-// the (nch, table) stack `vals` as (table, nch).
+// Launches the pack of the taps routes on `stream`: `out` receives the
+// (d0-3) prod(d1..) cells of 4 values.
+template <typename T>
+cudaError_t launch_cubic_pack(int ndims, const int* dims, const T* vals, T* out,
+                              cudaStream_t stream) {
+  int rest = 1;
+  for (int k = 1; k < ndims; ++k) rest *= dims[k];
+  const int cells = (dims[0] - 3) * rest;
+  const auto kernel = cubic_pack_kernel<T>;
+  int blocks = 0;
+  const cudaError_t err = grid_blocks(occupancy_cache<CubicPackKey<T>>(), kernel, kThreads, 0,
+                                      static_cast<int64_t>(cells) * sizeof(T) / 4, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kThreads, 0, stream>>>(vals, out, cells, rest);
+  return cudaGetLastError();
+}
+
+// Launches the layout of the interleaved route on `stream`: `out` (16-byte
+// aligned) receives the (nch, table) stack `vals` as (table, nch).
 template <typename T>
 cudaError_t launch_interleave(const T* vals, T* out, int64_t table, int nch,
                               cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0) return cudaErrorInvalidValue;
   const auto kernel = interleave_kernel<T>;
+  const int64_t vecs = (table * nch + 16 / sizeof(T) - 1) / (16 / sizeof(T));
   int blocks = 0;
   const cudaError_t err =
-      grid_blocks(occupancy_cache<InterleaveKey<T>>(), kernel, kThreads, 0, table, &blocks);
+      grid_blocks(occupancy_cache<InterleaveKey<T>>(), kernel, kThreads, 0, vecs, &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, 0, stream>>>(vals, out, table, nch);
   return cudaGetLastError();
@@ -588,8 +749,8 @@ struct Regular {
     const size_t smem = ROUTE == kStaged ? a.table * a.nch * sizeof(T) + 16 : 0;
     if (smem > reserve) return cudaErrorInvalidValue;  // above the staging cap
     int blocks = 0;
-    const cudaError_t err = grid_blocks(occupancy_cache<Regular>(),
-                                        kernel, threads, reserve, a.n, &blocks);
+    const cudaError_t err = grid_blocks(occupancy_cache<Regular>(), kernel, threads, reserve,
+                                        a.n * group_of(ROUTE), &blocks);
     if (err != cudaSuccess) return err;
     ObsPtrs<T> ptrs{};
     for (int k = 0; k < NDIMS; ++k) ptrs.p[k] = static_cast<const T*>(a.obs[k]);
@@ -620,22 +781,27 @@ struct Regular {
 // Calls op.template run<Regular<...>>() for the instantiation of (dtype,
 // method, ndims, route); cudaErrorInvalidValue for a combination that has
 // none (`serves`).
+template <bool kStack, int ROUTE, typename T, int METHOD, int NDIMS, typename Op>
+cudaError_t run_served(Op& op) {
+  if constexpr (serves(ROUTE, METHOD, kStack, NDIMS)) {
+    return op.template run<Regular<T, NDIMS, METHOD, kStack, ROUTE>>();
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 template <bool kStack, int ROUTE, typename T, int METHOD, typename Op>
 cudaError_t visit_ndims(int ndims, Op& op) {
-  if constexpr (!serves(ROUTE, METHOD, kStack)) {
-    return cudaErrorInvalidValue;
-  } else {
-    switch (ndims) {
-      case 1: return op.template run<Regular<T, 1, METHOD, kStack, ROUTE>>();
-      case 2: return op.template run<Regular<T, 2, METHOD, kStack, ROUTE>>();
-      case 3: return op.template run<Regular<T, 3, METHOD, kStack, ROUTE>>();
-      case 4: return op.template run<Regular<T, 4, METHOD, kStack, ROUTE>>();
-      case 5: return op.template run<Regular<T, 5, METHOD, kStack, ROUTE>>();
-      case 6: return op.template run<Regular<T, 6, METHOD, kStack, ROUTE>>();
-      case 7: return op.template run<Regular<T, 7, METHOD, kStack, ROUTE>>();
-      case 8: return op.template run<Regular<T, 8, METHOD, kStack, ROUTE>>();
-      default: return cudaErrorInvalidValue;
-    }
+  switch (ndims) {
+    case 1: return run_served<kStack, ROUTE, T, METHOD, 1>(op);
+    case 2: return run_served<kStack, ROUTE, T, METHOD, 2>(op);
+    case 3: return run_served<kStack, ROUTE, T, METHOD, 3>(op);
+    case 4: return run_served<kStack, ROUTE, T, METHOD, 4>(op);
+    case 5: return run_served<kStack, ROUTE, T, METHOD, 5>(op);
+    case 6: return run_served<kStack, ROUTE, T, METHOD, 6>(op);
+    case 7: return run_served<kStack, ROUTE, T, METHOD, 7>(op);
+    case 8: return run_served<kStack, ROUTE, T, METHOD, 8>(op);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -656,6 +822,8 @@ cudaError_t visit_route(int route, int method, int ndims, Op& op) {
     case kStaged: return visit_method<kStack, kStaged, T>(method, ndims, op);
     case kQuads: return visit_method<kStack, kQuads, T>(method, ndims, op);
     case kInterleaved: return visit_method<kStack, kInterleaved, T>(method, ndims, op);
+    case kTaps: return visit_method<kStack, kTaps, T>(method, ndims, op);
+    case kTapLanes: return visit_method<kStack, kTapLanes, T>(method, ndims, op);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -689,29 +857,39 @@ int regular_entry(int method, int linearize, int is_f64, int ndims, const int* d
                   const void* starts, const void* steps, void* work, const void* vals,
                   const void* const* obs, void* out, long long n, int nch, int route,
                   void* stream) {
-  const bool relaid = route == kQuads || route == kInterleaved;
+  const bool relaid = route == kQuads || route == kInterleaved || taps(route);
   if (ndims < 1 || ndims > kMaxDims || n <= 0 || nch <= 0 || (!kStack && nch != 1) ||
-      method < kLinear || method > kNearest || !serves(route, method, kStack) ||
+      method < kLinear || method > kNearest || !serves(route, method, kStack, ndims) ||
       (relaid && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RegularLaunch a{};
   // strides of the layout read: the table's in entries (times nch for an
-  // interleaved stack; another stack's tables lie one after another); the
-  // packed copy's in cells, over (d0-1, d1-1, d2, ...)
+  // interleaved stack; another stack's tables lie one after another); a
+  // packed copy's in cells, over (d0-1, d1-1, d2, ...) for quads and
+  // (d0-3, d1, ...) for taps
   int acc = route == kInterleaved ? nch : 1;
   int64_t table = 1;
   for (int k = ndims - 1; k >= 0; --k) {
     a.grid.dim[k] = dims[k];
     a.grid.stride[k] = acc;
-    acc *= route == kQuads && k < 2 && ndims > 1 ? dims[k] - 1 : dims[k];
+    if (route == kQuads && k < 2 && ndims > 1) {
+      acc *= dims[k] - 1;
+    } else {
+      acc *= taps(route) && k == 0 ? dims[k] - 3 : dims[k];
+    }
     table *= dims[k];
   }
   a.stream = static_cast<cudaStream_t>(stream);
   a.vals = relaid ? work : vals;
   // the route's layout into `work`, then the kernel that reads it
   cudaError_t err = cudaSuccess;
-  if (route == kQuads) {
+  if (taps(route)) {
+    err = is_f64 ? launch_cubic_pack(ndims, dims, static_cast<const double*>(vals),
+                                     static_cast<double*>(work), a.stream)
+                 : launch_cubic_pack(ndims, dims, static_cast<const float*>(vals),
+                                     static_cast<float*>(work), a.stream);
+  } else if (route == kQuads) {
     err = is_f64 ? launch_pack(ndims, dims, static_cast<const double*>(vals),
                                static_cast<double*>(work), a.stream)
                  : launch_pack(ndims, dims, static_cast<const float*>(vals),

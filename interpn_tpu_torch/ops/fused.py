@@ -5,8 +5,9 @@
   `interpn_tpu/ops/pallas_v3.py::eval_regular` (K1) and
   `eval_regular_stack` (K5). The layout their kernel reads is
   `regular_route`'s alone: the table staged in shared memory, its packed
-  quads or a stack channel-interleaved (each laid out every call by the
-  same entry, `pack` and `interleave` alone), or the table itself.
+  quads, its cubic pack of axis 0's taps (one or four lanes a query), or a
+  stack channel-interleaved (each laid out every call by the same entry;
+  `pack`, `cubic_pack` and `interleave` alone), or the table itself.
 * `eval_rectilinear` / `eval_rectilinear_stack` launch
   `csrc/fused_rectilinear.cu` / `fused_rectilinear_stack.cu`, the
   counterpart of `pallas_v3.eval_rectilinear_pre` (K2: linear, cubic),
@@ -61,15 +62,21 @@ SOURCES = (*(f"fused_{family}{stack}" for family in ("regular", "rectilinear", "
 _SINGLE = (*(f"{grid}_{m}" for grid in ("regular", "rectilinear") for m in METHODS),
            *(f"bspline_k{k}" for k in DEGREES))
 PACK = "regular_pack"  # the quads route's pack, in csrc/fused_regular.cu
+CUBIC_PACK = "regular_cubic_pack"  # the taps routes' pack, in csrc/fused_regular.cu
 INTERLEAVE = "regular_interleave"  # the interleaved route's, in csrc/fused_regular_stack.cu
-KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES, PACK, INTERLEAVE)
+KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES, PACK, CUBIC_PACK,
+           INTERLEAVE)
 
 # Kernel launches by name; a run resets and reads them to show that its main
 # path went through the kernels.
 launches = dict.fromkeys(KERNELS, 0)
 
-# the route codes of csrc/regular.cuh: kDirect, kStaged, kQuads, kInterleaved
-ROUTES = ("direct", "staged", "quads", "interleaved")
+# the route codes of csrc/regular.cuh: kDirect, kStaged, kQuads, kInterleaved,
+# kTaps, kTapLanes
+ROUTES = ("direct", "staged", "quads", "interleaved", "taps", "tap_lanes")
+TAP_ROUTES = ROUTES[4:]  # the routes that read the cubic pack
+# the layout kernel that the entry launches before the kernel, by route
+LAYOUTS = {"quads": PACK, "interleaved": INTERLEAVE, **dict.fromkeys(TAP_ROUTES, CUBIC_PACK)}
 # An f32 linear table (a stack read table by table: all its tables) of at
 # most this many bytes is staged in shared memory (kStageBytes in
 # csrc/regular.cuh, which refuses a larger one). Nearest reads one entry a
@@ -81,6 +88,15 @@ STAGE_BYTES = 112 * 1024
 # 100^3 table paid for itself twice over; the 31 MB copy of the f64 one did
 # not, so f64 reads its table direct (`scripts/torch_regular_ab.py`).
 QUAD_BYTES = 16 * 2**20
+# A single cubic table above STAGE_BYTES is read through its cubic pack
+# (about 4x the table, made every call) while the pack stays within this
+# many bytes: the 31 MB pack of a 100^3 f64 table still took its time from
+# 0.478 to 0.162 ms at 1e6 queries on an H100 (`scripts/torch_regular_ab.py`).
+TAP_BYTES = 32 * 2**20
+# An f64 cubic table at 2D or 3D of at most this many bytes reads direct: its
+# scalar reads hit the SM's L1 (256 KB with shared memory), where the pack,
+# 4x larger, would not (25^3 and 30^3 f64 ran 5-36% slower through it).
+L1_BYTES = 256 * 1024
 # A linear or nearest stack with this many bytes of channels a table entry
 # or more (8 f32, 4 f64 tables) is read channel-interleaved (kRunBytes).
 RUN_BYTES = 32
@@ -122,11 +138,12 @@ def reset_launches() -> None:
 
 # the regular sources' other entries: method, is_f64, ndims, route, out[4]
 # (`interpn_regular[_stack]_info`); is_f64, ndims, dims, vals, out, stream
-# (`interpn_regular_pack`); is_f64, table, nch, vals, out, stream
-# (`interpn_regular_stack_interleave`)
+# (`interpn_regular_pack`, `interpn_regular_cubic_pack`); is_f64, table,
+# nch, vals, out, stream (`interpn_regular_stack_interleave`)
 _ENTRY_ARGTYPES = {
     "_info": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
     "_pack": [_INT, *_DIMS, _VOIDP, _VOIDP, _VOIDP],
+    "_cubic_pack": [_INT, *_DIMS, _VOIDP, _VOIDP, _VOIDP],
     "_interleave": [_INT, ctypes.c_longlong, _INT, _VOIDP, _VOIDP, _VOIDP],
 }
 
@@ -186,6 +203,15 @@ def plain_pack(dims, vals):
     if len(dims) == 1:
         return torch.stack([v[:-1], v[1:]], dim=-1)
     return torch.stack([v[:-1, :-1], v[1:, :-1], v[:-1, 1:], v[1:, 1:]], dim=-1)
+
+
+def plain_cubic_pack(dims, vals):
+    """The taps routes' cubic pack of a flat table (what `cubic_pack`
+    launches the kernel of): (d0-3, d1, ..., 4), cell (i, r...) slot a
+    holding entry (i + a, r...), axis 0's four taps side by side."""
+    v = vals.reshape(dims)
+    last = dims[0] - 3
+    return torch.stack([v[a:a + last] for a in range(4)], dim=-1)
 
 
 def plain_interleave(vals_stack):
@@ -252,10 +278,13 @@ def regular_route(dims, dtype, method, nch=None) -> str:
     channels or more, read as (prod(dims), nch)), 'staged' (f32
     linear, one table or a stack read table by table, all of it within
     STAGE_BYTES, copied into shared memory by each block), 'quads' (f32
-    linear, one table above that, packed copy within QUAD_BYTES) or 'direct'
-    (the rest; f64 is never staged nor packed). A function of these
-    arguments alone, and the only place the choice is made."""
-    if nch is not None and method != "cubic" and nch * dtype.itemsize >= RUN_BYTES:
+    linear, one table above that, packed copy within QUAD_BYTES), for one
+    cubic table `_cubic_route`'s, or 'direct' (the rest, and cubic stacks;
+    linear f64 is never staged nor packed). A function of these arguments
+    alone, and the only place the choice is made."""
+    if method == "cubic":
+        return "direct" if nch is not None else _cubic_route(dims, dtype)
+    if nch is not None and nch * dtype.itemsize >= RUN_BYTES:
         return "interleaved"
     if method != "linear" or dtype != torch.float32:
         return "direct"
@@ -264,6 +293,36 @@ def regular_route(dims, dtype, method, nch=None) -> str:
     if nch is None and _packed_size(dims) * dtype.itemsize <= QUAD_BYTES:
         return "quads"
     return "direct"
+
+
+def _cubic_route(dims, dtype) -> str:
+    """The route of one cubic table: the table staged in shared memory
+    where it fits STAGE_BYTES; else, while its cubic pack fits TAP_BYTES,
+    the pack read by one lane a query at 2D and four from 3D, but for an f64
+    table of L1_BYTES or less at 2D or 3D; else (and at 1D, whose four taps
+    lie side by side in the table already) the table itself."""
+    table = math.prod(dims) * dtype.itemsize
+    nd = len(dims)
+    if table <= STAGE_BYTES:
+        return "staged"
+    if nd == 1 or _taps_size(dims) * dtype.itemsize > TAP_BYTES:
+        return "direct"
+    if dtype == torch.float64 and nd <= 3 and table <= L1_BYTES:
+        return "direct"
+    return "taps" if nd == 2 else "tap_lanes"
+
+
+def _taps_size(dims) -> int:
+    """Entries of `plain_cubic_pack`'s copy."""
+    return (dims[0] - 3) * math.prod(dims[1:]) * 4
+
+
+def _layout_size(dims, route, vals) -> int | None:
+    """Entries of the buffer that the entry lays the table out in for
+    `route`, None where the route reads `vals` as it is."""
+    if route in TAP_ROUTES:
+        return _taps_size(dims)
+    return {"quads": _packed_size(dims), "interleaved": vals.numel()}.get(route)
 
 
 def _packed_shape(dims) -> tuple:
@@ -288,18 +347,41 @@ def pack(dims, vals):
         return plain_pack(dims, vals)
     if not 1 <= len(dims) <= _MAX_DIMS or min(dims) < 2 or math.prod(dims) >= _INT32_LIMIT:
         raise ValueError(f"no packed copy of a grid of dims {dims}")
+    return _launch_pack(PACK, dims, vals, _packed_shape(dims))
+
+
+def cubic_pack(dims, vals):
+    """The taps routes' cubic pack of the flat table `vals` (f32 or f64,
+    dims[0] >= 4), shaped as `plain_cubic_pack`'s: its kernel alone
+    (`interpn_regular_cubic_pack`; `eval_regular` launches it with the
+    kernel that reads it) on a CUDA tensor, `plain_cubic_pack` on a CPU
+    one."""
+    dims = tuple(int(d) for d in dims)
+    if _device((vals,)).type == "cpu":
+        return plain_cubic_pack(dims, vals)
+    if (not 1 <= len(dims) <= _MAX_DIMS or dims[0] < 4 or min(dims) < 1
+            or _taps_size(dims) >= _INT32_LIMIT):
+        raise ValueError(f"no cubic pack of a grid of dims {dims}")
+    return _launch_pack(CUBIC_PACK, dims, vals, (dims[0] - 3, *dims[1:], 4))
+
+
+def _launch_pack(name, dims, vals, shape):
+    """Launch the pack `name` (PACK: `interpn_regular_pack`, CUBIC_PACK:
+    `interpn_regular_cubic_pack`) of the flat CUDA table `vals` into a new
+    tensor of `shape`; count the launch."""
     if vals.shape != (math.prod(dims),) or not vals.is_contiguous():
         raise ValueError(f"vals must be flat and contiguous with {math.prod(dims)} entries")
     if vals.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernel takes float32 or float64, got {vals.dtype}")
-    out = torch.empty(_packed_shape(dims), dtype=vals.dtype, device=vals.device)
+    out = torch.empty(shape, dtype=vals.dtype, device=vals.device)
+    entry = name.removeprefix("regular")
     with torch.cuda.device(vals.device):
-        rc = _fn("fused_regular", "_pack")(
+        rc = _fn("fused_regular", entry)(
             _is_f64(vals), len(dims), (_INT * len(dims))(*dims), vals.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_regular pack launch failed: CUDA error {rc}")
-    launches[PACK] += 1
+        raise RuntimeError(f"fused_regular{entry} launch failed: CUDA error {rc}")
+    launches[name] += 1
     return out
 
 
@@ -354,13 +436,12 @@ def _regular(dims, starts, steps, vals, obs, method, linearize, *, stacked):
     n = _check(dims, starts, steps, vals, obs, method, stacked)
     nch = int(vals.shape[0]) if stacked else None
     route = regular_route(dims, vals.dtype, method, nch)
-    if route == "interleaved" and math.prod(dims) * nch >= _INT32_LIMIT:
-        raise ValueError(f"stack of {nch} tables of {math.prod(dims)} points needs int64 "
-                         "indices")
-    layout = {"quads": PACK, "interleaved": INTERLEAVE}.get(route) if n else None
+    size = _layout_size(dims, route, vals)
+    if size is not None and size >= _INT32_LIMIT:
+        raise ValueError(f"the {route} layout of {size} values needs int64 indices")
+    layout = LAYOUTS.get(route) if n else None
     work = None
     if layout:  # the entry lays the table out in this buffer, then reads it
-        size = _packed_size(dims) if route == "quads" else vals.numel()
         work = torch.empty(size, dtype=vals.dtype, device=vals.device)
     out = _launch(
         _name("fused_regular", stacked), _name(f"regular_{method}", stacked),

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Times the port's regular-grid kernels, K1 (one table) and K5 (a stack),
-against an earlier checkout's on one CUDA card, in turns.
+and the rectilinear K2, which shares K1's cubic tree, against an earlier
+checkout's on one CUDA card, in turns.
 
     PYTHONPATH=. python3 scripts/torch_regular_ab.py --parent DIR
 
 DIR is the root of an earlier checkout of the repository (unpacked with
 `git archive` into a gitignored directory). Its `interpn_tpu_torch`, whose
 imports are relative, is imported beside this checkout's under another
-name, and each builds its two regular sources with its own `_build.py`, all
-four at once.
+name, and each builds its two regular sources and the rectilinear one with
+its own `_build.py`, all six at once.
 
 Each case of CASES is a table on a [0, 10] grid (random values from a
 seed) and 1e6 queries uniform in [-0.5, 10.5]: every K1 and K5 path of
@@ -21,17 +22,25 @@ seed) and 1e6 queries uniform in [-0.5, 10.5]: every K1 and K5 path of
    timed by CUDA events behind a head start
    (`interpn_tpu_torch/utils/profiling.py::cuda_time`) over 20 distinct
    batches, in the order earlier, picked, the others, and back, with the
-   layout kernel (interleave, pack) inside the timed call; on the 3D linear
-   and nearest cases also `F.grid_sample` on in-grid queries beside both
-   kernels;
+   layout kernel (interleave, pack, cubic pack) inside the timed call; on
+   the 3D linear and nearest cases also `F.grid_sample` on in-grid queries
+   beside both kernels; the registers, spills and blocks an SM of every
+   route timed (`ops.fused.regular_info`) and of the earlier checkout's;
+   on a route with a layout kernel, that kernel alone, the earlier
+   checkout's where it has it, and the PyTorch call that makes the same
+   copy, in turns;
 2. back to back: the two public evaluators in turns (earlier, this, this,
    earlier), each over five passes of the 20 batches after three warm-up
    calls: CUDA events around each pass (the time a caller that loops
    sees, host included) and the host clock around queueing it (the host's
-   own time a call).
+   own time a call); on a single table also each checkout's `raw` entry
+   from CUDA tensors into a preallocated `out`, in turns, on the host clock
+   over one pass of the batches ending in a synchronize.
 
-One line per case, then the card's name and power limit and one JSON
-object of every time; exits non-zero without a CUDA device.
+Each case of RECT_CASES (jittered axes on [0, 10]) times both checkouts'
+`eval_rectilinear` so, parts 1 and 2 without the other routes. One line
+per case, then the card's name and power limit and one JSON object of
+every time; exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import itertools
 import json
 import statistics
 import subprocess
@@ -54,7 +64,7 @@ from interpn_tpu_torch import _build
 from interpn_tpu_torch.ops import fused
 from interpn_tpu_torch.utils.profiling import cuda_time
 
-SOURCES = ("fused_regular", "fused_regular_stack")
+SOURCES = ("fused_regular", "fused_regular_stack", "fused_rectilinear")
 N, BATCHES, LO, HI = 1_000_000, 20, -0.5, 10.5
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 # (method, points an axis, ndims, dtype, tables of a stack or None, the
@@ -66,10 +76,28 @@ CASES = [
     ("linear", 12, 4, "f64", None, ("quads", "direct")),
     ("linear", 100, 3, "f32", None, ("quads", "direct")),
     ("linear", 100, 3, "f64", None, ("quads", "direct")),
-    ("cubic", 20, 3, "f32", None, ()),
-    ("cubic", 20, 3, "f64", None, ()),
-    ("cubic", 20, 4, "f32", None, ()),
-    ("cubic", 12, 5, "f64", None, ()),
+    ("cubic", 20, 3, "f32", None, ("staged", "tap_lanes", "direct")),
+    ("cubic", 20, 3, "f64", None, ("staged", "tap_lanes", "direct")),
+    ("cubic", 30, 3, "f32", None, ("staged", "tap_lanes", "direct")),
+    ("cubic", 30, 3, "f64", None, ("tap_lanes", "direct")),
+    ("cubic", 20, 4, "f32", None, ("tap_lanes", "direct")),
+    ("cubic", 12, 5, "f64", None, ("tap_lanes", "direct")),
+    # the route's crossings: f32 staged and beyond, f64 within and beyond
+    # L1_BYTES, at 2-5D
+    ("cubic", 200, 2, "f32", None, ("taps", "direct")),
+    ("cubic", 150, 2, "f64", None, ("taps", "direct")),
+    ("cubic", 1000, 2, "f64", None, ("taps", "direct")),
+    ("cubic", 25, 3, "f64", None, ("tap_lanes", "direct")),
+    ("cubic", 35, 3, "f32", None, ("tap_lanes", "direct")),
+    ("cubic", 35, 3, "f64", None, ("tap_lanes", "direct")),
+    ("cubic", 100, 3, "f32", None, ("tap_lanes", "direct")),
+    ("cubic", 100, 3, "f64", None, ("tap_lanes", "direct")),
+    ("cubic", 12, 4, "f32", None, ("staged", "tap_lanes", "direct")),
+    ("cubic", 10, 4, "f64", None, ("staged", "tap_lanes", "direct")),
+    ("cubic", 12, 4, "f64", None, ("tap_lanes", "direct")),
+    ("cubic", 20, 4, "f64", None, ("tap_lanes", "direct")),
+    ("cubic", 6, 5, "f64", None, ("staged", "tap_lanes", "direct")),
+    ("cubic", 12, 5, "f32", None, ("tap_lanes", "direct")),
     ("nearest", 20, 3, "f32", None, ()),
     ("nearest", 20, 3, "f64", None, ()),
     ("linear", 20, 3, "f32", 8, ("interleaved", "direct")),
@@ -83,6 +111,11 @@ CASES = [
       for method in ("linear", "nearest") for n, nd in ((12, 4), (8, 5), (4, 8))
       for dt, nch in (("f32", 8), ("f64", 4))),
 ]
+# (method, points an axis, ndims, dtype) of K2
+RECT_CASES = [("cubic", 20, 3, "f32"), ("cubic", 20, 3, "f64"), ("cubic", 100, 3, "f32"),
+              ("linear", 20, 3, "f32")]
+
+
 def label(case) -> str:
     method, n, nd, dt, nch, _ = case
     stack = f"stack of {nch} " if nch else ""
@@ -146,7 +179,7 @@ def this_kernel(case, st, sp, vals, route):
     dims = (n,) * nd
     source = "fused_regular_stack" if nch else "fused_regular"
     head = (fused.METHODS.index(method), 1, int(vals.dtype == torch.float64))
-    size = {"quads": fused._packed_size(dims), "interleaved": vals.numel()}.get(route)
+    size = fused._layout_size(dims, route, vals)
 
     def call(ob):
         work = None if size is None else torch.empty(size, dtype=vals.dtype, device=vals.device)
@@ -154,6 +187,69 @@ def this_kernel(case, st, sp, vals, route):
                              vals, ob, ob[0].shape[0], bool(nch), st.data_ptr(), sp.data_ptr(),
                              None if work is None else work.data_ptr(), route=route)
     return call
+
+
+def raw_times(case, st, sp, vals, main) -> dict:
+    """Each checkout's `raw.interpn_<method>_regular_<dtype>` from CUDA
+    tensors into a preallocated out: ms a call on the host clock over one
+    pass of the batches after two warm-up calls, synchronized, in turns."""
+    method, n, nd, dt, _, _ = case
+    name = f"interpn_{method}_regular_{dt}"
+    lin = (True,) if method == "cubic" else ()
+    out = torch.empty(N, dtype=vals.dtype, device=vals.device)
+    dims = np.array([n] * nd)
+    fns = {side: getattr(importlib.import_module(module), name)
+           for side, module in (("earlier", "earlier_port.raw"), ("this", "interpn_tpu_torch.raw"))}
+    ms = {}
+    for side in ("earlier", "this", "this", "earlier"):
+        for b in main[:2]:
+            fns[side](dims, st, sp, vals, *lin, list(b), out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in main:
+            fns[side](dims, st, sp, vals, *lin, list(b), out)
+        torch.cuda.synchronize()
+        ms.setdefault(side, []).append((time.perf_counter() - t0) * 1e3 / len(main))
+    return ms
+
+
+def layout_fns(case, route, earlier, vals) -> dict:
+    """On a route with a layout kernel: that kernel alone (this checkout's,
+    and the earlier's where it has one) and the PyTorch call that makes the
+    same copy, each a function of the table."""
+    dims = (case[1],) * case[2]
+    if route in fused.TAP_ROUTES:
+        return {"cubic_pack": lambda v: fused.cubic_pack(dims, v),
+                "torch": lambda v: v.reshape(dims).unfold(0, 4, 1).contiguous()}
+    if route == "interleaved":
+        return {"earlier": earlier.interleave, "interleave": fused.interleave,
+                "torch": lambda v: v.t().contiguous()}
+    return {}
+
+
+def rect_times(case, earlier, cuda) -> dict:
+    """Parts 1 and 2 of a RECT_CASES case: both checkouts' K2 through
+    `eval_rectilinear`, every result bitwise equal to the earlier one's."""
+    import chip_smoke as cs
+
+    method, n, nd, dt = case
+    dtype = DTYPES[dt]
+    rng = np.random.default_rng(n * 10 + nd)
+    axes = tuple(torch.as_tensor(a, dtype=dtype, device=cuda) for a in cs.bench_rect_axes(n, nd))
+    vals = torch.as_tensor(rng.standard_normal(n**nd), dtype=dtype, device=cuda)
+    fns = {side: (lambda ob, m=m: m.eval_rectilinear(axes, vals, ob, method))
+           for side, m in (("earlier", earlier), ("this", fused))}
+    main = batches((method, n, nd, dt, None, ()), cuda)
+    cs.bitwise(fns["this"](main[0]), fns["earlier"](main[0]), f"K2 {method} {n}^{nd} {dt}")
+    entry = {"case": f"K2 {method} {n}^{nd} {dt}", "route": "this", "kernel_ms": {},
+             "loop_ms": {}, "issue_ms": {}}
+    for side in ("earlier", "this", "this", "earlier"):
+        entry["kernel_ms"].setdefault(side, []).append(cuda_time(fns[side], main).device_ms)
+    for side in ("earlier", "this", "this", "earlier"):
+        loop, issue = back_to_back(fns[side], main)
+        entry["loop_ms"].setdefault(side, []).extend(loop)
+        entry["issue_ms"].setdefault(side, []).extend(issue)
+    return entry
 
 
 def load_earlier(parent: Path):
@@ -190,6 +286,17 @@ def case_times(case, earlier, cuda) -> dict:
         loop, issue = back_to_back(fns["earlier" if side == "earlier" else picked], main)
         entry["loop_ms"].setdefault(side, []).extend(loop)
         entry["issue_ms"].setdefault(side, []).extend(issue)
+    entry["info"] = {r: fused.regular_info(method, DTYPES[dt], nd, r, bool(nch))
+                     for r in fns if r != "earlier"}
+    entry["info"]["earlier"] = earlier.regular_info(method, DTYPES[dt], nd, "direct", bool(nch))
+    layout = layout_fns(case, picked, earlier, vals)
+    if layout:
+        entry["layout_ms"] = {}
+        for name in [*layout, *reversed(layout)]:
+            entry["layout_ms"].setdefault(name, []).append(
+                cuda_time(layout[name], [vals] * BATCHES).device_ms)
+    if not nch:
+        entry["raw_ms"] = raw_times(case, st, sp, vals, main)
     del main
     if nd == 3 and method in ("linear", "nearest"):
         inside = batches(case, cuda, 0.0, 10.0, seed=8)
@@ -219,8 +326,8 @@ def main() -> None:
         for built in [pool.submit(b.build_all, SOURCES) for b in (_build, earlier._build)]:
             built.result()
     record = []
-    for case in CASES:
-        entry = case_times(case, earlier, cuda)
+    for entry in itertools.chain((case_times(c, earlier, cuda) for c in CASES),
+                                 (rect_times(c, earlier, cuda) for c in RECT_CASES)):
         record.append(entry)
         best = {k: min(v) for k, v in entry["kernel_ms"].items()}
         kern = "; ".join(f"{k} {v:.4f}" for k, v in best.items())
@@ -228,8 +335,18 @@ def main() -> None:
         issue = ", ".join(f"{k} {statistics.median(v):.4f}"
                           for k, v in entry["issue_ms"].items())
         extra = ""
+        if "info" in entry:
+            extra += "; registers/local bytes/blocks an SM: " + ", ".join(
+                f"{k} {i['registers']}/{i['local_bytes']}/{i['blocks_per_sm']}"
+                for k, i in entry["info"].items())
+        if "raw_ms" in entry:
+            extra += "; raw entry ms/call, best of two: " + ", ".join(
+                f"{k} {min(v):.4f}" for k, v in entry["raw_ms"].items())
+        if "layout_ms" in entry:
+            extra += "; layout kernel alone, best of two: " + ", ".join(
+                f"{k} {min(v):.4f}" for k, v in entry["layout_ms"].items())
         if "in_grid_ms" in entry:
-            extra = "; in the grid: " + ", ".join(
+            extra += "; in the grid: " + ", ".join(
                 f"{k} {min(v):.4f}" for k, v in entry["in_grid_ms"].items())
         print(f"{entry['case']} ({entry['route']}) [{smi}]: kernel ms, best of two: {kern}; "
               f"{best['earlier'] / best[entry['route']]:.2f}x; back to back ms/call, median "

@@ -179,6 +179,9 @@ def test_staged_grid_fits_the_shared_memory(cuda, dtype):
         for method in ("linear", "nearest"):
             info = fused.regular_info(method, dtype, nd, "interleaved", True)
             assert info["blocks_per_sm"] >= 1
+        cubic = ["staged"] + (["taps"] if nd == 2 else ["tap_lanes"] if nd >= 3 else [])
+        for route in cubic:
+            assert fused.regular_info("cubic", dtype, nd, route)["blocks_per_sm"] >= 1
 
 
 def test_staged_sizes_alternate_across_threads(cuda):
@@ -220,6 +223,57 @@ def test_cubic_kernel_equals_plain(cuda, dims, dtype, lin):
     args = _case(dims, dtype, cuda, n=_n(dims, 20_000), seed=len(dims))
     got = _launched("regular_cubic", lambda: fused.eval_regular(*args, "cubic", lin))
     _equal(got, cubic.cubic_regular(*args, lin))
+
+
+def _cubic_cap_dims(ndims, dtype):
+    """Tables (d0, 4, ..., 4) at each cap of the cubic route and one row
+    over it: the table at STAGE_BYTES and at L1_BYTES, the pack at
+    TAP_BYTES (those that a 4-row table does not already exceed)."""
+    rest = 4 ** (ndims - 1)
+    item = torch.empty((), dtype=dtype).element_size()
+    at = [fused.STAGE_BYTES // (rest * item), fused.L1_BYTES // (rest * item),
+          fused.TAP_BYTES // (4 * rest * item) + 3]
+    return [(d, *(4,) * (ndims - 1)) for d in sorted({d for a in at for d in (a, a + 1)
+                                                      if d >= 4})]
+
+
+@pytest.mark.parametrize("ndims", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_cubic_routes_around_the_caps(cuda, ndims, dtype):
+    """K1 cubic on tables at and one row over each cap of its route, both
+    extrapolation modes: bitwise the plain version; on the taps routes the
+    cubic pack launched once a call, and equal to plain_cubic_pack."""
+    for dims in _cubic_cap_dims(ndims, dtype):
+        args = _case(dims, dtype, cuda, n=min(20_000, 2**24 // 4**ndims), seed=ndims)
+        route = fused.regular_route(dims, dtype, "cubic")
+        for lin in (True, False):
+            fused.reset_launches()
+            got = fused.eval_regular(*args, "cubic", lin)
+            assert fused.launches["regular_cubic"] == 1
+            assert fused.launches[fused.CUBIC_PACK] == int(route in fused.TAP_ROUTES)
+            _equal(got, fused.plain_regular(*args, "cubic", lin))
+        if route in fused.TAP_ROUTES:
+            _equal(fused.cubic_pack(dims, args[3]), fused.plain_cubic_pack(dims, args[3]))
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("dims", [(7, 9), (20,) * 3, (30,) * 3, (12,) * 4],
+                         ids=lambda d: f"{d[0]}^{len(d)}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_cubic_table_at_an_unaligned_offset(cuda, dims, offset, dtype):
+    """A cubic table that is a view `offset` entries into its storage, on
+    the route its size picks (the table staged with its unaligned head and
+    tail, or packed from the view): bitwise the plain version and the
+    same table aligned."""
+    dims_, st, sp, vals, ob = _case(dims, dtype, cuda, n=20_000, seed=offset)
+    storage = torch.zeros(offset + vals.numel() + 5, dtype=dtype, device=cuda)
+    view = storage[offset:offset + vals.numel()]
+    view.copy_(vals)
+    assert view.data_ptr() % 16 != 0
+    for lin in (True, False):
+        got = fused.eval_regular(dims_, st, sp, view, ob, "cubic", lin)
+        _equal(got, fused.plain_regular(dims_, st, sp, view, ob, "cubic", lin))
+        _equal(got, fused.eval_regular(dims_, st, sp, vals, ob, "cubic", lin))
 
 
 @pytest.mark.parametrize("dims", DIMS[:6], ids=lambda d: f"{len(d)}d")
@@ -318,12 +372,15 @@ def test_dispatch_launches_one_kernel_per_call(cuda):
         "rectilinear_cubic": lambda: dispatch.cubic_rectilinear(grids, vals, obs, False),
         "rectilinear_nearest": lambda: dispatch.nearest_rectilinear(grids, vals, obs),
     }
+    # the cubic table's route lays it out first (the cubic pack, once a call)
+    taps = fused.regular_route((6, 5, 7), torch.float32, "cubic") in fused.TAP_ROUTES
     for kernel, call in calls.items():
         fused.reset_launches()
         out = call()
         assert out.device.type == "cuda", kernel
         assert out.shape == ((10, 100) if kernel.startswith("regular") else (1000,)), kernel
-        assert fused.launches == {k: int(k == kernel) for k in fused.launches}, kernel
+        want = {kernel: 1, fused.CUBIC_PACK: int(taps and kernel == "regular_cubic")}
+        assert fused.launches == {k: want.get(k, 0) for k in fused.launches}, kernel
 
 
 def test_default_device_is_cuda(cuda):

@@ -41,28 +41,36 @@ def _entries(dtype, nbytes):
 
 def test_route_at_the_stage_cap():
     """f32 linear tables of at most STAGE_BYTES are staged; one entry more
-    and they read packed quads. Nearest and cubic read the table at any
-    size. The whole table counts, whatever its shape."""
+    and they read packed quads. Cubic tables are staged up to the same cap
+    (`tests/test_torch_cubic_layout.py` holds their other caps); nearest
+    reads the table at any size. The whole table counts, whatever its
+    shape."""
     at = _entries(F32, fused.STAGE_BYTES)
     for dims in ((at,), (at // 64, 64), (at // 256, 16, 16)):
         assert math.prod(dims) == at
         assert fused.regular_route(dims, F32, "linear") == "staged"
         assert fused.regular_route(dims, F32, "nearest") == "direct"
-        assert fused.regular_route(dims, F32, "cubic") == "direct"
+        assert fused.regular_route(dims, F32, "cubic") == "staged"
     for dims in ((at + 1,), (at // 64 + 1, 64)):
         assert fused.regular_route(dims, F32, "linear") == "quads"
         assert fused.regular_route(dims, F32, "nearest") == "direct"
 
 
 def test_f64_reads_its_table_direct():
-    """f64 is never staged nor packed, whatever the table's size or the
-    stack's: a table and a narrow or cubic stack read direct, a wide linear
-    or nearest stack interleaved."""
+    """Linear and nearest f64 are never staged nor packed, whatever the
+    table's size or the stack's: a table and a narrow stack read direct, a
+    wide stack interleaved; a cubic stack reads direct. One cubic f64 table
+    is staged within STAGE_BYTES and read through its cubic pack beyond
+    L1_BYTES (`_cubic_route`)."""
+    cubic = {(50,): "staged", (20,) * 3: "staged", (12,) * 4: "tap_lanes",
+             (100,) * 3: "tap_lanes"}
     for dims in ((50,), (20,) * 3, (12,) * 4, (100,) * 3):
         for method in ("linear", "cubic", "nearest"):
             for nch in (None, 1, 3, 8):
                 wide = nch == 8 and method != "cubic"
                 want = "interleaved" if wide else "direct"
+                if method == "cubic" and nch is None:
+                    want = cubic[dims]
                 assert fused.regular_route(dims, F64, method, nch) == want
 
 
