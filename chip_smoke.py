@@ -19,14 +19,17 @@ and blocks an SM of every instantiation), 2 kernel vs plain, bitwise
 stacks of 1, 3 and 8, NaN and +-inf; K1's linear and nearest routes
 (staged, quads, direct) and cubic routes (staged, taps at 2D, four lanes
 on the taps from 3D, direct) under and over each cap, 100^3 and tables at
-odd offsets; the two packs and the interleave; K8 and K9 on f64 2-8D), 3
-nodes (exact, splines within 1e-11, K8 to the table's hi + lo, K9 within
+odd offsets; the two packs and the interleave; K8 and K9 on f64 2-8D, one
+launch each from the queries against the plain chain that builds the
+float64 weights in torch, and K8 at the float range's edges), 3 nodes
+(exact, splines within 1e-11, K8 to the table's hi + lo, K9 within
 1e-13), 4 the paths (launch counts, the quads route's pack and the taps
-routes' cubic pack beside K1 and the interleave beside K5, and checks), 5
-timing: each kernel from CUDA events behind a head start
-(`utils/profiling.py::cuda_time`), each plain version from the profiler's
-device events (`profiled_time`), for K8/K9 also the whole engine call with
-its float64 weight build, and the three layout kernels. A failed
+routes' cubic pack beside K1 and the interleave beside K5, no torch weight
+build on an engine path, and checks), 5 timing: each kernel from CUDA
+events behind a head start (`utils/profiling.py::cuda_time`), each plain
+version from the profiler's device events (`profiled_time`), for K8/K9
+also the whole call through the op a user calls, and the three layout
+kernels. A failed
 check raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
 card's name and power limit, the kernels' JSON record and {"ok": true,
@@ -401,48 +404,66 @@ def path_kernel_and_plain(p: Path):
     return kernel_and_plain(p.kind, p.method)
 
 
-def engine_args(p: Path, grid, ob):
-    """The arguments of the path's engine wrapper (`ops.df64.contract` or
-    `ops.i8.contract`) for queries `ob`: the weights built on the card from
-    `path_grid`'s tensors, the table's split or decomposition (cached)."""
-    from interpn_tpu_torch.ops import df64, i8
-
-    dims = (p.n,) * p.ndims
-    if p.kind == "bspline":
-        weights, table = df64.spline_weights_f64(grid[0], ob, p.k), grid[1]
-    elif p.kind == "regular":
-        weights, table = df64.weights_f64(dims, grid[0], grid[1], None, ob, p.method), grid[2]
-    else:
-        weights, table = df64.weights_f64(dims, None, None, grid[0], ob, p.method), grid[1]
-    fp = df64.FOOTPRINT[p.k if p.kind == "bspline" else p.method]
-    prepared = df64.table_split(table)[:2] if p.engine == "df64" else i8.prepare(dims, table)[:4]
-    return (dims, fp, *weights[:3], *prepared)
-
-
-def engine_kernel_and_plain(engine: str):
-    """(K8 or K9 wrapper, its plain version), both taking `engine_args`'s."""
-    from interpn_tpu_torch.ops import df64, i8
-
-    return (df64.contract, df64.plain_df64) if engine == "df64" else (i8.contract, i8.plain_i8)
-
-
-def engine_call(p: Path, grid):
-    """The engine's whole call (weights, contraction, float64 recombination)
-    from `path_grid`'s tensors: fn(obs) -> (n,) float64."""
+def engine_kernel_and_plain(p: Path, grid):
+    """(K8 or K9's wrapper, its plain chain) for the path's engine on
+    `path_grid`'s tensors, each fn(obs) -> (n,) float64: the wrapper
+    (`ops.df64.eval_*`, `ops.i8.eval_*`) launches the kernel on CUDA
+    tensors, the plain chain (`plain_*`: the float64 weights in torch, the
+    contraction, the recombination) runs on the same tensors."""
     from interpn_tpu_torch.ops import df64, i8
 
     dims = (p.n,) * p.ndims
     module = df64 if p.engine == "df64" else i8
     if p.kind == "bspline":
-        return lambda ob: df64.eval_bspline(grid[0], grid[1], ob, p.k)
+        return (lambda ob: df64.eval_bspline(grid[0], grid[1], ob, p.k),
+                lambda ob: df64.plain_bspline(grid[0], grid[1], ob, p.k))
     if p.kind == "regular":
-        return lambda ob: module.eval_regular(dims, grid[0], grid[1], grid[2], ob, p.method)
-    return lambda ob: module.eval_rectilinear(grid[0], grid[1], ob, p.method)
+        return (lambda ob: module.eval_regular(dims, *grid, ob, p.method),
+                lambda ob: module.plain_regular(dims, *grid, ob, p.method))
+    return (lambda ob: module.eval_rectilinear(*grid, ob, p.method),
+            lambda ob: module.plain_rectilinear(*grid, ob, p.method))
 
 
-def pair(hl) -> torch.Tensor:
-    """An engine's (hi, lo) float32 pair as one (2, n) tensor."""
-    return torch.stack(hl)
+def engine_call(p: Path, grid):
+    """The engine's call through the op a user calls under INTERPN_TPU_F64
+    (the route's table check and cache lookups, the kernel route) from
+    `path_grid`'s tensors: fn(obs) -> (n,) float64."""
+    from interpn_tpu_torch import ops
+
+    dims = (p.n,) * p.ndims
+    if p.kind == "bspline":
+        return lambda ob: ops.bspline_eval(*grid, ob, p.k)
+    fn = getattr(ops, f"{p.method}_{p.kind}")
+    lin = (True,) if p.method == "cubic" else ()
+    if p.kind == "regular":
+        return lambda ob: fn(dims, *grid, ob, *lin)
+    return lambda ob: fn(*grid, ob, *lin)
+
+
+@contextlib.contextmanager
+def weight_builds():
+    """Count the calls of the torch float64 weight build (`weights_f64`,
+    `spline_weights_f64`, wherever the engines' modules look them up) in
+    the body: yields the list they append to."""
+    from interpn_tpu_torch.ops import df64, i8
+
+    calls = []
+    saved = [(m, name, getattr(m, name)) for m in (df64, i8)
+             for name in ("weights_f64", "spline_weights_f64") if hasattr(m, name)]
+
+    def counting(name, fn):
+        def run(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return run
+
+    for m, name, fn in saved:
+        setattr(m, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -601,40 +622,61 @@ QUANT = 2 + 7 * (4 + TWO_SUM)
 ROW = 8 * DF_ADD + 2 * (6 * 2 + 2 * 1) + 4 + DF_ADD + TWO_SUM
 
 
-def engine_operations(p: Path) -> tuple[int, int]:
-    """(float32, int8) operations one query needs in K8 or K9, at least,
-    whatever the kernel's layout. K8: a df_madd per stencil entry and per
-    partial of the tree, a two_sum per tree node. K9: the trailing combined
-    weights once, their peak and 7-piece quantization, S_w; per stencil row
-    of the leading axes the recombination, restore and centre, and per
-    stencil cell the 35 int8 piece-pair multiply-adds (2 operations each);
-    a df_mul and df_add per tail entry."""
+def engine_operations(p: Path) -> tuple[int, int, int]:
+    """(float32, float64, int8) operations one query needs in K8 or K9, at
+    least, whatever the kernel's layout. Both: per axis the float64 locate
+    and weights (as `operations_per_query` counts the locate and a node;
+    each weight a node on a unit basis for cubic, 1 - t for linear, the
+    Cox-de Boor build for a spline) and the hi/lo split of each weight (3),
+    K9 also wsum. K8: a df_madd per stencil entry and per partial of the
+    tree, a two_sum per tree node. K9: the trailing combined weights once,
+    their peak and 7-piece quantization, S_w; per stencil row of the
+    leading axes the recombination, restore and centre, and per stencil
+    cell the 35 int8 piece-pair multiply-adds (2 operations each); a df_mul
+    and df_add per tail entry."""
     from interpn_tpu_torch.ops import df64, i8
 
     nd = p.ndims
     fp = df64.FOOTPRINT[p.k if p.kind == "bspline" else p.method]
+    if p.kind == "bspline":
+        per_axis = math.ceil(math.log2(p.n + 2 * p.k + 2)) + 7 * p.k * (p.k + 1) // 2
+    else:
+        search = math.ceil(math.log2(p.n + 1)) if p.kind == "rectilinear" else 0
+        if p.method == "cubic":
+            locate, node = (9, 17) if p.kind == "regular" else (12 + search, 27)
+        else:
+            locate, node = (7, 1) if p.kind == "regular" else (4 + search, 1)
+        per_axis = locate + fp * node
+    f64 = nd * (per_axis + 3 * fp)
     if p.engine == "df64":
         madds = (fp ** (nd + 1) - fp) // (fp - 1)
         nodes = (fp**nd - 1) // (fp - 1)
-        return MADD * madds + TWO_SUM * nodes, 0
+        return MADD * madds + TWO_SUM * nodes, f64, 0
+    f64 += nd * fp  # wsum
     g = i8._choose_group((p.n,) * nd)
     e, r = fp**g, fp ** (nd - g)
     f32 = (e * (g - 1) * DF_MUL + e + QUANT * e + g * (fp - 1) * DF_ADD + (g - 1) * DF_MUL
            + (ROW + DF_MUL) * r + (r - 1) // (fp - 1) * fp * (DF_MUL + DF_ADD))
-    return f32, r * e * 2 * i8.NPASSES
+    return f32, f64, r * e * 2 * i8.NPASSES
 
 
 def engine_bytes(p: Path, n_queries: int) -> int:
-    """K8/K9's inputs read once and outputs written once: per query the
-    int32 locs, the float32 hi/lo weights and the hi/lo result; the hi/lo
-    table (K8) or its 8 pieces a cell and 12 bytes a row (K9)."""
-    from interpn_tpu_torch.ops import df64, i8
+    """K8/K9's inputs read once and output written once: per query the
+    float64 coordinates and the float64 result; the grid (starts and steps,
+    the axes, or the knots); the table once, at 8 bytes a cell (K8: its
+    hi/lo split, whatever layout the kernel reads it in; K9: its 8 pieces)
+    and, for K9, 12 bytes a row."""
+    from interpn_tpu_torch.ops import i8
 
-    fp = df64.FOOTPRINT[p.k if p.kind == "bspline" else p.method]
-    per_query = 4 * p.ndims + 8 * p.ndims * fp + 8
-    cells = p.n**p.ndims
-    table = 8 * cells if p.engine == "df64" else 8 * cells + 12 * i8._shape((p.n,) * p.ndims)[1]
-    return n_queries * per_query + table
+    per_query = 8 * p.ndims + 8
+    if p.kind == "regular":
+        grid = 16 * p.ndims
+    else:
+        grid = 8 * (p.n + (p.k + 1 if p.kind == "bspline" else 0)) * p.ndims
+    table = 8 * p.n**p.ndims
+    if p.engine == "i8":
+        table += 12 * i8._shape((p.n,) * p.ndims)[1]
+    return n_queries * per_query + grid + table
 
 
 def bound(p: Path, n_queries: int) -> tuple[float, str]:
@@ -642,11 +684,12 @@ def bound(p: Path, n_queries: int) -> tuple[float, str]:
     query coordinate, table entry and grid parameter (knot) read once and
     each result written once at the HBM rate, against the operations at the
     dtype's peak rate (K8, K9: `engine_bytes` against `engine_operations`,
-    float32 and int8 on their own units)."""
+    float32, float64 and int8 each on their own units)."""
     if p.engine:
         t_bytes = engine_bytes(p, n_queries) / PEAK_BYTES * 1e3
-        f32, i8_ops = engine_operations(p)
-        t_ops = max(n_queries * f32 / PEAK_OPS[F32], n_queries * i8_ops / PEAK_INT8_OPS) * 1e3
+        f32, f64, i8_ops = engine_operations(p)
+        t_ops = max(n_queries * f32 / PEAK_OPS[F32], n_queries * f64 / PEAK_OPS[F64],
+                    n_queries * i8_ops / PEAK_INT8_OPS) * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     item = torch.tensor([], dtype=p.dtype).element_size()
     if p.kind == "regular":
@@ -737,25 +780,52 @@ def regular_build_log(source, ptxas, built):
                 f"{', '.join(cells)}")
 
 
+# K8's instantiations (2-8D by footprint 2, 4, 6) and K9's by route: dp4a
+# (2-8D by footprint 2, 4 by trailing group g with footprint^g <= 16) and
+# mma (footprint^g from 32 to 2048)
+ENGINE_KERNELS = {"fused_df64": {"df64": 21}, "fused_i8": {"dp4a": 35, "mma": 18}}
+
+
 def engine_build_log(source, ptxas, built):
-    """Phase 1 for K8 (21 instantiations: 2-8D by footprint 2, 4, 6) and K9
-    (53: 2-8D by footprint 2, 4 by trailing group g with footprint^g <= 2048):
-    registers, spill stores and stack frame (K9 keeps the weight pieces of
-    more than 16 stencil entries there) of each."""
+    """Phase 1 for K8 and K9 (ENGINE_KERNELS): registers, spill stores and
+    stack frame of each instantiation; and for the instantiations the
+    engine paths launch, K9's route, shared bytes a block and the blocks an
+    SM holds (`fused.engine_info`)."""
+    from interpn_tpu_torch.ops import df64, fused, i8
+
+    kinds = {"df64_kernel": "df64", "i8_kernel": "mma", "i8_dp4a_kernel": "dp4a"}
     table = {}
     for m in re.finditer(
-            r"(?:df64|i8)_kernelILi(\d)ELi(\d)E(?:Li(\d)E)?\S*' for \S+\n[^\n]*\n\s+(\d+) bytes "
-            r"stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers", ptxas):
-        nd, fp, g, stack, spill, regs = m.groups()
-        key = f"footprint {fp}" + (f" g={g}" if g else "")
-        table.setdefault(key, {})[int(nd)] = (int(regs), int(spill), int(stack))
-    want = 21 if source == "fused_df64" else 53
-    if sum(len(v) for v in table.values()) != want:
-        raise AssertionError(f"{source}: unexpected kernels in the ptxas log: {table}")
+            r"interp\d+(\w+?_kernel)ILi(\d)ELi(\d)E(?:Li(\d)E)?\S*' for \S+\n[^\n]*\n\s+(\d+) "
+            r"bytes stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers",
+            ptxas):
+        name, nd, fp, g, stack, spill, regs = m.groups()
+        kind = kinds[name]
+        key = f"{kind} footprint {fp}" + (f" g={g}" if g else "")
+        table.setdefault(kind, {}).setdefault(key, {})[int(nd)] = (int(regs), int(spill),
+                                                                   int(stack))
+    counts = {kind: sum(len(v) for v in keys.values()) for kind, keys in table.items()}
+    if counts != ENGINE_KERNELS[source]:
+        raise AssertionError(f"{source}: unexpected kernels in the ptxas log: {counts}")
     log(f"phase 1 build: {source}.cu {built} (one nvcc per source, all at once)")
-    for key, by_nd in sorted(table.items()):
-        cells = ", ".join(f"{nd}D {r}/{s}/{f}" for nd, (r, s, f) in sorted(by_nd.items()))
-        log(f"phase 1   {source} f64 {key}: registers/spill-store bytes/stack-frame bytes {cells}")
+    for kind in table:
+        for key, by_nd in sorted(table[kind].items()):
+            cells = ", ".join(f"{nd}D {r}/{s}/{f}" for nd, (r, s, f) in sorted(by_nd.items()))
+            log(f"phase 1   {source} f64 {key}: registers/spill-store bytes/stack-frame bytes "
+                f"{cells}")
+    engine = source.removeprefix("fused_")
+    cells = []
+    for p in PATHS:
+        if p.engine != engine:
+            continue
+        fp = df64.FOOTPRINT[p.k if p.kind == "bspline" else p.method]
+        g = i8._choose_group((p.n,) * p.ndims) if engine == "i8" else None
+        info = fused.engine_info(engine, fp, p.ndims, g)
+        route = f" ({fused.i8_route(fp, g)})" if engine == "i8" else ""
+        cells.append(f"{p.label}{route}: {info['registers']}/{info['local_bytes']}/"
+                     f"{info['shared_bytes']}/{info['blocks_per_sm']}")
+    log(f"phase 1   {source} registers/local bytes/shared bytes a block/blocks an SM of "
+        f"the engine paths' instantiations: {'; '.join(cells)}")
 
 
 def kernel_vs_plain_phase(cuda):
@@ -902,19 +972,22 @@ def regular_routes_phase(cuda):
 
 
 def engine_vs_plain_phase(cuda):
-    """Phase 2 for K8 and K9: each wrapper bitwise against its plain version
-    (both halves of the hi/lo pair) on f64 grids of 2-8D, regular and
-    rectilinear, linear and cubic in both extrapolation modes, K8 also on
-    splines of degree 3 and 5, with extrapolated, NaN and +-inf queries; then
-    a table holding a NaN, which a forced engine leaves to the native
-    kernel."""
+    """Phase 2 for K8 and K9: each wrapper (one launch: the float64 weights,
+    the contraction and the recombination in the kernel) bitwise against its
+    plain chain (the weights in torch, `plain_df64` / `plain_i8`, the
+    recombination) on the same CUDA tensors, on f64 grids of 2-8D, regular
+    and rectilinear, linear and cubic in both extrapolation modes, K8 also
+    on splines of degree 3 and 5, with extrapolated, NaN and +-inf queries;
+    K8 at the float range's edges, where TwoProd's steps overflow or
+    underflow (`twoprod_edges`); then a table holding a NaN, which a forced
+    engine leaves to the native kernel."""
     from interpn_tpu_torch.ops import df64, dispatch, fused, i8
 
     rng = np.random.default_rng(7)
     grid_cases = [(kind, method, lin) for kind in ("regular", "rectilinear")
                   for method, lin in (("linear", True), ("cubic", True), ("cubic", False))]
     for engine in ("df64", "i8"):
-        kern, plain = engine_kernel_and_plain(engine)
+        module = df64 if engine == "df64" else i8
         cases = grid_cases + ([("bspline", k, True) for k in SPLINE.values()]
                               if engine == "df64" else [])
         results = 0
@@ -924,22 +997,22 @@ def engine_vs_plain_phase(cuda):
             if kind == "bspline":
                 dims = tuple(max(d, fp) for d in dims)
                 knots, coeffs, obs = spline_case(dims, method, F64, n, rng, cuda, 1)
-                locs, wh, wl, _ = df64.spline_weights_f64(knots, obs, method)
-                table = coeffs[0]
+                kern = lambda: df64.eval_bspline(knots, coeffs[0], obs, method)  # noqa: E731
+                plain = lambda: df64.plain_bspline(knots, coeffs[0], obs, method)  # noqa: E731
             else:
                 grid, obs = random_case(kind, dims, F64, n, rng, cuda)
-                st, sp, gr = (grid[0], grid[1], None) if kind == "regular" else (None, None, grid[0])
-                locs, wh, wl, _ = df64.weights_f64(dims, st, sp, gr, obs, method, lin)
-                table = grid[-1]
-            prepared = (df64.table_split(table)[:2] if engine == "df64"
-                        else i8.prepare(dims, table)[:4])
-            args = (dims, fp, locs, wh, wl, *prepared)
-            before = fused.launches[engine]
-            got = pair(kern(*args))
+                if kind == "regular":
+                    args = (dims, *grid, obs, method, lin)
+                    kern = lambda: module.eval_regular(*args)  # noqa: E731
+                    plain = lambda: module.plain_regular(*args)  # noqa: E731
+                else:
+                    args = (*grid, obs, method, lin)
+                    kern = lambda: module.eval_rectilinear(*args)  # noqa: E731
+                    plain = lambda: module.plain_rectilinear(*args)  # noqa: E731
             what = f"{engine} {kind} {method} lin={lin} {dims}"
-            if fused.launches[engine] != before + 1:
-                raise AssertionError(f"{what}: the wrapper did not launch its kernel")
-            results += bitwise(got, pair(plain(*args)), what)
+            results += engine_bitwise(engine, kern, plain, what)
+        if engine == "df64":
+            results += twoprod_edges(cuda, rng)
         # a table with a NaN keeps the native kernel under a forced engine
         grid, obs = random_case("regular", (20, 20, 20), F64, 10_000, rng, cuda)
         bad = grid[2].clone()
@@ -951,12 +1024,53 @@ def engine_vs_plain_phase(cuda):
                 raise AssertionError(f"{engine}: a NaN table launched {fused.launches}")
         bitwise(got, fused.plain_regular((20,) * 3, grid[0], grid[1], bad, obs, "cubic"),
                 f"{engine}: NaN table through the native kernel")
-        extra = ", splines k = 3 and 5" if engine == "df64" else ""
+        extra = (", splines k = 3 and 5, tables at the float range's edges" if engine == "df64"
+                 else "")
+        routes = (f", on the dp4a route up to {fused.DP4A_ENTRIES} trailing entries and the "
+                  "mma route above" if engine == "i8" else "")
         log(f"phase 2 kernel vs plain {'K8' if engine == 'df64' else 'K9'} ({engine}) f64: "
             f"2-8D regular and rectilinear, linear and cubic "
             f"(linearize True and False){extra}, up to {N_CHECK} queries (extrapolation, NaN, "
-            f"+-inf): all {results} hi/lo results bitwise equal to the plain version; a table "
+            f"+-inf){routes}: all {results} float64 results of one launch each bitwise equal "
+            "to the plain chain (weights in torch, contraction, recombination); a table "
             "holding a NaN under the forced engine launched the native K1 once and no engine")
+
+
+def engine_bitwise(engine, kern, plain, what) -> int:
+    """Hold one engine call against its plain chain: one launch, no torch
+    weight build, bitwise; return the number of results compared."""
+    from interpn_tpu_torch.ops import fused
+
+    before = fused.launches[engine]
+    with weight_builds() as built:
+        got = kern()
+    if fused.launches[engine] != before + 1 or built:
+        raise AssertionError(f"{what}: {fused.launches[engine] - before} launches, weight "
+                             f"builds {built}")
+    return bitwise(got, plain(), what)
+
+
+def twoprod_edges(cuda, rng) -> int:
+    """K8 where TwoProd's steps leave the float range (where an FMA would
+    part from them, csrc/df64.cuh): tables whose entries reach 2^113-2^118
+    (Veltkamp's split of 4097 a overflows from 2^116) and tables whose
+    entries, near 2^-100, multiply with the weights to 2^-100-2^-125
+    (Dekker's partial products underflow below 2^-103), ordinary entries
+    beside them, regular cubic and linear 3D with extrapolated, NaN and
+    +-inf queries."""
+    from interpn_tpu_torch.ops import df64
+
+    results = 0
+    dims = (9, 8, 10)
+    for method, scale in itertools.product(("cubic", "linear"), (2.0**115, 2.0**-100)):
+        grid, obs = random_case("regular", dims, F64, 20_000, rng, cuda)
+        vals = grid[2] * scale
+        vals[::7] = grid[2][::7]
+        args = (dims, grid[0], grid[1], vals, obs, method, True)
+        results += engine_bitwise("df64", lambda: df64.eval_regular(*args),
+                                  lambda: df64.plain_regular(*args),
+                                  f"df64 TwoProd edge {scale:g} {method}")
+    return results
 
 
 def engine_nodes(cuda):
@@ -1146,16 +1260,18 @@ def drive_path(p: Path, cuda, rng):
 
     fused.reset_launches()
     results, counts = {}, []
-    for name, call in calls.items():
-        results[name] = call()
-        counts.append(fused.launches[p.counter])
+    with weight_builds() as built:  # the torch float64 weight build, on no path
+        for name, call in calls.items():
+            results[name] = call()
+            counts.append(fused.launches[p.counter])
     torch.cuda.synchronize()
     others = {k: v for k, v in fused.launches.items() if k not in (p.counter, p.companion) and v}
     expected = list(range(1, len(calls) + 1))
-    if counts != expected or others or (p.companion and
-                                        fused.launches[p.companion] != len(calls)):
+    if counts != expected or others or built or (p.companion and
+                                                 fused.launches[p.companion] != len(calls)):
         raise AssertionError(f"{p.label}: launch counts after each call {counts}, others "
-                             f"{others}, {p.companion} {fused.launches.get(p.companion)}")
+                             f"{others}, {p.companion} {fused.launches.get(p.companion)}, "
+                             f"torch weight builds {built}")
     launches = fused.launches[p.counter]
     companions = {p.companion: fused.launches[p.companion]} if p.companion else {}
     companion = "".join(f", {k} launches {v} (one a call)" for k, v in companions.items())
@@ -1170,19 +1286,17 @@ def drive_path(p: Path, cuda, rng):
     # the kernel against its plain version at the path's shape, on the card
     kern, plain = path_kernel_and_plain(p.native)
     tol = TOL[p.dtype]
-    if p.engine:  # K8/K9 on the path's weights, both halves of the pair
-        kern_e, plain_e = engine_kernel_and_plain(p.engine)
-        args = engine_args(p, grid, obs_t)
-        k_out, p_out = pair(kern_e(*args)), pair(plain_e(*args))
+    if p.engine:  # K8/K9 against their plain chains on the path's queries
+        kern_e, plain_e = engine_kernel_and_plain(p, grid)
+        k_out, p_out = kern_e(obs_t), plain_e(obs_t)
         bitwise(k_out, p_out, f"{p.label} kernel vs plain")
-        err = max_abs_err(k_out[0].double() + k_out[1], p_out[0].double() + p_out[1])
+        err = max_abs_err(k_out, p_out)
         # the JAX package's bars of its f64 engines against the gather tree:
         # linear 1e-13, cubic 1e-12 (tests/test_pallas_df64.py:55,66), splines
         # 1e-11 of the largest coefficient where the queries extrapolate, as
         # these do (tests/test_bspline_engines.py:64)
         tol = 1e-13 if p.method == "linear" else 1e-12
         atol = 1e-11 * max(float(grid[1].abs().max()), 1.0) if p.kind == "bspline" else tol
-        del args
     else:
         k_out = kern(*grid, obs_t, dims=tuple(shape))
         p_out = plain(*grid, obs_t, dims=tuple(shape))
@@ -1211,9 +1325,10 @@ def drive_path(p: Path, cuda, rng):
         covered = int(ok.sum())
     ref_name = ("a scipy make_interp_spline / BSpline.design_matrix float64 reference"
                 if p.kind == "bspline" else "a float64 numpy reference")
+    weights = ", no torch float64 weight build" if p.engine else ""
     log(f"phase 4 path {p.label} x {N_MAIN} queries: {', '.join(calls)}; {p.counter} launches "
-        f"after each call {counts}{companion}, no other kernel; finite, equal across entry "
-        f"points, kernel "
+        f"after each call {counts}{companion}, no other kernel{weights}; finite, equal across "
+        f"entry points, kernel "
         f"bitwise equal to its plain version, within rtol {tol:g}, atol {atol:.3g} of the CPU "
         f"gather tree on "
         f"{N_REF} queries and of {ref_name} on the {covered} of them it covers, every table "
@@ -1290,18 +1405,14 @@ def timing_phase(p: Path, cuda, gen, smi):
 
     main = batches(LO, HI)
     plain_n = N_MAIN  # queries a call of the plain version
-    if p.engine:  # K8/K9 alone on each batch's weights, built beforehand
-        kern_e, plain_e = engine_kernel_and_plain(p.engine)
-        timed_in = [engine_args(p, grid, b) for b in main]
-        plain_in = timed_in[:N_PLAIN]
+    if p.engine:  # K8/K9's one launch from the queries, against the plain chain
+        k_fn, p_fn = engine_kernel_and_plain(p, grid)
+        timed_in, plain_in = main, main[:N_PLAIN]
         if p.n**p.ndims > 100_000:
-            # the 12^5 plain versions run some 20-30k launches a call, whose
+            # the 12^5 plain chains run some 20-30k launches a call, whose
             # profile alone took a minute: a tenth of the queries a call
             plain_n = N_MAIN // 10
-            plain_in = [engine_args(p, grid, tuple(o[:plain_n] for o in b))
-                        for b in main[:N_PLAIN]]
-        k_fn = lambda a: kern_e(*a)  # noqa: E731
-        p_fn = lambda a: plain_e(*a)  # noqa: E731
+            plain_in = [tuple(o[:plain_n] for o in b) for b in main[:N_PLAIN]]
     else:
         timed_in, plain_in = main, main[:N_PLAIN]
         k_fn = lambda ob: kern(*grid, ob, dims=dims)  # noqa: E731
@@ -1317,13 +1428,12 @@ def timing_phase(p: Path, cuda, gen, smi):
     del timed_in, plain_in
     whole = {}
     if p.engine:
-        # the whole call: weight build (hundreds of launches), contraction,
-        # float64 recombination; over 4 batches, which the host can queue
-        # within the head start
-        t = cuda_time(engine_call(p, grid), main[:4])
+        # the whole call through the op a user calls (the route's table check
+        # and cache lookups, the kernel route, the one launch)
+        t = cuda_time(engine_call(p, grid), main)
         whole = {"call_ms": t.device_ms}
-        log(f"phase 5 timing {p.label}, the whole engine call ({p.kind} weights in float64, "
-            f"{p.engine} wrapper, recombination) over 4 of the batches [{smi}]: "
+        log(f"phase 5 timing {p.label}, the whole engine call through ops (route, cached "
+            f"table layout, one launch) [{smi}]: "
             f"{t.device_ms:.4f} ms/call by CUDA events behind a head start "
             f"({'held' if t.ahead else 'DID NOT hold'}), {t.loop_ms:.4f} ms/call back to back")
     k_best = min(k_runs, key=lambda t: t.device_ms)

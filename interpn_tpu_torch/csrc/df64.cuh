@@ -8,6 +8,17 @@
 // its own: an FMA would fold a product into the next addition with one
 // rounding and lose the error term. So every step goes through the _rn
 // intrinsics, which nvcc never contracts, and the build adds --fmad=false.
+//
+// TwoProd keeps Dekker's product over Veltkamp's splits. One FMA, e =
+// fma(a, b, -a*b), gives the same error wherever both are exact (the exact
+// a*b - p is unique), but not where 4097 a overflows (|a| >= 2^116) or a
+// partial product underflows (e_a + e_b < -103), so it would need a guard
+// to keep the plain version's bits. On an H100 the guard cost more than the
+// FMA saved: K8 cubic 20^3 at 1e6 queries took 0.1863 ms with a guard on
+// the exponent fields, 0.1696 with a guard on |a|, |b| and |a*b|, 0.1391
+// with Dekker's steps alone, and 12^5 2.5221, 2.2919 and 1.9833 ms
+// (`scripts/torch_regular_ab.py --engines` against copies of the sources
+// with either guard, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 
 #pragma once
 

@@ -23,6 +23,8 @@ constexpr int kThreads = 256;
 constexpr int kLinear = 0;
 constexpr int kCubic = 1;
 constexpr int kNearest = 2;
+
+constexpr int ipow(int b, int e) { return e == 0 ? 1 : b * ipow(b, e - 1); }
 // Inner levels of the cubic tree that are unrolled (4^3 = 64 table reads);
 // each outer level is a loop of 4, so code size grows by one node per level
 // and at most 4 partials per level are live.

@@ -1,13 +1,13 @@
-"""Double-float (compensated float32) f64 contraction: K8's wrapper and plain
+"""Double-float (compensated float32) f64 evaluation: K8's wrapper and plain
 version.
 
 Counterpart of `interpn_tpu/ops/pallas_df64.py`. The cell locate and the
-per-axis stencil weights are computed in float64 outside the kernel
-(`weights_f64`), split into float32 hi/lo pairs (hi + lo keeps about 48
-of a double's 53 bits); the value table is split once into hi/lo pairs
-(`table_split`, cached per table: `cache_key`); the contraction runs in
-double-float arithmetic (Dekker/Veltkamp TwoProd with no FMA, Knuth TwoSum)
-and returns an (hi, lo) pair that is recombined in float64.
+per-axis stencil weights are computed in float64 (`weights_f64`), split
+into float32 hi/lo pairs (hi + lo keeps about 48 of a double's 53 bits);
+the value table is split once into hi/lo pairs (`table_split`, cached per
+table: `cache_key`); the contraction runs in double-float arithmetic
+(Dekker/Veltkamp TwoProd with no FMA, Knuth TwoSum) and returns an (hi, lo)
+pair that is recombined in float64 (`_finish`).
 
 The TPU kernel contracts dense per-axis weight matrices against the whole
 table. Here the contraction reads only each query's stencil, in the flat
@@ -19,16 +19,21 @@ the dense contraction is an exact identity, so this order gives the dense
 kernel's numbers (the TPU's looped kernel for leading blocks above 2048 rows
 uses another order; the two agree at the JAX package's 5e-12 bar).
 
-`contract` is K8's wrapper: on a CPU tensor it runs `plain_df64`, on a CUDA
-tensor it launches `csrc/fused_df64.cu` (`ops/fused.py::launch_df64`) or
-raises. The primitives below are op for op `pallas_df64.py`'s; torch runs
-each op as its own kernel, so nothing is contracted into an FMA across ops,
-and no fused op (`addcmul`, ...) is used.
+`eval_regular`, `eval_rectilinear` and `eval_bspline` are K8's wrappers:
+on CPU tensors they run the plain chain (`plain_regular`,
+`plain_rectilinear`, `plain_bspline`: `weights_f64`, `contract`, which is
+`plain_df64`, and `_finish`); on CUDA tensors they launch
+`csrc/fused_df64.cu` (`ops/fused.py::launch_df64`), which builds the
+weights itself and reads the table's packed taps (`table_taps`), or raise.
+The primitives below are op for op `pallas_df64.py`'s; torch runs each op
+as its own kernel, so nothing is contracted into an FMA across ops, and no
+fused op (`addcmul`, ...) is used.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
 
 import numpy as np
 import torch
@@ -174,6 +179,7 @@ class TableCache:
 
 
 _SPLITS = TableCache(16)
+_TAPS = TableCache(16)
 
 
 def table_split(vals):
@@ -186,6 +192,30 @@ def table_split(vals):
         return vh.contiguous(), vl.contiguous(), bool(torch.isfinite(v).all())
 
     return _SPLITS.get(vals, (), build)
+
+
+def plain_taps(dims, footprint, vh, vl):
+    """K8's packed layout of a flat hi/lo split: (prod(dims[:-1]) *
+    (dims[-1] - footprint + 1), 2 * footprint) float32, cell (row, j)
+    holding the hi parts of entries j .. j + footprint - 1 along the last
+    axis, then their lo parts: a stencil row of the last axis in one
+    16-byte (footprint 2), 32-byte (4) or 48-byte (6) cell."""
+    shape = (math.prod(dims[:-1]), dims[-1])
+    h = vh.reshape(shape).unfold(1, footprint, 1)
+    l = vl.reshape(shape).unfold(1, footprint, 1)
+    return torch.cat([h, l], dim=-1).reshape(-1, 2 * footprint).contiguous()
+
+
+def table_taps(vals, dims, footprint):
+    """`plain_taps` of the table's `table_split`, on its device, cached per
+    table, dims and footprint (K8 reads nothing else of the table)."""
+    dims = tuple(int(d) for d in dims)
+
+    def build():
+        vh, vl, _ = table_split(vals)
+        return plain_taps(dims, footprint, vh, vl)
+
+    return _TAPS.get(vals, (dims, footprint), build)
 
 
 # --- per-axis weights in float64 -------------------------------------------------------
@@ -314,43 +344,81 @@ def plain_df64(dims, footprint, locs, wh, wl, vh, vl):
 
 
 def contract(dims, footprint, locs, wh, wl, vh, vl):
-    """K8's wrapper: (oh, ol) float32 (n,). A CPU tensor runs `plain_df64`;
-    a CUDA tensor launches `csrc/fused_df64.cu` or raises."""
-    dims = tuple(int(d) for d in dims)
-    if _fused._device((locs, wh, wl, vh, vl)).type == "cpu":
-        return plain_df64(dims, footprint, locs, wh, wl, vh, vl)
-    return _fused.launch_df64(dims, footprint, locs, wh, wl, vh, vl)
+    """The contraction step of the plain chain: `plain_df64`, (oh, ol)
+    float32 (n,) on the tensors' device."""
+    return plain_df64(tuple(int(d) for d in dims), footprint, locs, wh, wl, vh, vl)
 
 
 def _finish(oh, ol):
     return oh.to(_F64) + ol.to(_F64)
 
 
-def eval_regular(dims, starts, steps, vals, obs, method, linearize=True, prep=None):
-    """Double-float f64 evaluation on a regular grid (linear or cubic, 2-8D):
-    the counterpart of `pallas_df64.eval_regular`. `prep` is
-    `table_split(vals)`, where the caller has it. Returns (n,) float64."""
+def plain_regular(dims, starts, steps, vals, obs, method, linearize=True):
+    """K8's plain version on a regular grid: the float64 weights, the
+    contraction and the recombination, in torch on the tensors' device."""
     dims = tuple(int(d) for d in dims)
     locs, wh, wl, _ = weights_f64(dims, starts, steps, None, obs, method, linearize)
-    vh, vl, _ = prep or table_split(vals)
+    vh, vl, _ = table_split(vals)
     return _finish(*contract(dims, FOOTPRINT[method], locs, wh, wl, vh, vl))
 
 
-def eval_rectilinear(grids, vals, obs, method, linearize=True, prep=None):
-    """Double-float f64 evaluation on a rectilinear grid."""
+def plain_rectilinear(grids, vals, obs, method, linearize=True):
+    """K8's plain version on a rectilinear grid."""
     dims = tuple(int(g.shape[0]) for g in grids)
     locs, wh, wl, _ = weights_f64(dims, None, None, grids, obs, method, linearize)
-    vh, vl, _ = prep or table_split(vals)
+    vh, vl, _ = table_split(vals)
     return _finish(*contract(dims, FOOTPRINT[method], locs, wh, wl, vh, vl))
 
 
-def eval_bspline(knots, coeffs, obs, k: int, prep=None):
-    """Double-float f64 evaluation of a degree-k (3 or 5) tensor-product
-    B-spline: the counterpart of `pallas_df64.eval_bspline`."""
+def plain_bspline(knots, coeffs, obs, k: int):
+    """K8's plain version of a degree-k tensor-product B-spline."""
     dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
     locs, wh, wl, _ = spline_weights_f64(knots, obs, k)
-    vh, vl, _ = prep or table_split(coeffs)
+    vh, vl, _ = table_split(coeffs)
     return _finish(*contract(dims, FOOTPRINT[k], locs, wh, wl, vh, vl))
+
+
+def _on_cpu(tensors) -> bool:
+    return _fused._device(tensors).type == "cpu"
+
+
+def _flat(obs):
+    return tuple(o.reshape(-1).contiguous() for o in obs)
+
+
+def eval_regular(dims, starts, steps, vals, obs, method, linearize=True):
+    """Double-float f64 evaluation on a regular grid (linear or cubic, 2-8D):
+    the counterpart of `pallas_df64.eval_regular`. Returns (n,) float64:
+    the plain chain on CPU tensors, one launch of K8 on CUDA tensors."""
+    dims = tuple(int(d) for d in dims)
+    obs = _flat(obs)
+    if _on_cpu((vals, starts, steps, *obs)):
+        return plain_regular(dims, starts, steps, vals, obs, method, linearize)
+    fp = FOOTPRINT[method]
+    return _fused.launch_df64("regular", dims, (starts, steps), table_taps(vals, dims, fp), obs,
+                              fp, linearize)
+
+
+def eval_rectilinear(grids, vals, obs, method, linearize=True):
+    """Double-float f64 evaluation on a rectilinear grid."""
+    grids, obs = tuple(grids), _flat(obs)
+    if _on_cpu((vals, *grids, *obs)):
+        return plain_rectilinear(grids, vals, obs, method, linearize)
+    dims = tuple(int(g.shape[0]) for g in grids)
+    fp = FOOTPRINT[method]
+    return _fused.launch_df64("rectilinear", dims, grids, table_taps(vals, dims, fp), obs, fp,
+                              linearize)
+
+
+def eval_bspline(knots, coeffs, obs, k: int):
+    """Double-float f64 evaluation of a degree-k (3 or 5) tensor-product
+    B-spline: the counterpart of `pallas_df64.eval_bspline`."""
+    knots, obs = tuple(knots), _flat(obs)
+    if _on_cpu((coeffs, *knots, *obs)):
+        return plain_bspline(knots, coeffs, obs, k)
+    dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
+    return _fused.launch_df64("bspline", dims, knots, table_taps(coeffs, dims, k + 1), obs,
+                              k + 1)
 
 
 def supported(dims, method) -> bool:

@@ -89,20 +89,21 @@ def f64_engine() -> str:
 
 
 def f64_route(vals, dims, method):
-    """(engine, prep): ('df64', the table's `df64.table_split`) or ('i8',
-    its `i8.prepare`) where INTERPN_TPU_F64 forces that engine on this call,
-    else (None, None). `method` is 'linear', 'cubic' or a spline degree (3,
-    5). The table's finiteness is cached with its split or decomposition."""
+    """(engine, keywords of its wrapper): ('df64', {}) or ('i8', {'prep':
+    the table's `i8.prepare`}) where INTERPN_TPU_F64 forces that engine on
+    this call, else (None, {}). `method` is 'linear', 'cubic' or a spline
+    degree (3, 5). The table's finiteness is cached with its split
+    (`df64.table_split`, which K8's cached taps are made from) or its
+    decomposition."""
     engine = f64_engine()
     if engine == "auto" or _impl(vals) != "kernel" or vals.dtype != torch.float64:
-        return None, None
+        return None, {}
     if engine == "i8" and _i8.supported(dims, method):
         prep = _i8.prepare(dims, vals)
-        return ("i8", prep) if prep is not None else (None, None)
-    if _df64.supported(dims, method):
-        prep = _df64.table_split(vals)
-        return ("df64", prep) if prep[2] else (None, None)
-    return None, None
+        return ("i8", {"prep": prep}) if prep is not None else (None, {})
+    if _df64.supported(dims, method) and _df64.table_split(vals)[2]:
+        return "df64", {}
+    return None, {}
 
 
 def _route(kernel, gather, params, vals, obs, lead=()):
@@ -119,7 +120,7 @@ def _route(kernel, gather, params, vals, obs, lead=()):
 
 def _regular(method, dims, starts, steps, vals, obs, gather, *lin):
     dims = tuple(int(d) for d in dims)
-    engine, prep = f64_route(vals, dims, method)
+    engine, kw = f64_route(vals, dims, method)
     if engine is None:
         def kernel(st, sp, v, *ob):
             return _fused.eval_regular(dims, st, sp, v, ob, method, *lin)
@@ -127,7 +128,7 @@ def _regular(method, dims, starts, steps, vals, obs, gather, *lin):
         module = _df64 if engine == "df64" else _i8
 
         def kernel(st, sp, v, *ob):
-            return module.eval_regular(dims, st, sp, v, ob, method, *lin, prep=prep)
+            return module.eval_regular(dims, st, sp, v, ob, method, *lin, **kw)
     return _route(kernel, lambda st, sp, v, *ob: gather(dims, st, sp, v, ob, *lin),
                   (starts, steps), vals, obs)
 
@@ -153,7 +154,7 @@ def nearest_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
 def _rect_route(method, gather, grids, vals, obs, *extra):
     ng = len(grids)
     dims = tuple(int(g.shape[0]) for g in grids)
-    engine, prep = f64_route(vals, dims, method)
+    engine, kw = f64_route(vals, dims, method)
     if engine is None:
         def kernel(*a):
             return _fused.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra)
@@ -161,8 +162,7 @@ def _rect_route(method, gather, grids, vals, obs, *extra):
         module = _df64 if engine == "df64" else _i8
 
         def kernel(*a):
-            return module.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra,
-                                           prep=prep)
+            return module.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra, **kw)
     return _route(kernel, lambda *a: gather(a[:ng], a[ng], a[ng + 1 :], *extra),
                   tuple(grids), vals, obs)
 
@@ -193,13 +193,13 @@ def bspline_eval(knots, coeffs, obs, k: int, *, vals_finite=None):
     span's polynomial."""
     ng = len(knots)
     dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
-    engine, prep = f64_route(coeffs, dims, k)
+    engine, _ = f64_route(coeffs, dims, k)
     if engine is None:
         def kernel(*a):
             return _fused.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k)
     else:
         def kernel(*a):
-            return _df64.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k, prep=prep)
+            return _df64.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k)
     return _route(
         kernel,
         lambda *a: _bspline_gather(a[:ng], a[ng], a[ng + 1 :], k),

@@ -17,11 +17,13 @@
   `fused_bspline_stack.cu`, the counterpart of `pallas_v3.eval_bspline`
   (K4, and K2's spline use) and `pallas_v3.eval_bspline_stack` (K7).
 * `launch_df64` / `launch_i8` launch `csrc/fused_df64.cu` (K8, the
-  counterpart of `interpn_tpu/ops/pallas_df64.py::_pallas_df64`) and
-  `csrc/fused_i8.cu` (K9, `interpn_tpu/ops/pallas_i8.py::_pallas_i8`), the
-  f64 contraction engines that `INTERPN_TPU_F64=df64|i8` selects
-  (`ops/dispatch.py`). Their wrappers with plain versions, and the weight
-  and table preparation around them, are `ops/df64.py` and `ops/i8.py`.
+  counterpart of `interpn_tpu/ops/pallas_df64.py::_pallas_df64` with the
+  float64 weight build before it) and `csrc/fused_i8.cu` (K9,
+  `interpn_tpu/ops/pallas_i8.py::_pallas_i8`, likewise), the f64 engines
+  that `INTERPN_TPU_F64=df64|i8` selects (`ops/dispatch.py`): from the
+  queries and the grid to the float64 result in one launch. Their wrappers
+  with plain versions, and the table preparation they read, are
+  `ops/df64.py` and `ops/i8.py`.
 
 A stack is (nch, prod(dims)) tables on one grid, evaluated at the same
 queries into an (nch, n) block: the stack source instantiates its family's
@@ -35,8 +37,8 @@ the sources for what bounds them on the card.
 On a CPU tensor each wrapper runs its kernel's plain version (the `plain_*`
 functions below: the gather trees of `ops/linear.py`, `ops/cubic.py`,
 `ops/nearest.py` and `ops/bspline.py`, over each channel for a stack;
-`df64.plain_df64` and `i8.plain_i8`). On a CUDA tensor it launches the
-kernel or raises.
+for K8/K9 the float64 weights, `df64.plain_df64` / `i8.plain_i8` and the
+recombination). On a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -56,6 +58,9 @@ from .nearest import nearest_rectilinear, nearest_regular
 METHODS = ("linear", "cubic", "nearest")  # kLinear, kCubic, kNearest in csrc
 DEGREES = (3, 5)  # cubic_spline, quintic
 F64_ENGINES = ("df64", "i8")  # K8, K9: csrc/fused_df64.cu, csrc/fused_i8.cu
+# the grid kinds of the engines' C entries (kGridRegular, kGridRectilinear,
+# kGridSpline in csrc/engine_weights.cuh)
+GRID_KINDS = ("regular", "rectilinear", "bspline")
 SOURCES = (*(f"fused_{family}{stack}" for family in ("regular", "rectilinear", "bspline")
              for stack in ("", "_stack")),
            *(f"fused_{engine}" for engine in F64_ENGINES))
@@ -121,11 +126,14 @@ _FAMILY_ARGTYPES = {
     "regular": [_INT, _INT, _INT] + _DIMS + [_VOIDP, _VOIDP, _VOIDP] + _TAIL,
     "rectilinear": [_INT, _INT, _INT] + _DIMS + [_PTRS] + _TAIL,
     "bspline": [_INT, _INT] + _DIMS + [_PTRS] + _TAIL,
-    # footprint, ndims, dims, locs, wh, wl, vh, vl, oh, ol, n, blocks, stream
-    "df64": [_INT] + _DIMS + [_VOIDP] * 7 + [ctypes.c_longlong, _INT, _VOIDP],
-    # footprint, group, ndims, dims, locs, wh, wl, pieces, ch, cl, sv, oh, ol,
-    # n, blocks, stream
-    "i8": [_INT, _INT] + _DIMS + [_VOIDP] * 9 + [ctypes.c_longlong, _INT, _VOIDP],
+    # kind, footprint, linearize, ndims, dims, starts, steps, columns, taps,
+    # obs, out, n, blocks, stream
+    "df64": [_INT, _INT, _INT] + _DIMS + [_VOIDP, _VOIDP, _PTRS, _VOIDP, _PTRS, _VOIDP,
+                                          ctypes.c_longlong, _INT, _VOIDP],
+    # kind, footprint, linearize, group, route, ndims, dims, starts, steps,
+    # columns, pieces, ch, cl, sv, c0, obs, out, n, blocks, stream
+    "i8": [_INT] * 5 + _DIMS + [_VOIDP, _VOIDP, _PTRS, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                                ctypes.c_double, _PTRS, _VOIDP, ctypes.c_longlong, _INT, _VOIDP],
 }
 _ARGTYPES = {s: (s.replace("fused_", "interpn_"), _FAMILY_ARGTYPES[s.split("_")[1]])
              for s in SOURCES}
@@ -142,6 +150,10 @@ def reset_launches() -> None:
 # nch, vals, out, stream (`interpn_regular_stack_interleave`)
 _ENTRY_ARGTYPES = {
     "_info": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
+    # footprint, ndims, out[4] (`interpn_df64_info`); footprint, ndims,
+    # group, route, out[4] (`interpn_i8_info`)
+    ("fused_df64", "_info"): [_INT, _INT, ctypes.POINTER(_INT)],
+    ("fused_i8", "_info"): [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
     "_pack": [_INT, *_DIMS, _VOIDP, _VOIDP, _VOIDP],
     "_cubic_pack": [_INT, *_DIMS, _VOIDP, _VOIDP, _VOIDP],
     "_interleave": [_INT, ctypes.c_longlong, _INT, _VOIDP, _VOIDP, _VOIDP],
@@ -154,7 +166,7 @@ def _fn(source: str, entry: str = ""):
     `csrc/<source>.cu`, built first if needed."""
     name, argtypes = _ARGTYPES[source]
     if entry:
-        argtypes = _ENTRY_ARGTYPES[entry]
+        argtypes = _ENTRY_ARGTYPES.get((source, entry)) or _ENTRY_ARGTYPES[entry]
     fn = getattr(_build.load(source), name + entry)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
@@ -612,80 +624,146 @@ def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route
     return out
 
 
-# --- K8 and K9: the f64 contraction engines -------------------------------------------
+# --- K8 and K9: the f64 engines -------------------------------------------------------
+
+_I8_THREADS = 128  # kI8Threads in csrc/fused_i8.cu: four warps of 32 queries
+# K9's routes (kI8Mma, kI8Dp4a in csrc/fused_i8.cu): the piece products of
+# each stencil row by the int8 tensor cores (32 queries a warp) or by
+# `__dp4a` (a thread a query)
+I8_ROUTES = ("mma", "dp4a")
+# K9 takes the dp4a route where the trailing stencil (footprint^group
+# entries) has at most this many entries, the mma route above
+# (kDp4aEntries in csrc/fused_i8.cu, which builds each shape on its one
+# route): dp4a ran linear and cubic 20^3 1.3-1.8x faster than the MMAs
+# there, which staged each query's entries for the warp
+DP4A_ENTRIES = 16
 
 
-def _check_f64_engine(dims, footprint, footprints, locs, wh, wl, tables) -> int:
-    """Refuse what K8/K9 do not take; return the query count. `tables`
-    maps a name to (tensor, shape, dtype)."""
+def i8_route(footprint, group) -> str:
+    """K9's route for a trailing stencil of footprint^group entries, one of
+    I8_ROUTES: 'dp4a' within DP4A_ENTRIES, else 'mma'. A function of these
+    arguments alone, and the only place the choice is made."""
+    return "dp4a" if footprint**group <= DP4A_ENTRIES else "mma"
+
+
+def _check_engine(kind, dims, grid, obs, footprint, footprints) -> tuple[int, tuple]:
+    """Refuse what K8/K9 do not take; return the query count and the grid's
+    three C arguments (starts, steps, columns)."""
     ndims = len(dims)
+    if kind not in GRID_KINDS:
+        raise ValueError(f"grid kind must be one of {GRID_KINDS}, got {kind!r}")
     if not 2 <= ndims <= _MAX_DIMS:
         raise ValueError(f"ndims must be in 2..{_MAX_DIMS}, got {ndims}")
     if footprint not in footprints or min(dims) < footprint:
         raise ValueError(f"footprint {footprint} does not fit dims {dims}")
     if math.prod(dims) >= _INT32_LIMIT:
         raise ValueError(f"grid of {math.prod(dims)} points needs int64 indices")
-    n = int(locs.shape[-1])
+    if len(obs) != ndims or len(grid) != (2 if kind == "regular" else ndims):
+        raise ValueError("grid parameters and obs must have one entry per dim")
+    n = int(obs[0].shape[0]) if obs[0].dim() == 1 else -1
+    if kind == "regular" and any(t.shape != (ndims,) for t in grid):
+        raise ValueError("starts and steps must have one entry per dim")
+    if kind == "rectilinear" and tuple(int(g.shape[0]) for g in grid) != dims:
+        raise ValueError(f"grid axes must have {dims} entries")
+    if kind == "bspline" and tuple(int(t.shape[0]) for t in grid) != tuple(
+            d + footprint for d in dims):
+        raise ValueError(f"knot vectors must have dims + {footprint} entries")
+    for t in (*grid, *obs):
+        if t.dtype != torch.float64 or not t.is_contiguous() or t.dim() != 1:
+            raise ValueError("grid and obs must be contiguous 1-D float64 tensors")
+    if any(o.shape[0] != n for o in obs):
+        raise ValueError("obs must be 1-D tensors of one length")
     if n >= _INT32_LIMIT:
         raise ValueError(f"{n} queries need int64 indices")
-    want = {"locs": (locs, (ndims, n), torch.int32),
-            "wh": (wh, (ndims * footprint, n), torch.float32),
-            "wl": (wl, (ndims * footprint, n), torch.float32), **tables}
-    for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-    return n
+    if kind == "regular":
+        return n, (grid[0].data_ptr(), grid[1].data_ptr(), None)
+    return n, (None, None, (_VOIDP * ndims)(*(t.data_ptr() for t in grid)))
 
 
-def _launch_f64(source, kernel, head, dims, n, tensors, device):
-    oh = torch.empty(n, dtype=torch.float32, device=device)
-    ol = torch.empty(n, dtype=torch.float32, device=device)
+def _check_table(name, t, shape, dtype):
+    if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {shape} {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def _launch_engine(source, head, dims, grid_args, tables, obs, n, threads, device):
+    out = torch.empty(n, dtype=torch.float64, device=device)
     if n == 0:
-        return oh, ol
+        return out
     index = device.index if device.index is not None else torch.cuda.current_device()
-    blocks = min(-(-n // _THREADS), _sm_count(index) * _BLOCKS_PER_SM)
+    blocks = min(-(-n // threads), _sm_count(index) * _BLOCKS_PER_SM * _THREADS // threads)
     with torch.cuda.device(index):
         rc = _fn(source)(
-            *head, len(dims), (_INT * len(dims))(*dims),
-            *(t.data_ptr() for t in tensors), oh.data_ptr(), ol.data_ptr(),
-            n, blocks, torch.cuda.current_stream().cuda_stream,
+            *head, len(dims), (_INT * len(dims))(*dims), *grid_args, *tables,
+            (_VOIDP * len(dims))(*(o.data_ptr() for o in obs)), out.data_ptr(), n, blocks,
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"{source} kernel launch failed: CUDA error {rc}")
-    launches[kernel] += 1
-    return oh, ol
+    launches[source.removeprefix("fused_")] += 1
+    return out
 
 
-def launch_df64(dims, footprint, locs, wh, wl, vh, vl):
-    """Launch K8 (`csrc/fused_df64.cu`) on CUDA tensors: `locs` (ndims, n)
-    int32, `wh`/`wl` (ndims * footprint, n) float32, the flat hi/lo table
-    `vh`/`vl`; returns the (oh, ol) float32 pair. The wrapper with a plain
-    version is `ops.df64.contract`."""
+def launch_df64(kind, dims, grid, taps, obs, footprint, linearize=True):
+    """Launch K8 (`csrc/fused_df64.cu`) on CUDA tensors: `kind` one of
+    GRID_KINDS, `grid` (starts, steps) for a regular grid, else one sorted
+    float64 column per axis (the axes, or the knot vectors of a spline of
+    degree footprint - 1), the table's packed hi/lo taps (`ops.df64.
+    table_taps`), `obs` ndims flat float64 queries; returns the (n,)
+    float64 result. The wrapper with a plain version is
+    `ops.df64.eval_regular` (`eval_rectilinear`, `eval_bspline`)."""
     dims = tuple(int(d) for d in dims)
-    device = _device((locs, wh, wl, vh, vl))
-    size = (math.prod(dims),)
-    n = _check_f64_engine(dims, footprint, (2, 4, 6), locs, wh, wl, {
-        "vh": (vh, size, torch.float32), "vl": (vl, size, torch.float32)})
-    return _launch_f64("fused_df64", "df64", (footprint,), dims, n,
-                       (locs, wh, wl, vh, vl), device)
+    grid, obs = tuple(grid), tuple(obs)
+    device = _device((taps, *grid, *obs))
+    n, grid_args = _check_engine(kind, dims, grid, obs, footprint, (2, 4, 6))
+    if kind != "bspline" and footprint == 6 or kind == "bspline" and footprint == 2:
+        raise ValueError(f"no {kind} evaluation of footprint {footprint}")
+    rows = math.prod(dims[:-1]) * (dims[-1] - footprint + 1)
+    _check_table("taps", taps, (rows, 2 * footprint), torch.float32)
+    return _launch_engine("fused_df64", (GRID_KINDS.index(kind), footprint, int(bool(linearize))),
+                          dims, grid_args, (taps.data_ptr(),), obs, n, _THREADS, device)
 
 
-def launch_i8(dims, footprint, group, locs, wh, wl, pieces, ch, cl, sv):
-    """Launch K9 (`csrc/fused_i8.cu`) on CUDA tensors: `locs`, `wh`, `wl` as
-    `launch_df64`'s, the cell-major (prod(dims), 8) int8 pieces and the
-    (lead,) float32 row centres hi/lo and scales of `ops.i8.prepare`, with
-    the trailing-axis group `group`; returns the (oh, ol) float32 pair. The
-    wrapper with a plain version is `ops.i8.contract`."""
+def launch_i8(kind, dims, grid, prep, obs, footprint, linearize, group):
+    """Launch K9 (`csrc/fused_i8.cu`) on CUDA tensors: `kind` 'regular' or
+    'rectilinear' and `grid`, `obs` as `launch_df64`'s; `prep` the table's
+    `ops.i8.prepare` (cell-major (prod(dims), 8) int8 pieces, (lead,)
+    float32 row centres hi/lo and scales, the float centre c0) for the
+    trailing-axis group `group`; returns the (n,) float64 result, on
+    `i8_route`'s route. The wrapper with a plain version is
+    `ops.i8.eval_regular` (`eval_rectilinear`)."""
     dims = tuple(int(d) for d in dims)
-    device = _device((locs, wh, wl, pieces, ch, cl, sv))
+    grid, obs = tuple(grid), tuple(obs)
+    pieces, ch, cl, sv, c0 = prep
+    device = _device((pieces, ch, cl, sv, *grid, *obs))
+    if kind == "bspline":
+        raise ValueError("K9 evaluates regular and rectilinear grids")
+    n, grid_args = _check_engine(kind, dims, grid, obs, footprint, (2, 4))
     if not 1 <= group < len(dims) or footprint**group > 2048 and group > 1:
         raise ValueError(f"group {group} does not fit dims {dims}")
     lead = (math.prod(dims[: len(dims) - group]),)
-    n = _check_f64_engine(dims, footprint, (2, 4), locs, wh, wl, {
-        "pieces": (pieces, (math.prod(dims), 8), torch.int8),
-        "ch": (ch, lead, torch.float32), "cl": (cl, lead, torch.float32),
-        "sv": (sv, lead, torch.float32)})
-    return _launch_f64("fused_i8", "i8", (footprint, group), dims, n,
-                       (locs, wh, wl, pieces, ch, cl, sv), device)
+    _check_table("pieces", pieces, (math.prod(dims), 8), torch.int8)
+    for name, t in (("ch", ch), ("cl", cl), ("sv", sv)):
+        _check_table(name, t, lead, torch.float32)
+    head = (GRID_KINDS.index(kind), footprint, int(bool(linearize)), group,
+            I8_ROUTES.index(i8_route(footprint, group)))
+    return _launch_engine(
+        "fused_i8", head, dims, grid_args,
+        (*(t.data_ptr() for t in (pieces, ch, cl, sv)), float(c0)), obs, n, _I8_THREADS, device)
+
+
+def engine_info(engine, footprint, ndims, group=None) -> dict:
+    """Registers a thread, shared bytes a block, local (spill) bytes a
+    thread and resident blocks an SM of K8's (`engine` 'df64') or K9's
+    ('i8', with its trailing-axis group, on `i8_route`'s route)
+    instantiation, on the current CUDA device."""
+    got = (_INT * 4)()
+    source = f"fused_{engine}"
+    if engine == "df64":
+        args = (footprint, ndims)
+    else:
+        args = (footprint, ndims, group, I8_ROUTES.index(i8_route(footprint, group)))
+    rc = _fn(source, "_info")(*args, got)
+    if rc != 0:
+        raise RuntimeError(f"{source} info failed: CUDA error {rc}")
+    return dict(zip(("registers", "shared_bytes", "local_bytes", "blocks_per_sm"), got))

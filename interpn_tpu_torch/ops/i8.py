@@ -30,8 +30,14 @@ returns in float64 (`base + c0 * wsum`).
   minus one at an exact power of two), in the plain version and the kernel
   alike, where the JAX package calls `jnp.log2`.
 
-`contract` is K9's wrapper: on a CPU tensor it runs `plain_i8`, on a CUDA
-tensor it launches `csrc/fused_i8.cu` (`ops/fused.py::launch_i8`) or raises.
+`eval_regular` and `eval_rectilinear` are K9's wrappers: on CPU tensors
+they run the plain chain (`plain_regular`, `plain_rectilinear`:
+`df64.weights_f64`, `contract`, which is `plain_i8`, and `(oh + ol) + c0 *
+wsum`); on CUDA tensors they launch `csrc/fused_i8.cu`
+(`ops/fused.py::launch_i8`), which builds the weights itself, quantizes
+them and forms the piece products from the same cell-major pieces, by
+`__dp4a` for a small trailing stencil and on the int8 tensor cores for a
+larger one (`ops/fused.py::i8_route`), or raise.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from .df64 import (
     FOOTPRINT,
     TableCache,
     _df_add,
+    _flat,
     host_array,
     _df_mul,
     _stencil_offsets,
@@ -305,38 +312,61 @@ def plain_i8(dims, footprint, locs, wh, wl, pieces, ch, cl, sv):
 
 
 def contract(dims, footprint, locs, wh, wl, pieces, ch, cl, sv):
-    """K9's wrapper: (oh, ol) float32 (n,). A CPU tensor runs `plain_i8`; a
-    CUDA tensor launches `csrc/fused_i8.cu` or raises."""
-    dims = tuple(int(d) for d in dims)
-    if _fused._device((locs, wh, wl, pieces, ch, cl, sv)).type == "cpu":
-        return plain_i8(dims, footprint, locs, wh, wl, pieces, ch, cl, sv)
-    return _fused.launch_i8(dims, footprint, _choose_group(dims), locs, wh, wl, pieces,
-                            ch, cl, sv)
+    """The contraction step of the plain chain: `plain_i8`, (oh, ol) float32
+    (n,) on the tensors' device."""
+    return plain_i8(tuple(int(d) for d in dims), footprint, locs, wh, wl, pieces, ch, cl, sv)
 
 
-def _eval(dims, starts, steps, grids, vals, obs, method, linearize, prep):
-    if prep is None:
-        prep = prepare(dims, vals)
+def _prep(dims, vals, prep):
+    prep = prepare(dims, vals) if prep is None else prep
     if prep is None:
         raise ValueError("the int8 engine needs a table with finite entries")
-    pieces, ch, cl, sv, c0 = prep
+    return prep
+
+
+def _plain(dims, starts, steps, grids, vals, obs, method, linearize, prep):
+    pieces, ch, cl, sv, c0 = _prep(dims, vals, prep)
     locs, wh, wl, wsum = weights_f64(dims, starts, steps, grids, obs, method, linearize)
     oh, ol = contract(dims, FOOTPRINT[method], locs, wh, wl, pieces, ch, cl, sv)
     return (oh.to(_F64) + ol.to(_F64)) + c0 * wsum
 
 
+def plain_regular(dims, starts, steps, vals, obs, method, linearize=True, prep=None):
+    """K9's plain version on a regular grid: the float64 weights, the
+    contraction and `(oh + ol) + c0 * wsum`, in torch on the tensors'
+    device."""
+    dims = tuple(int(d) for d in dims)
+    return _plain(dims, starts, steps, None, vals, obs, method, linearize, prep)
+
+
+def plain_rectilinear(grids, vals, obs, method, linearize=True, prep=None):
+    """K9's plain version on a rectilinear grid."""
+    dims = tuple(int(g.shape[0]) for g in grids)
+    return _plain(dims, None, None, grids, vals, obs, method, linearize, prep)
+
+
 def eval_regular(dims, starts, steps, vals, obs, method, linearize=True, prep=None):
     """int8-multipass f64 evaluation on a regular grid (linear or cubic,
     2-8D): the counterpart of `pallas_i8.eval_regular`. `prep` is
-    `prepare(dims, vals)`, where the caller has it. Returns (n,) float64."""
+    `prepare(dims, vals)`, where the caller has it. Returns (n,) float64:
+    the plain chain on CPU tensors, one launch of K9 on CUDA tensors."""
     dims = tuple(int(d) for d in dims)
-    return _eval(dims, starts, steps, None, vals, obs, method, linearize, prep)
+    obs = _flat(obs)
+    if _fused._device((vals, starts, steps, *obs)).type == "cpu":
+        return plain_regular(dims, starts, steps, vals, obs, method, linearize, prep)
+    return _fused.launch_i8("regular", dims, (starts, steps), _prep(dims, vals, prep), obs,
+                            FOOTPRINT[method], linearize, _choose_group(dims))
 
 
 def eval_rectilinear(grids, vals, obs, method, linearize=True, prep=None):
     """int8-multipass f64 evaluation on a rectilinear grid."""
+    grids = tuple(grids)
+    obs = _flat(obs)
     dims = tuple(int(g.shape[0]) for g in grids)
-    return _eval(dims, None, None, grids, vals, obs, method, linearize, prep)
+    if _fused._device((vals, *grids, *obs)).type == "cpu":
+        return plain_rectilinear(grids, vals, obs, method, linearize, prep)
+    return _fused.launch_i8("rectilinear", dims, grids, _prep(dims, vals, prep), obs,
+                            FOOTPRINT[method], linearize, _choose_group(dims))
 
 
 def supported(dims, method) -> bool:

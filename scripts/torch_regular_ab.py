@@ -41,6 +41,26 @@ Each case of RECT_CASES (jittered axes on [0, 10]) times both checkouts'
 `eval_rectilinear` so, parts 1 and 2 without the other routes. One line
 per case, then the card's name and power limit and one JSON object of
 every time; exits non-zero without a CUDA device.
+
+    PYTHONPATH=. python3 scripts/torch_regular_ab.py --parent DIR --engines
+
+times the f64 engines K8 and K9 (`INTERPN_TPU_F64=df64|i8`) instead, on
+the ten engine paths of `chip_smoke.py` (its tables and grids, 20 batches
+of 1e6 queries uniform in [-0.5, 10.5]), each checkout building only its
+two engine sources. On each path, in turns (earlier, this, this, earlier):
+the kernel alone (the earlier checkout's wrapper on weights built
+beforehand; this checkout's one launch from the queries, which is its
+whole call less host), the whole call (each checkout's
+`ops.df64.eval_*` / `ops.i8.eval_*`: weights, kernel, recombination) by
+CUDA events over 4 batches, the op a user calls back to back (median of
+ten passes, host included), and the `raw` entry (the op for a spline) from
+CUDA tensors on the host clock; this checkout's result bitwise equal to the
+earlier one's; the registers, local bytes and blocks an SM of this
+checkout's instantiation (`ops.fused.engine_info`) and the registers and
+stack frame of the earlier one's (its ptxas log). An earlier checkout whose
+kernels build the weights too (it has `ops.fused.i8_route`), such as a copy
+of this one with a variant of a kernel, is timed by its whole call on both
+sides. `--paths TEXT` keeps the paths whose label holds TEXT.
 """
 
 from __future__ import annotations
@@ -50,6 +70,7 @@ import importlib
 import importlib.util
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -65,6 +86,7 @@ from interpn_tpu_torch.ops import fused
 from interpn_tpu_torch.utils.profiling import cuda_time
 
 SOURCES = ("fused_regular", "fused_regular_stack", "fused_rectilinear")
+ENGINE_SOURCES = ("fused_df64", "fused_i8")
 N, BATCHES, LO, HI = 1_000_000, 20, -0.5, 10.5
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 # (method, points an axis, ndims, dtype, tables of a stack or None, the
@@ -311,10 +333,169 @@ def case_times(case, earlier, cuda) -> dict:
     return entry
 
 
+def engine_paths(only=None):
+    import chip_smoke as cs
+
+    return [p for p in cs.PATHS if p.engine and (only is None or only in p.label)]
+
+
+def engine_fns(port, p, grid):
+    """A checkout's whole engine call (`ops.df64.eval_*` / `ops.i8.eval_*`)
+    on `chip_smoke.path_grid`'s tensors, fn(obs)."""
+    ops = importlib.import_module(f"{port}.ops")
+    module = ops.df64 if p.engine == "df64" else ops.i8
+    dims = (p.n,) * p.ndims
+    if p.kind == "bspline":
+        return lambda ob: module.eval_bspline(grid[0], grid[1], ob, p.k)
+    if p.kind == "regular":
+        return lambda ob: module.eval_regular(dims, *grid, ob, p.method)
+    return lambda ob: module.eval_rectilinear(*grid, ob, p.method)
+
+
+def earlier_kernel(p, grid):
+    """The earlier checkout's kernel alone: its wrapper (`contract`) and a
+    function of a batch that builds the wrapper's arguments beforehand; for
+    a checkout whose kernels build the weights, its whole call."""
+    ops = importlib.import_module("earlier_port.ops")
+    if hasattr(ops.fused, "i8_route"):
+        return engine_fns("earlier_port", p, grid), lambda ob: ob
+    df64, i8 = ops.df64, ops.i8
+    dims = (p.n,) * p.ndims
+    fp = df64.FOOTPRINT[p.k if p.kind == "bspline" else p.method]
+
+    def args(ob):
+        if p.kind == "bspline":
+            w, table = df64.spline_weights_f64(grid[0], ob, p.k), grid[1]
+        elif p.kind == "regular":
+            w, table = df64.weights_f64(dims, grid[0], grid[1], None, ob, p.method), grid[2]
+        else:
+            w, table = df64.weights_f64(dims, None, None, grid[0], ob, p.method), grid[1]
+        prep = df64.table_split(table)[:2] if p.engine == "df64" else i8.prepare(dims, table)[:4]
+        return (dims, fp, *w[:3], *prep)
+
+    contract = df64.contract if p.engine == "df64" else i8.contract
+    return (lambda a: contract(*a)), args
+
+
+def earlier_info(p) -> dict:
+    """Registers and stack frame of the earlier checkout's instantiation
+    for the path, from its ptxas log."""
+    build = importlib.import_module("earlier_port._build")
+    source = f"fused_{p.engine}"
+    log = build.library_path(source).with_suffix(".log").read_text()
+    fp = {"linear": 2, "cubic": 4}.get(p.method, p.k + 1 if p.kind == "bspline" else 0)
+    g = ""
+    if p.engine == "i8":
+        g = f"Li{importlib.import_module('earlier_port.ops.i8')._choose_group((p.n,) * p.ndims)}E"
+    m = re.search(rf"{p.engine}_kernelILi{p.ndims}ELi{fp}E{g}\S*' for \S+\n[^\n]*\n\s+(\d+) "
+                  r"bytes stack frame[^\n]*\n[^\n]*Used (\d+) registers", log)
+    return {"registers": int(m.group(2)), "stack_bytes": int(m.group(1))} if m else {}
+
+
+def engine_times(p, cuda) -> dict:
+    """The --engines measurements of one engine path."""
+    import chip_smoke as cs
+
+    grid = cs.path_grid(p, cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(p.n * 10 + p.ndims)
+    main = [tuple(torch.rand(N, generator=gen, device=cuda, dtype=torch.float64) * (HI - LO) + LO
+                  for _ in range(p.ndims)) for _ in range(BATCHES)]
+    whole = {"earlier": engine_fns("earlier_port", p, grid),
+             "this": engine_fns("interpn_tpu_torch", p, grid)}
+    kern_e, args = earlier_kernel(p, grid)
+    cs.bitwise(whole["this"](main[0]), whole["earlier"](main[0]), f"{p.label}: this vs earlier")
+    entry = {"case": p.label, "route": "this", "kernel_ms": {}, "whole_ms": {}, "ahead": {},
+             "loop_ms": {}, "issue_ms": {}, "raw_ms": {}}
+    prebuilt = [args(b) for b in main]
+    for side in ("earlier", "this", "this", "earlier"):
+        t = (cuda_time(kern_e, prebuilt) if side == "earlier"
+             else cuda_time(whole["this"], main))
+        entry["kernel_ms"].setdefault(side, []).append(t.device_ms)
+    del prebuilt
+    for side in ("earlier", "this", "this", "earlier"):
+        t = cuda_time(whole[side], main[:4])
+        entry["whole_ms"].setdefault(side, []).append(t.device_ms)
+        entry["ahead"].setdefault(side, []).append(t.ahead)
+    ports = {"earlier": "earlier_port", "this": "interpn_tpu_torch"}
+    with cs.f64_engine(p.engine):
+        ops_fn = {side: cs_op(port, p, grid) for side, port in ports.items()}
+        raw_fn = {side: cs_raw(port, p, grid) for side, port in ports.items()}
+        for side in ("earlier", "this", "this", "earlier"):
+            loop, issue = back_to_back(ops_fn[side], main)
+            entry["loop_ms"].setdefault(side, []).extend(loop)
+            entry["issue_ms"].setdefault(side, []).extend(issue)
+        for side in ("earlier", "this", "this", "earlier"):
+            for b in main[:2]:
+                raw_fn[side](b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in main:
+                raw_fn[side](b)
+            torch.cuda.synchronize()
+            entry["raw_ms"].setdefault(side, []).append((time.perf_counter() - t0) * 1e3 / BATCHES)
+    fp = 2 if p.method == "linear" else (p.k + 1 if p.kind == "bspline" else 4)
+    g = importlib.import_module("interpn_tpu_torch.ops.i8")._choose_group((p.n,) * p.ndims)
+    entry["info"] = {"this": fused.engine_info(p.engine, fp, p.ndims, g),
+                     "earlier": earlier_info(p)}
+    return entry
+
+
+def cs_op(port, p, grid):
+    """A checkout's op under INTERPN_TPU_F64 (`ops.<method>_<kind>`,
+    `ops.bspline_eval`), fn(obs)."""
+    ops = importlib.import_module(f"{port}.ops")
+    dims = (p.n,) * p.ndims
+    if p.kind == "bspline":
+        return lambda ob: ops.bspline_eval(*grid, ob, p.k)
+    fn = getattr(ops, f"{p.method}_{p.kind}")
+    lin = (True,) if p.method == "cubic" else ()
+    if p.kind == "regular":
+        return lambda ob: fn(dims, *grid, ob, *lin)
+    return lambda ob: fn(*grid, ob, *lin)
+
+
+def cs_raw(port, p, grid):
+    """A checkout's `raw` entry from CUDA tensors into a preallocated out
+    (the op for a spline), fn(obs)."""
+    if p.kind == "bspline":
+        return cs_op(port, p, grid)
+    raw = importlib.import_module(f"{port}.raw")
+    fn = getattr(raw, f"interpn_{p.method}_{p.kind}_f64")
+    out = torch.empty(N, dtype=torch.float64, device=grid[-1].device)
+    lin = (True,) if p.method == "cubic" else ()
+    head = ((np.array([p.n] * p.ndims), *grid[:2], grid[2]) if p.kind == "regular"
+            else (list(grid[0]), grid[1]))
+    return lambda ob: fn(*head, *lin, list(ob), out)
+
+
+def print_engine(entry, smi) -> None:
+    best = {k: min(v) for k, v in entry["kernel_ms"].items()}
+    whole = {k: min(v) for k, v in entry["whole_ms"].items()}
+    info = "; ".join(f"{k} " + "/".join(str(v) for v in i.values())
+                     for k, i in entry["info"].items())
+    print(f"{entry['case']} [{smi}]: kernel ms, best of two: earlier {best['earlier']:.4f} "
+          f"(on prebuilt weights), this {best['this']:.4f} (one launch from the queries); "
+          f"whole call by events over 4 batches, best of two: earlier {whole['earlier']:.4f}, "
+          f"this {whole['this']:.4f} (head start held: {entry['ahead']}), "
+          f"{whole['earlier'] / whole['this']:.1f}x; the op back to back, median of 10 "
+          "passes: " + ", ".join(f"{k} {statistics.median(v):.4f}"
+                                 for k, v in entry["loop_ms"].items())
+          + "; host ms/call: " + ", ".join(f"{k} {statistics.median(v):.4f}"
+                                           for k, v in entry["issue_ms"].items())
+          + "; raw from CUDA tensors, best of two: " + ", ".join(
+              f"{k} {min(v):.4f}" for k, v in entry["raw_ms"].items())
+          + f"; this registers/shared bytes/local bytes/blocks an SM, earlier registers/"
+          f"stack bytes: {info}", flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, required=True,
                         help="root of the earlier checkout")
+    parser.add_argument("--engines", action="store_true",
+                        help="time the f64 engines K8 and K9 instead")
+    parser.add_argument("--paths", help="engine paths whose label holds this text only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_regular_ab: torch.cuda.is_available() is False; needs a CUDA device")
@@ -322,9 +503,18 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     earlier = load_earlier(args.parent.resolve())
+    sources = ENGINE_SOURCES if args.engines else SOURCES
     with ThreadPoolExecutor(2) as pool:
-        for built in [pool.submit(b.build_all, SOURCES) for b in (_build, earlier._build)]:
+        for built in [pool.submit(b.build_all, sources) for b in (_build, earlier._build)]:
             built.result()
+    if args.engines:
+        record = []
+        for p in engine_paths(args.paths):
+            record.append(engine_times(p, cuda))
+            print_engine(record[-1], smi)
+        print(smi)
+        print(json.dumps({"card": smi, "engines": record}))
+        return
     record = []
     for entry in itertools.chain((case_times(c, earlier, cuda) for c in CASES),
                                  (rect_times(c, earlier, cuda) for c in RECT_CASES)):

@@ -341,6 +341,8 @@ def test_forced_engines_cache_numpy_tables_by_content(counted, monkeypatch, engi
     preps = []
     route = dispatch.f64_route
     monkeypatch.setattr(dispatch, "f64_route", lambda *a: preps.append(route(*a)) or preps[-1])
+    for cache in (df64._SPLITS, i8._PREPS):
+        monkeypatch.setattr(cache, "entries", {})
     starts, steps, vals, obs = _regular((6, 5, 7), seed=7, n=64)
     grids = [starts[k] + steps[k] * np.arange(d) for k, d in enumerate((6, 5, 7))]
     for _ in range(2):
@@ -348,9 +350,13 @@ def test_forced_engines_cache_numpy_tables_by_content(counted, monkeypatch, engi
                                       obs, np.zeros(64))
         interpn(obs, grids, vals.copy(), method="cubic_spline")
     assert counted == [engine, "df64"] * 2
-    table, spline = preps[0::2], preps[1::2]
-    assert table[0][0] == engine and table[1][1] is table[0][1]
-    assert spline[0][0] == "df64" and spline[1][1] is spline[0][1]
+    assert [p[0] for p in preps] == [engine, "df64"] * 2
+    if engine == "i8":
+        assert preps[2][1]["prep"] is preps[0][1]["prep"]
+    # one preparation a table, kept across the calls: the table's split
+    # (df64) or decomposition (i8), and the spline coefficients' split
+    assert len(df64._SPLITS.entries) == (2 if engine == "df64" else 1)
+    assert len(i8._PREPS.entries) == (engine == "i8")
     for cache in (df64._SPLITS, i8._PREPS):
         assert all(e[0] is None for k, e in cache.entries.items() if k[0] == "h")
 
@@ -370,3 +376,42 @@ def test_forced_engine_grads_are_the_gather_trees(counted, monkeypatch, engine):
     cubic.cubic_regular((6, 5, 7), *ref[:3], ref[3:], True).backward(cot)
     for a, b in zip(leaves, ref):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-13, atol=1e-13)
+
+
+ENTRY_CASES = [("regular", (8, 12), "linear", 1e-13), ("regular", (10, 10, 10), "cubic", 1e-13),
+               ("rectilinear", (9, 8, 10), "cubic", 1e-13), ("regular", (6,) * 6, "cubic", 5e-12),
+               ("bspline", (9, 8, 10), 3, 1e-13)]
+
+
+@pytest.mark.parametrize("kind,dims,method,tol", ENTRY_CASES, ids=str)
+def test_entries_on_cpu_run_the_plain_chain(kind, dims, method, tol):
+    """K8's entries (`eval_regular`, `eval_rectilinear`, `eval_bspline`) on
+    CPU tensors are the plain chain bit for bit, launch nothing, and hold
+    the JAX engine's bar (the spline's scaled by its largest coefficient,
+    queries inside the grid, as `test_plain_matches_jax_bspline`)."""
+    rng = np.random.default_rng(sum(dims))
+    vals = rng.standard_normal(math.prod(dims))
+    before = dict(fused.launches)
+    scale = 1.0
+    if kind == "regular":
+        starts, steps, vals, obs = _regular(dims, seed=sum(dims), n=120, depth=1.0)
+        args = (dims, *_t((starts, steps, vals)), _t(obs), method, True)
+        got, plain = df64.eval_regular(*args), df64.plain_regular(*args)
+        want = jdf.eval_regular(dims, *_j((starts, steps, vals)), _j(obs), method, True)
+    elif kind == "rectilinear":
+        grids = [np.cumsum(0.2 + rng.random(d)) for d in dims]
+        obs = [rng.uniform(g[0], g[-1], 120) for g in grids]
+        args = (_t(grids), torch.from_numpy(vals), _t(obs), method, True)
+        got, plain = df64.eval_rectilinear(*args), df64.plain_rectilinear(*args)
+        want = jdf.eval_rectilinear(_j(grids), jnp.asarray(vals), _j(obs), method)
+    else:
+        grids = [np.cumsum(0.2 + rng.random(d)) for d in dims]
+        knots, coeffs = bspline.prep_bspline(grids, vals, method)
+        obs = [rng.uniform(g[0], g[-1], 120) for g in grids]
+        args = (_t(knots), torch.from_numpy(coeffs), _t(obs), method)
+        got, plain = df64.eval_bspline(*args), df64.plain_bspline(*args)
+        want = jdf.eval_bspline(_j(knots), jnp.asarray(coeffs), _j(obs), method)
+        scale = max(float(np.abs(coeffs).max()), 1.0)
+    assert fused.launches == before
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol * scale)

@@ -678,19 +678,33 @@ def test_timer_lets_exceptions_through(cuda):
 # --- the f64 contraction engines (K8, K9) -------------------------------------------
 
 
-def _engine_inputs(kind, dims, method, lin, device, n, seed):
-    """(locs, wh, wl, vals) of K8/K9 for a random grid of `kind` with
-    random_case-like queries (NaN and +-inf mixed in), all on `device`."""
+def _engine_calls(engine, kind, dims, method, lin, device, n, seed):
+    """(the engine's wrapper, its plain chain) on one random grid of `kind`
+    with `_case`-like queries (NaN and +-inf mixed in), all on `device`:
+    each a function of nothing returning the (n,) float64 result."""
+    module = df64 if engine == "df64" else i8
     if kind == "regular":
-        dims_, st, sp, vals, obs = _case(dims, torch.float64, device, n, seed)
-        locs, wh, wl, _ = df64.weights_f64(dims, st, sp, None, obs, method, lin)
-    elif kind == "rectilinear":
-        grids, vals, obs = _rect_case(dims, torch.float64, device, n, seed)
-        locs, wh, wl, _ = df64.weights_f64(dims, None, None, grids, obs, method, lin)
-    else:
-        kt, vals, obs = _spline_case(dims, method, torch.float64, device, n, seed=seed)
-        locs, wh, wl, _ = df64.spline_weights_f64(kt, obs, method)
-    return locs, wh, wl, vals
+        args = (dims, *_case(dims, torch.float64, device, n, seed)[1:], method, lin)
+        return (lambda: module.eval_regular(*args)), (lambda: module.plain_regular(*args))
+    if kind == "rectilinear":
+        args = (*_rect_case(dims, torch.float64, device, n, seed), method, lin)
+        return (lambda: module.eval_rectilinear(*args)), (lambda: module.plain_rectilinear(*args))
+    args = (*_spline_case(dims, method, torch.float64, device, n, seed=seed), method)
+    return (lambda: df64.eval_bspline(*args)), (lambda: df64.plain_bspline(*args))
+
+
+def _one_launch_equal(monkeypatch, engine, kern, plain):
+    """The wrapper launches its kernel once and builds no weights in torch;
+    its result is the plain chain's, bit for bit."""
+    built = []
+    for module, name in ((df64, "weights_f64"), (df64, "spline_weights_f64"),
+                         (i8, "weights_f64")):
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, _f=fn: built.append(1) or _f(*a))
+    got = _launched(engine, kern)
+    assert not built
+    monkeypatch.undo()
+    _equal(got, plain())
 
 
 F64_CASES = [(kind, dims, method, lin)
@@ -703,44 +717,63 @@ F64_CASES = [(kind, dims, method, lin)
 
 @pytest.mark.parametrize("kind,dims,method,lin", F64_CASES,
                          ids=[f"{k}-{m}-{lin}-{len(d)}d" for k, d, m, lin in F64_CASES])
-def test_df64_kernel_equals_plain(cuda, kind, dims, method, lin):
-    locs, wh, wl, vals = _engine_inputs(kind, dims, method, lin, cuda, _n(dims, 20_000), 3)
-    vh, vl, finite = df64.table_split(vals)
-    fp = df64.FOOTPRINT[method]
-    got = _launched("df64", lambda: df64.contract(dims, fp, locs, wh, wl, vh, vl))
-    want = df64.plain_df64(dims, fp, locs, wh, wl, vh, vl)
-    assert finite
-    for g, w in zip(got, want):
-        _equal(g, w)
+def test_df64_kernel_equals_plain(cuda, monkeypatch, kind, dims, method, lin):
+    """K8's one launch (weights, contraction, recombination) against the
+    plain chain, with extrapolated, NaN and +-inf queries."""
+    kern, plain = _engine_calls("df64", kind, dims, method, lin, cuda, _n(dims, 20_000), 3)
+    _one_launch_equal(monkeypatch, "df64", kern, plain)
 
 
 @pytest.mark.parametrize("dims", DIMS[1:], ids=lambda d: f"{len(d)}d")
 @pytest.mark.parametrize("k", [3, 5])
-def test_df64_spline_kernel_equals_plain(cuda, dims, k):
+def test_df64_spline_kernel_equals_plain(cuda, monkeypatch, dims, k):
     dims = tuple(max(d, k + 1) for d in dims)
-    locs, wh, wl, coeffs = _engine_inputs("bspline", dims, k, True, cuda,
-                                          max(64, min(20_000, 2**24 // (k + 1) ** len(dims))), 4)
-    vh, vl, _ = df64.table_split(coeffs)
-    got = _launched("df64", lambda: df64.contract(dims, k + 1, locs, wh, wl, vh, vl))
-    for g, w in zip(got, df64.plain_df64(dims, k + 1, locs, wh, wl, vh, vl)):
-        _equal(g, w)
+    n = max(64, min(20_000, 2**24 // (k + 1) ** len(dims)))
+    kern, plain = _engine_calls("df64", "bspline", dims, k, True, cuda, n, 4)
+    _one_launch_equal(monkeypatch, "df64", kern, plain)
+
+
+@pytest.mark.parametrize("scale", [2.0**115, 2.0**117, 2.0**-100, 2.0**-120])
+@pytest.mark.parametrize("method", ["linear", "cubic"])
+def test_df64_at_the_float_range_edges(cuda, monkeypatch, scale, method):
+    """K8 where TwoProd's error from one FMA would part from Dekker's
+    product (a split of 4097 a overflowing from 2^116, partial products
+    underflowing below 2^-103): tables scaled there, ordinary entries
+    beside them, bitwise equal to the plain chain."""
+    dims = (9, 8, 10)
+    _, st, sp, vals, obs = _case(dims, torch.float64, cuda, 5000, seed=8)
+    vals = vals * scale
+    vals[::7] /= scale
+    args = (dims, st, sp, vals, obs, method, True)
+    _one_launch_equal(monkeypatch, "df64", lambda: df64.eval_regular(*args),
+                      lambda: df64.plain_regular(*args))
 
 
 I8_CASES = [(kind, dims, method, lin)
             for dims in DIMS[1:] + [(12, 12, 12, 12)]
             for kind, method, lin in (("regular", "linear", True), ("regular", "cubic", True),
+                                      ("regular", "cubic", False),
                                       ("rectilinear", "cubic", False))]
 
 
 @pytest.mark.parametrize("kind,dims,method,lin", I8_CASES,
                          ids=[f"{k}-{m}-{lin}-{'x'.join(map(str, d))}" for k, d, m, lin in I8_CASES])
-def test_i8_kernel_equals_plain(cuda, kind, dims, method, lin):
-    locs, wh, wl, vals = _engine_inputs(kind, dims, method, lin, cuda, _n(dims, 5_000), 5)
-    pieces, ch, cl, sv, _ = i8.prepare(dims, vals)
-    fp = df64.FOOTPRINT[method]
-    got = _launched("i8", lambda: i8.contract(dims, fp, locs, wh, wl, pieces, ch, cl, sv))
-    for g, w in zip(got, i8.plain_i8(dims, fp, locs, wh, wl, pieces, ch, cl, sv)):
-        _equal(g, w)
+def test_i8_kernel_equals_plain(cuda, monkeypatch, kind, dims, method, lin):
+    """K9's one launch (weights, quantization, piece products by `__dp4a`
+    up to 16 trailing entries and on the int8 tensor cores above,
+    recombination) against the plain chain."""
+    kern, plain = _engine_calls("i8", kind, dims, method, lin, cuda, _n(dims, 5_000), 5)
+    _one_launch_equal(monkeypatch, "i8", kern, plain)
+
+
+def test_engine_instantiations_keep_off_local_arrays(cuda):
+    """K9's instantiations of the engine paths hold no per-entry array in
+    local memory (the first K9 kept 656-8,464 bytes of weight pieces a
+    thread there from 64 trailing entries): at most a spill slot or two at
+    E = 4, 16 and 64."""
+    frames = {(fp, nd): fused.engine_info("i8", fp, nd, i8._choose_group((n,) * nd))
+              ["local_bytes"] for fp, n, nd in ((2, 20, 3), (4, 20, 3), (4, 12, 5))}
+    assert max(frames.values()) <= 512, frames
 
 
 def test_forced_engines_route_and_agree(cuda, monkeypatch):

@@ -179,3 +179,29 @@ def test_prepare_cached_and_refuses_nonfinite():
         i8.eval_regular((10, 10, 10), torch.zeros(3, dtype=torch.float64),
                         torch.ones(3, dtype=torch.float64), t,
                         tuple(torch.zeros(4, dtype=torch.float64) for _ in range(3)), "linear")
+
+
+@pytest.mark.parametrize("kind,dims,method", [("regular", (12, 12), "linear"),
+                                              ("regular", (10, 10, 10), "cubic"),
+                                              ("rectilinear", (9, 8, 10), "cubic")], ids=str)
+def test_entries_on_cpu_run_the_plain_chain(kind, dims, method):
+    """K9's entries on CPU tensors are the plain chain bit for bit, launch
+    nothing, and hold the JAX engine's 1e-13 (queries up to one cell past
+    each side)."""
+    rng = np.random.default_rng(sum(dims) + 1)
+    before = dict(fused.launches)
+    if kind == "regular":
+        starts, steps, vals, obs = _regular(dims, seed=sum(dims) + 1, n=120, depth=1.0)
+        args = (dims, *_t((starts, steps, vals)), _t(obs), method, True)
+        got, plain = i8.eval_regular(*args), i8.plain_regular(*args)
+        want = ji8.eval_regular(dims, *_j((starts, steps, vals)), _j(obs), method, True)
+    else:
+        grids = [np.cumsum(0.2 + rng.random(d)) for d in dims]
+        vals = rng.standard_normal(math.prod(dims))
+        obs = [rng.uniform(g[0], g[-1], 120) for g in grids]
+        args = (_t(grids), torch.from_numpy(vals), _t(obs), method, True)
+        got, plain = i8.eval_rectilinear(*args), i8.plain_rectilinear(*args)
+        want = ji8.eval_rectilinear(_j(grids), jnp.asarray(vals), _j(obs), method)
+    assert fused.launches == before
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13, atol=1e-13)
