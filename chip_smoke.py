@@ -13,19 +13,25 @@ call computes the same function, that call.
 
     python3 chip_smoke.py
 
-Phases: 1 build (seconds, registers, spills; for K1/K5 also shared memory
-and blocks an SM of every instantiation), 2 kernel vs plain, bitwise
+Phases: 1 build (seconds, registers, spills; for K1/K5 and K2/K3/K6 also
+shared memory and blocks an SM of every instantiation), 2 kernel vs plain,
+bitwise
 (f32/f64, 1-8D, both cubic extrapolation modes, spline degrees 3 and 5,
 stacks of 1, 3 and 8, NaN and +-inf; K1's linear and nearest routes
 (staged, quads, direct) and cubic routes (staged, taps at 2D, four lanes
 on the taps from 3D, direct) under and over each cap, 100^3 and tables at
-odd offsets; the two packs and the interleave; K8 and K9 on f64 2-8D, one
+odd offsets; the two packs and the interleave; K2/K6's cubic routes
+(staged, staged tables, taps, interleaved, direct) at and over each cap,
+on tables holding a NaN and infinities, at every node, and at the bench
+paths in both modes and dtypes; K8 and K9 on f64 2-8D, one
 launch each from the queries against the plain chain that builds the
 float64 weights in torch, and K8 at the float range's edges), 3 nodes
 (exact, splines within 1e-11, K8 to the table's hi + lo, K9 within
 1e-13), 4 the paths (launch counts, the quads route's pack and the taps
-routes' cubic pack beside K1 and the interleave beside K5, no torch weight
-build on an engine path, and checks), 5 timing: each kernel from CUDA
+routes' cubic pack beside K1 and the interleave beside K5, the cubic pack
+beside K2 at 100^3, no torch weight build on an engine path, the route of
+each grid kernel, and checks; rectilinear cubic also against the gather
+tree at f32 1e-4, f64 1e-13), 5 timing: each kernel from CUDA
 events behind a head start (`utils/profiling.py::cuda_time`), each plain
 version from the profiler's device events (`profiled_time`), for K8/K9
 also the whole call through the op a user calls, and the three layout
@@ -58,8 +64,12 @@ N_CHECK = 100_000  # queries per kernel-vs-plain case (fewer for 5-8D cubic)
 N_BATCHES = 20  # distinct batches per timing of a kernel
 N_PLAIN = 5  # of them for the plain version, whose profile holds ~1-3k events a call
 N_REF = 2000  # queries held against the float64 numpy reference
+N_NODES = 20_000  # grid nodes at most a table in the rectilinear routes' node check
 LO, HI = -0.5, 10.5  # query range: the [0, 10] grid plus extrapolation
 TOL = {torch.float32: 1e-6, torch.float64: 1e-13}  # rtol = atol, kernel vs plain
+# rtol = atol, a weight contraction vs the gather tree: the JAX package's
+# bars (tests/test_pallas_v3.py, tests/test_pallas_df64.py)
+GATHER_TOL = {torch.float32: 1e-4, torch.float64: 1e-13}
 REF_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4), torch.float64: dict(rtol=1e-10, atol=1e-10)}
 CHECK_DIMS = [(50,), (20,) * 2, (20,) * 3, (12,) * 4, (8,) * 5, (6,) * 6, (5,) * 7, (4,) * 8]
 STACKS = (1, 3, 8)  # tables per stack in phase 2, in turn
@@ -91,13 +101,23 @@ class Path:
         kernel, once a call: the layout kernel of its route (the quads
         route's pack, the taps routes' cubic pack, the interleaved route's
         interleave)."""
+        if self.engine or self.kind == "bspline":
+            return None
         from interpn_tpu_torch.ops import fused
 
-        if self.engine or self.kind != "regular":
+        return (fused.LAYOUTS if self.kind == "regular" else fused.RECT_LAYOUTS).get(self.route)
+
+    @property
+    def route(self) -> str | None:
+        """The layout its kernel reads (`fused.regular_route`,
+        `fused.rectilinear_route`); None for a spline or an engine path."""
+        if self.engine or self.kind == "bspline":
             return None
-        route = fused.regular_route((self.n,) * self.ndims, self.dtype, self.method,
-                                    NCH if self.stacked else None)
-        return fused.LAYOUTS.get(route)
+        from interpn_tpu_torch.ops import fused
+
+        choose = fused.regular_route if self.kind == "regular" else fused.rectilinear_route
+        return choose((self.n,) * self.ndims, self.dtype, self.method,
+                      NCH if self.stacked else None)
 
     @property
     def native(self) -> "Path":
@@ -202,13 +222,26 @@ def replaces(p: Path) -> str:
     return REPLACES.get(p.kernel, REPLACES[f"{p.kind}{stack}"])
 
 
-def served(method: str, route: str, stacked: bool, ndims: int) -> bool:
+def served(method: str, route: str, stacked: bool, ndims: int, family="regular") -> bool:
     """Whether K1 (K5 where `stacked`) has an instantiation for the method
     on the route (csrc/regular.cuh::serves): staged serves linear and
     single-table cubic, quads single-table linear, interleaved the linear
-    and nearest stacks, taps single-table cubic at 2D, tap lanes from 3D."""
+    and nearest stacks, taps single-table cubic at 2D, tap lanes from 3D.
+    For the rectilinear `family`, K2 (K6) (csrc/rectilinear.cuh::rect_serves):
+    direct every method; staged cubic; staged tables and interleaved the
+    cubic stacks; taps single-table cubic from 2D."""
     from interpn_tpu_torch.ops import fused
 
+    if family == "rectilinear":
+        if route == "direct":
+            return True
+        if method != "cubic":
+            return False
+        if route == "taps":
+            return not stacked and ndims >= 2
+        return route == "staged" or (stacked and route in ("staged_tables", "interleaved"))
+    if route == "staged_tables":
+        return False
     if route == "staged":
         return method == "linear" or (method == "cubic" and not stacked)
     if route == "quads":
@@ -353,14 +386,8 @@ def kernel_and_plain(kind, method, lin=True):
     def kern(g, v, ob, dims=None):
         return fused.eval_rectilinear(g, v, ob, method, lin)
 
-    if method == "cubic":
-        def plain(g, v, ob, dims=None):
-            return cubic.cubic_rectilinear(g, v, ob, lin)
-    else:
-        fn = linear.linear_rectilinear if method == "linear" else nearest.nearest_rectilinear
-
-        def plain(g, v, ob, dims=None):
-            return fn(g, v, ob)
+    def plain(g, v, ob, dims=None):
+        return fused.plain_rectilinear(g, v, ob, method, lin)
     return kern, plain
 
 
@@ -586,22 +613,58 @@ def spline_reference(axes, vals, obs, k):
 # --- bounds ----------------------------------------------------------------------
 
 
-def operations_per_query(p: Path) -> int:
-    """IEEE operations (add, sub, mul, div, compare) one query needs in the
-    kernel's source: per axis its locate, then per table per tree node its
-    reduction (linear: one lerp, 3; cubic: the Hermite node, 17 regular and 27
-    with the nonuniform differences of a rectilinear grid; B-spline: per
+# Operations of one rectilinear cubic axis past its bisection, by the region
+# its coordinate falls in (`cubic_axis` and `RectUnitAxis` in
+# csrc/interp_common.cuh): the grid differences, the coordinate, the
+# difference weights, the reciprocals of the divisors and the two endpoint
+# compares, then the four weights, the node on each unit basis, counting no
+# operation on two constants, none that is a product with 0 or +-1 or a sum
+# with 0, and no quotient that a select takes from a reciprocal. Interior
+# cells: 17 + 51 (10, 16, 15 and 10 a weight); an edge cell, whose k1 comes
+# from dy and k0 and needs no a1, c1 or q1: 11 + 47; outside the grid with
+# linearized extrapolation, where the node is the line through y0 with
+# slope k1: 9 + 14. (The Hermite tree's count was 12 + 4 * 27.)
+RECT_AXIS_OPS = {"interior": 17 + 51, "edge": 11 + 47, "outside": 9 + 14}
+
+
+def rect_axis_operations(axes, obs, lin=True) -> float:
+    """RECT_AXIS_OPS summed over the axes, by the region of each coordinate
+    (`cubic_axis`: iloc = partition_point - 2), averaged over the queries
+    `obs`: what this run's data needs."""
+    total = 0.0
+    for g, x in zip(axes, obs):
+        d = g.numel()
+        iloc = torch.searchsorted(g, x.contiguous()) - 2
+        low = iloc <= -1
+        edge = low | (iloc >= d - 3)
+        outside = (iloc < -1) | (~low & (iloc > d - 3))
+        ops = torch.where(edge, RECT_AXIS_OPS["edge"], RECT_AXIS_OPS["interior"])
+        if lin:
+            ops = torch.where(outside, RECT_AXIS_OPS["outside"], ops)
+        total += ops.double().mean().item()
+    return total
+
+
+def operations_per_query(p: Path, obs=None) -> float:
+    """IEEE operations (add, sub, mul, div, compare) one query needs at
+    least: per axis its locate, then per table per tree node its reduction
+    (linear: one lerp, 3; regular cubic: the Hermite node, 17; B-spline: per
     axis the bisection of n + k + 1 knots and 7k(k+1)/2 for Cox-de Boor, per
-    table one multiply and one add per stencil entry)."""
+    table one multiply and one add per stencil entry). Rectilinear cubic:
+    per axis the bisection and `rect_axis_operations` on the queries `obs`
+    (linearized extrapolation), then per table a multiply and an add per
+    stencil entry, 2 * 4^N - 1, which is what the kernel computes."""
     nd = p.ndims
     if p.kind == "bspline":
         k = p.k
         per_axis = math.ceil(math.log2(p.n + 2 * k + 2)) + 7 * k * (k + 1) // 2
         return nd * per_axis + p.nch * (2 * (k + 1) ** nd - 1)
     search = math.ceil(math.log2(p.n + 1)) if p.kind == "rectilinear" else 0
+    if p.method == "cubic" and p.kind == "rectilinear":
+        axes = [torch.as_tensor(a, device=obs[0].device) for a in path_inputs(p)[0]]
+        return nd * search + rect_axis_operations(axes, obs) + p.nch * (2 * 4**nd - 1)
     if p.method == "cubic":
-        per_axis, per_node, nodes = (9, 17, (4**nd - 1) // 3) if p.kind == "regular" else \
-            (12 + search, 27, (4**nd - 1) // 3)
+        per_axis, per_node, nodes = 9, 17, (4**nd - 1) // 3
     else:
         per_axis = (7 if p.kind == "regular" else 3 + search) + (p.method == "nearest")
         per_node, nodes = (3, 2**nd - 1) if p.method == "linear" else (0, 0)
@@ -679,10 +742,11 @@ def engine_bytes(p: Path, n_queries: int) -> int:
     return n_queries * per_query + grid + table
 
 
-def bound(p: Path, n_queries: int) -> tuple[float, str]:
-    """The least time (ms) the card could take, and what bounds it: each
-    query coordinate, table entry and grid parameter (knot) read once and
-    each result written once at the HBM rate, against the operations at the
+def bound(p: Path, n_queries: int, obs=None) -> tuple[float, str]:
+    """The least time (ms) the card could take for `n_queries` queries
+    (rectilinear cubic: those of `obs`), and what bounds it: each query
+    coordinate, table entry and grid parameter (knot) read once and each
+    result written once at the HBM rate, against the operations at the
     dtype's peak rate (K8, K9: `engine_bytes` against `engine_operations`,
     float32, float64 and int8 each on their own units)."""
     if p.engine:
@@ -700,7 +764,7 @@ def bound(p: Path, n_queries: int) -> tuple[float, str]:
         grid_params = (p.n + p.k + 1) * p.ndims
     nbytes = (n_queries * (p.ndims + p.nch) + p.nch * p.n**p.ndims + grid_params) * item
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = n_queries * operations_per_query(p) / PEAK_OPS[p.dtype] * 1e3
+    t_ops = n_queries * operations_per_query(p, obs) / PEAK_OPS[p.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -721,20 +785,17 @@ def build_phase():
         if source in ("fused_df64", "fused_i8"):
             engine_build_log(source, ptxas, built)
             continue
-        if source.startswith("fused_regular"):
+        if source.startswith(("fused_regular", "fused_rectilinear")):
             regular_build_log(source, ptxas, built)
             continue
         table = {}
         for m in re.finditer(
             r"_kernelI([fd])Li(\d)ELi(\d)E\S*' for \S+\n[^\n]*\n\s+\d+ bytes stack frame, "
             r"(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers", ptxas):
-            t, nd, code, spill, regs = m.groups()  # code: the method, or the spline degree
-            spline = source.startswith("fused_bspline")
-            method = f"k={code}" if spline else fused.METHODS[int(code)]
-            table.setdefault((method, "f32" if t == "f" else "f64"), {})[int(nd)] = (
+            t, nd, k, spill, regs = m.groups()
+            table.setdefault((f"k={k}", "f32" if t == "f" else "f64"), {})[int(nd)] = (
                 int(regs), int(spill))
-        families = 4 if spline else 6
-        if len(table) != families or any(len(v) != 8 for v in table.values()):
+        if len(table) != 4 or any(len(v) != 8 for v in table.values()):
             raise AssertionError(f"{source}: unexpected kernels in the ptxas log: {table}")
         log(f"phase 1 build: {source}.cu {built} (one nvcc per source, all at once)")
         for (method, dt), by_nd in sorted(table.items()):
@@ -742,36 +803,47 @@ def build_phase():
             log(f"phase 1   {source} {method} {dt}: registers/spill-store bytes {cells}")
 
 
+# the layout kernel that the entry launches before the kernel, by route
+LAYOUT_KERNELS = {"quads": "pack_kernel", "interleaved": "interleave_kernel",
+                  "taps": "cubic_pack_kernel", "tap_lanes": "cubic_pack_kernel"}
+
+
 def regular_build_log(source, ptxas, built):
-    """Phase 1 for K1 and K5: registers, static shared memory and local
-    (spill) bytes of every instantiation (method, route, dtype, 1-8D), and
-    the blocks an SM holds at once as the launch sizes its grid: with the
-    route's reservation of dynamic shared memory (the largest staged table,
-    STAGE_BYTES, on the staged route; none on the others), for every
-    (method, route) that has instantiations (`served`); and the registers
-    and spill stores of the layout kernels (the packs, the interleave) from
-    the ptxas log."""
+    """Phase 1 for K1 and K5 (K2/K3 and K6 for the rectilinear sources):
+    registers, static shared memory and local (spill) bytes of every
+    instantiation (method, route, dtype, 1-8D), and the blocks an SM holds
+    at once as the launch sizes its grid: with the route's reservation of
+    dynamic shared memory (the largest staged table, STAGE_BYTES, on the
+    staged route; none on the others), for every (method, route) that has
+    instantiations (`served`); and the registers and spill stores of the
+    layout kernels (the packs, the interleave) from the ptxas log."""
     from interpn_tpu_torch.ops import fused
 
     stacked = source.endswith("_stack")
+    family = source.removeprefix("fused_").removesuffix("_stack")
     log(f"phase 1 build: {source}.cu {built} (one nvcc per source, all at once)")
     layouts = re.findall(
         r"interp\d+(\w+?_kernel)I([fd])E\S*' for \S+\n[^\n]*\n\s+\d+ bytes stack frame, "
         r"(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers", ptxas)
-    if len(layouts) != 6:  # each source builds the entry's three, f32 and f64
-        raise AssertionError(f"{source}: unexpected layout kernels in the ptxas log: {layouts}")
+    # each source builds the layout kernels of the routes it serves, f32 and
+    # f64, and no other
+    want = {LAYOUT_KERNELS[r] for r in LAYOUT_KERNELS
+            if any(served(m, r, stacked, nd, family) for m in fused.METHODS for nd in range(1, 9))}
+    if sorted((name, t) for name, t, _, _ in layouts) != sorted(itertools.product(want, "fd")):
+        raise AssertionError(f"{source}: layout kernels in the ptxas log {layouts}, "
+                             f"expected {sorted(want)} in f32 and f64")
     log(f"phase 1   {source} layout kernels: registers/spill-store bytes "
         + ", ".join(f"{name} {'f32' if t == 'f' else 'f64'} {regs}/{spill}"
                     for name, t, spill, regs in sorted(layouts)))
     for method, route in itertools.product(fused.METHODS, fused.ROUTES):
-        if not served(method, route, stacked, 8):
+        if not served(method, route, stacked, 8, family):
             continue
         for dtype in (F32, F64):
             cells = []
             for nd in range(1, 9):
-                if not served(method, route, stacked, nd):
+                if not served(method, route, stacked, nd, family):
                     continue
-                i = fused.regular_info(method, dtype, nd, route, stacked)
+                i = fused.regular_info(method, dtype, nd, route, stacked, family)
                 cells.append(f"{nd}D {i['registers']}/{i['static_smem']}/{i['local_bytes']}/"
                              f"{i['blocks_per_sm']}")
             log(f"phase 1   {source} {method} {route} {SHORT[dtype]}: "
@@ -969,6 +1041,110 @@ def regular_routes_phase(cuda):
         f"plain_pack and every cubic pack to plain_cubic_pack; the interleave of stacks of 1, "
         f"3, 8, 9, 16 tables at 1, 3, 4, 8D (f32, f64): all {stacks} values equal to "
         f"plain_interleave")
+
+
+def rectilinear_routes_phase(cuda):
+    """Phase 2 for the cubic routes of K2 and K6: one table at 1-8D at and
+    over each cap of `fused.rectilinear_route` (`cubic_cap_dims`: staged,
+    taps, tap lanes, direct) and stacks of 1, 3, 4 and 8 tables (staged,
+    interleaved, direct), in f32 and f64 and both extrapolation modes, each
+    bitwise against its plain version with extrapolated, NaN and +-inf
+    queries, on the random table and on the same table holding a NaN, +inf
+    and -inf inside stencils (where the contraction is not finite the
+    kernel gives the gather tree's value); every node of each grid exact;
+    staged_tables stacks of 21^3 tables, whose bytes are no multiple of
+    16, aligned and as a view at an odd offset; and the bench paths (20^3
+    f32 and f64, 100^3 f32, the stack of 8 at 20^3 f32) in both modes and
+    both dtypes. Fails unless every route ran."""
+    from interpn_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(17)
+    cases = [(dims, dtype, None) for nd in range(1, 9) for dtype in (F32, F64)
+             for dims in cubic_cap_dims(nd, dtype)]
+    cases += [(dims, dtype, nch) for dims in ((9,), (20,) * 3, (12,) * 4, (4,) * 8)
+              for dtype in (F32, F64) for nch in (1, 3, 4, 8)]
+    routes, results, nodes = {}, 0, 0
+    for dims, dtype, nch in cases:
+        n = min(N_CHECK // 5, 2**26 // 4 ** len(dims) // (nch or 1))
+        (grids, vals), obs = random_case("rectilinear", dims, dtype, n, rng, cuda, nch)
+        spoilt = vals.clone().reshape(-1)
+        spots = rng.choice(spoilt.numel(), 3, replace=False)
+        spoilt[torch.as_tensor(spots, device=cuda)] = torch.tensor(
+            [math.nan, math.inf, -math.inf], dtype=dtype, device=cuda)
+        spoilt = spoilt.reshape(vals.shape)
+        # every node of each table (of a large grid, evenly spaced N_NODES)
+        idx = np.stack(np.meshgrid(*(np.arange(d) for d in dims), indexing="ij")).reshape(
+            len(dims), -1)[:, :: 1 + math.prod(dims) // N_NODES]
+        at_nodes = tuple(g[torch.as_tensor(i, device=cuda)] for g, i in zip(grids, idx))
+        flat_idx = torch.as_tensor(np.ravel_multi_index(idx, dims), device=cuda)
+        route = fused.rectilinear_route(dims, dtype, "cubic", nch)
+        routes[route] = routes.get(route, 0) + 1
+        for table, lin in itertools.product((vals, spoilt), (True, False)):
+            what = (f"rectilinear cubic lin={lin} {dims} {SHORT[dtype]} "
+                    f"{'one table' if nch is None else f'stack of {nch}'} {route}"
+                    f"{' with NaN and +-inf entries' if table is spoilt else ''}")
+            if nch is None:
+                got = fused.eval_rectilinear(grids, table, obs, "cubic", lin)
+                want = fused.plain_rectilinear(grids, table, obs, "cubic", lin)
+                node_vals = fused.eval_rectilinear(grids, table, at_nodes, "cubic", lin)
+                node_want = table[flat_idx]
+            else:
+                got = fused.eval_rectilinear_stack(grids, table, obs, "cubic", lin)
+                want = fused.plain_rectilinear_stack(grids, table, obs, "cubic", lin)
+                node_vals = fused.eval_rectilinear_stack(grids, table, at_nodes, "cubic", lin)
+                node_want = table[:, flat_idx]
+            results += bitwise(got, want, what)
+            if table is vals:
+                nodes += bitwise(node_vals, node_want, f"{what} at the nodes")
+    # staged_tables on 21^3 tables, whose bytes are no multiple of 16, so
+    # that each table's copy loads an unaligned head and tail apart from its
+    # cp.async middle: the stack aligned and as a view an odd number of
+    # entries into its storage
+    unaligned = 0
+    for (dtype, nch), offset in itertools.product(((F32, 4), (F64, 3)), (0, 1)):
+        dims = (21,) * 3
+        (grids, vals), obs = random_case("rectilinear", dims, dtype, N_CHECK // 5, rng, cuda,
+                                         nch)
+        storage = torch.zeros(offset + vals.numel() + 5, dtype=dtype, device=cuda)
+        view = storage[offset:offset + vals.numel()].view(vals.shape)
+        view.copy_(vals)
+        route = fused.rectilinear_route(dims, dtype, "cubic", nch)
+        if route != "staged_tables":
+            raise AssertionError(f"a stack of {nch} {dims} {SHORT[dtype]} takes {route}")
+        routes[route] = routes.get(route, 0) + 1
+        for lin in (True, False):
+            unaligned += bitwise(
+                fused.eval_rectilinear_stack(grids, view, obs, "cubic", lin),
+                fused.plain_rectilinear_stack(grids, view, obs, "cubic", lin),
+                f"rectilinear cubic lin={lin} {dims} {SHORT[dtype]} stack of {nch} {route} "
+                f"at an offset of {offset} entries")
+    results += unaligned
+    bench =[Path("rectilinear_cubic", dt, n, 3) for dt in (F32, F64) for n in (20, 100)]
+    bench += [Path("rectilinear_cubic_stack", dt, 20, 3) for dt in (F32, F64)]
+    for p in bench:
+        grids, vals = path_grid(p, cuda)
+        obs = tuple(torch.as_tensor(rng.uniform(LO, HI, N_CHECK), dtype=p.dtype, device=cuda)
+                    for _ in range(p.ndims))
+        routes[p.route] = routes.get(p.route, 0) + 1
+        kern, plain = (fused.eval_rectilinear_stack, fused.plain_rectilinear_stack) \
+            if p.stacked else (fused.eval_rectilinear, fused.plain_rectilinear)
+        for lin in (True, False):
+            results += bitwise(kern(grids, vals, obs, "cubic", lin),
+                               plain(grids, vals, obs, "cubic", lin),
+                               f"{p.label} lin={lin} ({p.route})")
+    ran = [r for r in fused.ROUTES if r in routes]
+    if ran != [r for r in fused.ROUTES if served("cubic", r, True, 8, "rectilinear")
+               or served("cubic", r, False, 8, "rectilinear")]:
+        raise AssertionError(f"phase 2 ran K2/K6 cubic on the routes {ran} only")
+    log(f"phase 2 kernel vs plain K2/K6 cubic routes: one table at 1-8D at and over each cap "
+        f"of its route, stacks of 1, 3, 4, 8 at 1, 3, 4, 8D, and the bench paths 20^3 and "
+        f"100^3 and stacks of {NCH} at 20^3 (f32, f64; linearize True and False; "
+        f"{', '.join(f'{r} {c}' for r, c in routes.items())} cases): all {results} results "
+        f"bitwise equal to the plain version (weights, contraction, the gather tree where it "
+        f"is not finite), on random tables and on the same tables with a NaN, +inf and -inf "
+        f"inside stencils, {unaligned} of them on staged_tables stacks of 21^3 tables "
+        f"(bytes no multiple of 16) aligned and at an odd offset; all {nodes} node values "
+        f"exact")
 
 
 def engine_vs_plain_phase(cuda):
@@ -1310,7 +1486,17 @@ def drive_path(p: Path, cuda, rng):
     sub = tuple(torch.from_numpy(o[:N_REF]) for o in obs_np)
     cpu = plain(*cpu_args, sub, dims=tuple(shape)).numpy()
     np.testing.assert_allclose(via_entry[..., :N_REF], cpu, rtol=tol, atol=atol,
-                               err_msg=f"{p.label} vs the CPU gather tree")
+                               err_msg=f"{p.label} vs the CPU plain version")
+    gather_note = ""
+    if p.kind == "rectilinear" and p.method == "cubic" and not p.engine:
+        # the weights' contraction against the gather tree, at the JAX
+        # package's bars for the cubic gather tree
+        gather = fused.gather_rectilinear_stack if p.stacked else fused.gather_rectilinear
+        bar = GATHER_TOL[p.dtype]
+        np.testing.assert_allclose(via_entry[..., :N_REF],
+                                   gather(*cpu_args, sub, "cubic").numpy(), rtol=bar, atol=bar,
+                                   err_msg=f"{p.label} vs the CPU gather tree")
+        gather_note = f", within rtol=atol={bar:g} of the CPU gather tree"
     # an independent float64 reference where it speaks, table by table
     covered = 0
     for c, table in enumerate(vals if p.stacked else [vals]):
@@ -1326,11 +1512,12 @@ def drive_path(p: Path, cuda, rng):
     ref_name = ("a scipy make_interp_spline / BSpline.design_matrix float64 reference"
                 if p.kind == "bspline" else "a float64 numpy reference")
     weights = ", no torch float64 weight build" if p.engine else ""
-    log(f"phase 4 path {p.label} x {N_MAIN} queries: {', '.join(calls)}; {p.counter} launches "
-        f"after each call {counts}{companion}, no other kernel{weights}; finite, equal across "
-        f"entry points, kernel "
+    route = f" ({p.route} route)" if p.route else ""
+    log(f"phase 4 path {p.label}{route} x {N_MAIN} queries: {', '.join(calls)}; {p.counter} "
+        f"launches after each call {counts}{companion}, no other kernel{weights}; finite, "
+        f"equal across entry points, kernel "
         f"bitwise equal to its plain version, within rtol {tol:g}, atol {atol:.3g} of the CPU "
-        f"gather tree on "
+        f"plain version{gather_note} on "
         f"{N_REF} queries and of {ref_name} on the {covered} of them it covers, every table "
         f"(rtol {REF_TOL[p.dtype]['rtol']:g}, atol {REF_TOL[p.dtype]['atol']:g})")
     return launches, err, companions
@@ -1440,7 +1627,7 @@ def timing_phase(p: Path, cuda, gen, smi):
     k_dev, k_loop = k_best.device_ms, min(t.loop_ms for t in k_runs)
     ahead = all(t.ahead for t in k_runs)
     p_dev = min((t for t in p_runs if t is not None), default=None)
-    b_ms, b_by = bound(p, N_MAIN)
+    b_ms, b_by = bound(p, N_MAIN, main[0])
     gaps = ""
     if p == GAP_PATH:  # the profiler leaves the gaps out; once, on the shortest kernel
         k_prof, k_note = profiled_ms(k_fn, main, "kernel")
@@ -1588,11 +1775,16 @@ def layout_phase(name, cuda, smi, driven) -> dict:
 
 
 def kernels_record(driven, timed) -> list[dict]:
-    """One entry per kernel, from its headline path (its first in PATHS)."""
+    """One entry per kernel, from its headline path (its first in PATHS);
+    a grid kernel's also with `layouts`: for each of its paths, the layout
+    that path's kernel read and the launches of that layout's kernel
+    beside it."""
     kernels = []
     for counter in dict.fromkeys(p.counter for p in PATHS):
         p = next(q for q in PATHS if q.counter == counter)
         launches, err, _ = driven[p]
+        layout = {"layouts": {q.label: {"route": q.route, "layout_launches": driven[q][2]}
+                              for q in PATHS if q.counter == counter}} if p.route else {}
         source = p.engine or f"{p.kind}{'_stack' if p.stacked else ''}"
         kernels.append({
             "name": f"fused_{counter}",
@@ -1602,6 +1794,7 @@ def kernels_record(driven, timed) -> list[dict]:
             "config": p.label,
             "launches": launches,
             "max_abs_err": err,
+            **layout,
             **timed[p],
         })
     return kernels
@@ -1622,6 +1815,7 @@ def main() -> None:
     build_phase()
     kernel_vs_plain_phase(cuda)
     regular_routes_phase(cuda)
+    rectilinear_routes_phase(cuda)
     engine_vs_plain_phase(cuda)
     nodes_phase(cuda)
 

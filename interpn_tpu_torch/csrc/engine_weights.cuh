@@ -10,9 +10,9 @@
 //   rectilinear (`locate_rectilinear_linear`);
 // - cubic: loc and the axis's node function on the four unit bases, as
 //   `_axis_weights` applies `_axis_reduce_regular` /
-//   `_axis_reduce_rectilinear` to `_unit_bases` (RegularCubicAxis /
-//   RectCubicAxis, interp_common.cuh, with K1's regular locate and
-//   rectilinear.cuh's `cubic_axis`);
+//   `_axis_reduce_rectilinear` to `unit_bases` (RegularCubicAxis with K1's
+//   regular locate; interp_common.cuh's `cubic_weights`, shared with K2 and
+//   K6);
 // - B-spline of degree FP - 1: the de Boor span rebased to the first
 //   coefficient and the Cox-de Boor weights (bspline.cuh's `basis_weights`,
 //   `ops/bspline.py::spline_locs_weights`);
@@ -25,7 +25,6 @@
 
 #include "bspline.cuh"
 #include "interp_common.cuh"
-#include "rectilinear.cuh"
 
 namespace interp {
 
@@ -46,67 +45,6 @@ struct EngineGrid {
 
 struct EngineObs {
   const double* p[kMaxDims];
-};
-
-// A rectilinear cubic axis for the unit bases: RectCubicAxis::node with
-// each difference quotient (y2 - y1) / q taken from the divisor's
-// reciprocal. On a unit basis the numerator is 1, -1 or +0, and then
-// RN(1 / q), -RN(1 / q) and RN(+0 / q) are the quotient bit for bit (the
-// rounding is symmetric in sign; +0 / q is a zero of q's sign, NaN for q
-// zero or NaN), so the weights are the plain version's with 4 divisions an
-// axis in place of 16.
-struct RectUnitAxis {
-  RectCubicAxis<double> ax;
-  double rp0, rq0, rp1, rq1;  // reciprocals of the difference divisors
-  double zp0, zq0, zp1, zq1;  // +0 / divisor
-
-  __device__ __forceinline__ void set(const RectCubicAxis<double>& a) {
-    ax = a;
-    rp0 = div_rn(1.0, a.p0);
-    rq0 = div_rn(1.0, a.q0);
-    rp1 = div_rn(1.0, a.p1);
-    rq1 = div_rn(1.0, a.q1);
-    zp0 = zero_over(a.p0);
-    zq0 = zero_over(a.q0);
-    zp1 = zero_over(a.p1);
-    zq1 = zero_over(a.q1);
-  }
-
-  static __device__ __forceinline__ double zero_over(double d) {
-    return d != 0.0 && d == d ? copysign(0.0, d) : __longlong_as_double(0x7ff8000000000000LL);
-  }
-
-  // (numerator) / divisor for a numerator of 1, -1 or +0
-  static __device__ __forceinline__ double quot(double num, double recip, double zero) {
-    return num == 1.0 ? recip : (num == -1.0 ? -recip : zero);
-  }
-
-  // centered_diff of interp_common.cuh with its two quotients so taken
-  static __device__ __forceinline__ double cd(double y0, double y1, double y2, double a, double c,
-                                              double rp, double zp, double rq, double zq) {
-    return add_rn(mul_rn(a, quot(sub_rn(y2, y1), rq, zq)),
-                  mul_rn(c, quot(sub_rn(y1, y0), rp, zp)));
-  }
-
-  __device__ __forceinline__ double node(double v0, double v1, double v2, double v3,
-                                         bool lin) const {
-    const double y0 = ax.high ? v2 : v1;
-    const double dy =
-        ax.low ? sub_rn(v0, v1) : (ax.high ? sub_rn(v3, v2) : sub_rn(v2, v1));
-    double k0, k1;
-    if (ax.low) {
-      k0 = -cd(v0, v1, v2, ax.a0, ax.c0, rp0, zp0, rq0, zq0);
-      k1 = sub_rn(mul_rn(2.0, dy), k0);
-    } else if (ax.high) {
-      k0 = cd(v1, v2, v3, ax.a0, ax.c0, rp0, zp0, rq0, zq0);
-      k1 = sub_rn(mul_rn(2.0, dy), k0);
-    } else {
-      k0 = cd(v0, v1, v2, ax.a0, ax.c0, rp0, zp0, rq0, zq0);
-      k1 = cd(v1, v2, v3, ax.a1, ax.c1, rp1, zp1, rq1, zq1);
-    }
-    return cubic_finish(hermite(ax.tt, y0, dy, k0, k1), ax.tt, y0, k1, v0, v2, v3, ax.low,
-                        ax.high, ax.outside, lin);
-  }
 };
 
 // loc and the FP float64 weights of axis k at x.
@@ -156,16 +94,7 @@ __device__ __forceinline__ int axis_weights(const EngineGrid& g, int k, double x
       }
       return loc;
     }
-    RectCubicAxis<double> cubic;
-    const int loc = cubic_axis(g.col[k], dim, x, cubic);
-    RectUnitAxis ax;
-    ax.set(cubic);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      w[j] = ax.node(j == 0 ? 1.0 : 0.0, j == 1 ? 1.0 : 0.0, j == 2 ? 1.0 : 0.0,
-                     j == 3 ? 1.0 : 0.0, lin);
-    }
-    return loc;
+    return cubic_weights(g.col[k], dim, x, lin, w);
   } else {
     static_assert(FP == 6, "footprint 2 (linear), 4 (cubic, cubic_spline) or 6 (quintic)");
     return basis_weights<double, 5>(g.col[k], dim, x, w);

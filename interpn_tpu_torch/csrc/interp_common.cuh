@@ -1,6 +1,7 @@
 // Shared device code of the port's Hopper kernels (sm_90a): IEEE-rounded
-// arithmetic, the linear lerp tree, the cubic Hermite tree, the B-spline
-// tree and the bisections.
+// arithmetic, the linear lerp tree, the cubic Hermite tree, a rectilinear
+// cubic axis's locate and four weights and the stencil's contraction with
+// them, the B-spline tree and the bisections.
 //
 // Every kernel mirrors its plain PyTorch version (`ops/linear.py`,
 // `ops/cubic.py`, `ops/nearest.py`, `ops/bspline.py`) node for node, so the
@@ -56,6 +57,7 @@ __device__ __forceinline__ double clamp_(double a, double hi) { return fmin(fmax
 // kernel reduces together (W = 1 for one table).
 template <typename T, int W>
 struct Lanes {
+  static constexpr int kWidth = W;
   T v[W];
 };
 
@@ -173,6 +175,90 @@ struct RectCubicAxis {
   }
 };
 
+template <typename T>
+__device__ __forceinline__ T quiet_nan();
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// A rectilinear cubic axis for the unit bases: RectCubicAxis::node with
+// each difference quotient (y2 - y1) / q taken from the divisor's
+// reciprocal. On a unit basis the numerator is 1, -1 or +0, and then
+// RN(1 / q), -RN(1 / q) and RN(+0 / q) are the quotient bit for bit (the
+// rounding is symmetric in sign; +0 / q is a zero of q's sign, NaN for q
+// zero or NaN), so the weights are the plain version's with 2 divisions an
+// axis in place of 16.
+template <typename T>
+struct RectUnitAxis {
+  RectCubicAxis<T> ax;
+  T rp0, rq0, rp1, rq1;  // reciprocals of the difference divisors
+  T zp0, zq0, zp1, zq1;  // +0 / divisor
+
+  // from an axis of rectilinear.cuh's `cubic_axis`, where p1 = 1 and p0 = 1
+  // (low) or q0 = 1 (the other regions): 1 / 1 = 1 and +0 / 1 = +0, so two
+  // divisions an axis remain
+  __device__ __forceinline__ void set(const RectCubicAxis<T>& a) {
+    ax = a;
+    const T d = a.low ? a.q0 : a.p0;  // the divisor of k0's that is not 1
+    const T r = div_rn(T(1), d), z = zero_over(d);
+    rp0 = a.low ? T(1) : r;
+    zp0 = a.low ? T(0) : z;
+    rq0 = a.low ? r : T(1);
+    zq0 = a.low ? z : T(0);
+    rp1 = T(1);
+    zp1 = T(0);
+    rq1 = div_rn(T(1), a.q1);
+    zq1 = zero_over(a.q1);
+  }
+
+  static __device__ __forceinline__ T zero_over(T d) {
+    return d != T(0) && d == d ? (d > T(0) ? T(0) : T(-0.0)) : quiet_nan<T>();
+  }
+
+  // (numerator) / divisor for a numerator of 1, -1 or +0
+  static __device__ __forceinline__ T quot(T num, T recip, T zero) {
+    return num == T(1) ? recip : (num == T(-1) ? -recip : zero);
+  }
+
+  // centered_diff with its two quotients so taken
+  static __device__ __forceinline__ T cd(T y0, T y1, T y2, T a, T c, T rp, T zp, T rq, T zq) {
+    return add_rn(mul_rn(a, quot(sub_rn(y2, y1), rq, zq)),
+                  mul_rn(c, quot(sub_rn(y1, y0), rp, zp)));
+  }
+
+  __device__ __forceinline__ T node(T v0, T v1, T v2, T v3, bool lin) const {
+    const T y0 = ax.high ? v2 : v1;
+    const T dy = ax.low ? sub_rn(v0, v1) : (ax.high ? sub_rn(v3, v2) : sub_rn(v2, v1));
+    T k0, k1;
+    if (ax.low) {
+      k0 = -cd(v0, v1, v2, ax.a0, ax.c0, rp0, zp0, rq0, zq0);
+      k1 = sub_rn(mul_rn(T(2), dy), k0);
+    } else if (ax.high) {
+      k0 = cd(v1, v2, v3, ax.a0, ax.c0, rp0, zp0, rq0, zq0);
+      k1 = sub_rn(mul_rn(T(2), dy), k0);
+    } else {
+      k0 = cd(v0, v1, v2, ax.a0, ax.c0, rp0, zp0, rq0, zq0);
+      k1 = cd(v1, v2, v3, ax.a1, ax.c1, rp1, zp1, rq1, zq1);
+    }
+    return cubic_finish(hermite(ax.tt, y0, dy, k0, k1), ax.tt, y0, k1, v0, v2, v3, ax.low,
+                        ax.high, ax.outside, lin);
+  }
+
+  // the weight of tap j: the node on unit basis j
+  __device__ __forceinline__ void weights(bool lin, T* w) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      w[j] = node(j == 0 ? T(1) : T(0), j == 1 ? T(1) : T(0), j == 2 ? T(1) : T(0),
+                  j == 3 ? T(1) : T(0), lin);
+    }
+  }
+};
+
 // Value of the D-dimensional 4^D sub-stencil at `base`: the four
 // (D-1)-dimensional sub-stencils along dim D-1 reduced by axis D-1's node,
 // down to the leaf, which returns the sub-stencil of its first LEAF dims (a
@@ -222,6 +308,68 @@ __device__ __forceinline__ T pick(const T* w, int r) {
   for (int j = 1; j < W; ++j) v = r == j ? w[j] : v;
   return v;
 }
+
+// acc + w * y, lane by lane
+template <typename T, int W>
+__device__ __forceinline__ Lanes<T, W> madd(const Lanes<T, W>& acc, T w, const Lanes<T, W>& y) {
+  Lanes<T, W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.v[j] = add_rn(acc.v[j], mul_rn(w, y.v[j]));
+  return r;
+}
+
+// ((w0 v0 + w1 v1) + w2 v2) + w3 v3: one stencil row contracted with its
+// axis's four cubic weights, in `ops/cubic.py::contract_cubic`'s order.
+template <typename T>
+__device__ __forceinline__ T dot4(const T* w, T v0, T v1, T v2, T v3) {
+  return add_rn(add_rn(add_rn(mul_rn(w[0], v0), mul_rn(w[1], v1)), mul_rn(w[2], v2)),
+                mul_rn(w[3], v3));
+}
+
+// Value of the D-dimensional 4^D sub-stencil at `base` contracted with the
+// axes' cubic weights (axis k's tap j at w[4 * k + j]), axis 0 first as
+// CubicTree reduces: the four (D-1)-dimensional sub-stencils along dim D-1
+// times axis D-1's weights, summed left to right, down to the leaf, which
+// returns the sub-stencil of its first LEAF dims for W channels (a table
+// entry for LEAF = 0; axis 0's four taps already contracted for LEAF = 1).
+// The plain version is `ops/cubic.py::contract_cubic`. Levels 1..UNROLLED
+// unroll (their reads all in flight at once); each outer level is a
+// loop of 4 with one running sum a channel, started at -0.0 so that its
+// first addition returns the first product bit for bit, its weight picked
+// by selects.
+template <typename T, int D, int LEAF = 0, int UNROLLED = kCubicUnrolled>
+struct WeightTree {
+  template <typename Leaf>
+  static __device__ __forceinline__ auto eval(const Leaf& leaf, int base, const int* stride,
+                                              const T* w) {
+    if constexpr (D == LEAF) {
+      return leaf(base);
+    } else {
+      using Sub = WeightTree<T, D - 1, LEAF, UNROLLED>;
+      const int s = stride[D - 1];
+      const T* wd = w + 4 * (D - 1);
+      using L = decltype(Sub::eval(leaf, base, stride, w));
+      L acc;
+      if constexpr (D <= UNROLLED) {
+        acc = Sub::eval(leaf, base, stride, w);
+#pragma unroll
+        for (int j = 0; j < L::kWidth; ++j) acc.v[j] = mul_rn(wd[0], acc.v[j]);
+#pragma unroll
+        for (int j = 1; j < 4; ++j) {
+          acc = madd(acc, wd[j], Sub::eval(leaf, base + j * s, stride, w));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < L::kWidth; ++j) acc.v[j] = T(-0.0);
+#pragma unroll 1
+        for (int j = 0; j < 4; ++j) {
+          acc = madd(acc, pick<T, 4>(wd, j), Sub::eval(leaf, base + j * s, stride, w));
+        }
+      }
+      return acc;
+    }
+  }
+};
 
 // Value of the W^(NDIMS-A) sub-stencil at `base` with axes 0..A-1 fixed:
 // sum over r of w[A * W + r] (axis A's weights) times the sub-stencil one
@@ -280,6 +428,61 @@ __device__ __forceinline__ int count_below(const T* __restrict__ g, int n, T x) 
 template <typename T>
 __device__ __forceinline__ int partition_point(const T* __restrict__ g, int n, T x) {
   return count_below<false>(g, n, x);
+}
+
+// Rectilinear cubic axis setup (`locate_rectilinear_cubic` and the
+// per-region coordinate and difference weights of
+// `_axis_reduce_rectilinear`).
+template <typename T>
+__device__ __forceinline__ int cubic_axis(const T* __restrict__ g, int dim, T x,
+                                          RectCubicAxis<T>& ax) {
+  const int iloc = partition_point(g, dim, x) - 2;
+  const int last = dim - 4 > 0 ? dim - 4 : 0;
+  const int loc = iloc < 0 ? 0 : (iloc > last ? last : iloc);
+  const bool low = iloc <= -1;
+  const bool high = !low && iloc >= dim - 3;
+  ax.low = low;
+  ax.high = high;
+  ax.outside = iloc < -1 || (!low && iloc > dim - 3);
+  const T g0 = __ldg(g + loc), g1 = __ldg(g + loc + 1);
+  const T g2 = __ldg(g + loc + 2), g3 = __ldg(g + loc + 3);
+  const T h01 = sub_rn(g1, g0), h12 = sub_rn(g2, g1), h23 = sub_rn(g3, g2);
+  const T one = T(1);
+  if (low) {  // mirrored: k0 = -cd(v0, v1, v2; 1, h12/h01)
+    ax.tt = div_rn(-sub_rn(x, g1), h01);
+    ax.p0 = one;
+    ax.q0 = div_rn(h12, h01);
+  } else if (high) {  // k0 = cd(v1, v2, v3; h12/h23, 1)
+    ax.tt = div_rn(sub_rn(x, g2), h23);
+    ax.p0 = div_rn(h12, h23);
+    ax.q0 = one;
+  } else {  // k0 = cd(v0, v1, v2; h01/h12, 1), k1 = cd(v1, v2, v3; 1, h23/h12)
+    ax.tt = div_rn(sub_rn(x, g1), h12);
+    ax.p0 = div_rn(h01, h12);
+    ax.q0 = one;
+  }
+  ax.p1 = one;
+  ax.q1 = div_rn(h23, h12);
+  const T s0 = add_rn(ax.p0, ax.q0), s1 = add_rn(ax.p1, ax.q1);
+  ax.a0 = div_rn(ax.p0, s0);
+  ax.c0 = div_rn(ax.q0, s0);
+  ax.a1 = div_rn(ax.p1, s1);
+  ax.c1 = div_rn(ax.q1, s1);
+  return loc;
+}
+
+// loc and the four cubic weights of one axis at x: the node of
+// `_axis_reduce_rectilinear` on the four unit bases, with the quotients
+// from the divisors' reciprocals (RectUnitAxis).
+template <typename T>
+__device__ __forceinline__ int cubic_weights(const T* __restrict__ g, int dim, T x, bool lin,
+                                             T* w) {
+  RectCubicAxis<T> cubic;
+  const int loc = cubic_axis(g, dim, x, cubic);
+  RectUnitAxis<T> ax;
+  ax.set(cubic);
+  ax.weights(lin, w);
+  return loc;
 }
 
 }  // namespace interp

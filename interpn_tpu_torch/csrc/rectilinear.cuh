@@ -8,35 +8,70 @@
 // `ops/locate.py` pins it), then
 // - linear: t = (x - x0)/(x1 - x0) and the lerp tree of
 //   `ops/linear.py::linear_rectilinear`;
-// - cubic: the Hermite tree of `ops/cubic.py::cubic_rectilinear`, with the
-//   nonuniform centered differences and h-ratio normalizations of
-//   `_axis_reduce_rectilinear`;
+// - cubic: the four weights of each axis, its Hermite node (the nonuniform
+//   centered differences and h-ratio normalizations of
+//   `_axis_reduce_rectilinear`) on the four unit bases, and the 4^N stencil
+//   of every table contracted with them, axis 0 first
+//   (`ops/cubic.py::rectilinear_cubic_weights`, `contract_cubic`); where a
+//   result is not finite (a NaN or inf in the stencil, whose 0 * inf the
+//   contraction turns into NaN, or an overflow), the Hermite tree of
+//   `ops/cubic.py::cubic_rectilinear` on that table in its place, as the
+//   plain version (`ops/fused.py::plain_rectilinear`) selects it;
 // - nearest: one table read, the lower index winning the tie.
 // Every rounding step is the plain PyTorch version's, so the two agree bit
 // for bit (see interp_common.cuh).
 //
-// Design: the TPU computes weights outside the kernel (K2, K6) or builds
-// dense one-hot planes per axis (K3) because Mosaic has no per-lane gather.
-// Here one thread per query bisects its columns (a few KB, read through the
-// read-only cache) and reads only its stencil, so no weights pass through
-// device memory. The grid-dependent parts of the cubic differences are
-// computed once per axis, not once per tree node. The stack instantiation
-// (kStack) loops over its channels after the one locate, each reading its
-// stencil at the same offsets in its own table and writing its row of the
-// (nch, n) output; the single-table instantiation has no loop (see
-// regular.cuh for why).
+// Design. The TPU computes the weights outside the kernel (K2, K6) or
+// builds dense one-hot planes per axis (K3), because Mosaic has no per-lane
+// gather; here one thread per query bisects its columns (a few KB, read
+// through the read-only cache) and reads only its stencil. Cubic builds its
+// weights once a query, as the TPU's `_rect_locs_weights` does, so a stack's
+// tables share them and no per-table node arithmetic remains: about 2N
+// divisions and 4N nodes on unit bases a query, then 2 * 4^N - 1 operations
+// a table (the Hermite tree took 4 divisions and ~27 operations a node, 21
+// nodes a 3D table). Linear and nearest read the table direct.
 //
-// What bounds it on this card: the query stream (sizeof(T)*(ndims+nch) bytes
-// per query) for linear and nearest, plus about log2(dim) dependent column
-// reads per axis for the bisection. Cubic reads its 4^N stencil entries one
-// scalar at a time, the reads that bounded K1 cubic on the same tree before
-// its cubic routes (regular.cuh), and adds about 30 floating-point
-// operations per tree node and table; which of the two sets its pace has
-// not been measured.
+// The cubic routes: `ops/fused.py::rectilinear_route` alone picks one, lays
+// the table out for it (the entry launches regular.cuh's layout kernels)
+// and passes its code; the C side checks only that it has an instantiation
+// (`rect_serves`).
+// - kStaged (one table, or a whole stack, of at most kStageBytes): each
+//   1024-thread block copies it into shared memory by one bulk copy, as K1
+//   does, and reads the stencil there (20^3 f32 0.0829 ms against 0.1303
+//   direct on an H100, PERF.md).
+// - kStagedTables (a stack above that whose tables fit kStageBytes each):
+//   each 1024-thread block takes a tile of queries at a time, builds their
+//   weights, then runs the tables one after another from a double buffer
+//   in shared memory, copying table c + 1 (`cp.async`, 16 bytes a thread a
+//   copy) while table c is contracted. A tile's copies move every table
+//   through L2 once; reading an interleaved stack moved each query's 64
+//   sectors (0.418 ms for 8 f32 tables at 20^3, at about the L2 rate).
+// - kTaps (one table above kStageBytes whose cubic pack fits 32 MiB): the
+//   cubic pack (`cubic_pack_kernel`), axis 0's four taps of a stencil row in
+//   one 16-byte (f32) or 32-byte (f64) cell, is the leaf: one vector dotted
+//   with axis 0's weights. One lane a query from 2D: four lanes (K1's tap
+//   lanes), each building all the weights, ran 100^3 f32 in 0.2966 ms
+//   against 0.1800.
+// - kInterleaved (a stack of kRunBytes of channels or more whose tables
+//   exceed kStageBytes; f64 from 4D only tables above 256 KiB): the
+//   interleave (`interleave_kernel`), an entry's channels in one sector,
+//   read as two 16-byte loads; the contraction keeps one running sum a
+//   channel a level (eight Hermite trees at once would not fit the
+//   registers; eight partial sums do). 8 f32 tables ran 4.1-7.4x ahead of
+//   direct at 3-5D, 4 f64 1.1-3.6x at 30^3-100^3, 20^4 and 9^5, but behind
+//   it at 12^4 and 8^5 (8.5%, 13%), whose tables direct reads from L1.
+// - kDirect (the rest): the stencil straight from each table through the
+//   read-only cache.
+//
+// What bounds it on this card: the query stream (sizeof(T)*(ndims+nch)
+// bytes per query) for linear and nearest, plus about log2(dim) dependent
+// column reads per axis for the bisection; for cubic the weight build and
+// the stencil's 4^N reads a table, from shared memory or L2 (PERF.md).
 
 #pragma once
 
 #include "interp_common.cuh"
+#include "regular.cuh"
 
 namespace interp {
 
@@ -47,75 +82,225 @@ struct RectGrid {
   int stride[kMaxDims];    // C-order strides of the table in elements
 };
 
-// Cubic axis setup (`locate_rectilinear_cubic` and the per-region
-// coordinate and difference weights of `_axis_reduce_rectilinear`).
-template <typename T>
-__device__ __forceinline__ int cubic_axis(const T* __restrict__ g, int dim, T x,
-                                          RectCubicAxis<T>& ax) {
-  const int iloc = partition_point(g, dim, x) - 2;
-  const int last = dim - 4 > 0 ? dim - 4 : 0;
-  const int loc = iloc < 0 ? 0 : (iloc > last ? last : iloc);
-  const bool low = iloc <= -1;
-  const bool high = !low && iloc >= dim - 3;
-  ax.low = low;
-  ax.high = high;
-  ax.outside = iloc < -1 || (!low && iloc > dim - 3);
-  const T g0 = __ldg(g + loc), g1 = __ldg(g + loc + 1);
-  const T g2 = __ldg(g + loc + 2), g3 = __ldg(g + loc + 3);
-  const T h01 = sub_rn(g1, g0), h12 = sub_rn(g2, g1), h23 = sub_rn(g3, g2);
-  const T one = T(1);
-  if (low) {  // mirrored: k0 = -cd(v0, v1, v2; 1, h12/h01)
-    ax.tt = div_rn(-sub_rn(x, g1), h01);
-    ax.p0 = one;
-    ax.q0 = div_rn(h12, h01);
-  } else if (high) {  // k0 = cd(v1, v2, v3; h12/h23, 1)
-    ax.tt = div_rn(sub_rn(x, g2), h23);
-    ax.p0 = div_rn(h12, h23);
-    ax.q0 = one;
-  } else {  // k0 = cd(v0, v1, v2; h01/h12, 1), k1 = cd(v1, v2, v3; 1, h23/h12)
-    ax.tt = div_rn(sub_rn(x, g1), h12);
-    ax.p0 = div_rn(h01, h12);
-    ax.q0 = one;
-  }
-  ax.p1 = one;
-  ax.q1 = div_rn(h23, h12);
-  const T s0 = add_rn(ax.p0, ax.q0), s1 = add_rn(ax.p1, ax.q1);
-  ax.a0 = div_rn(ax.p0, s0);
-  ax.c0 = div_rn(ax.q0, s0);
-  ax.a1 = div_rn(ax.p1, s1);
-  ax.c1 = div_rn(ax.q1, s1);
-  return loc;
+// Whether the rectilinear family has an instantiation for the route: direct
+// for every method; the cubic routes as the header says (taps from 2D).
+constexpr bool rect_serves(int route, int method, bool stack, int ndims) {
+  return route == kDirect ||
+         (method == kCubic &&
+          (route == kStaged || (stack && (route == kInterleaved || route == kStagedTables)) ||
+           (!stack && route == kTaps && ndims >= 2)));
 }
 
-template <typename T, int NDIMS, int METHOD, bool kStack>
-__global__ void __launch_bounds__(kThreads)
+// The leaf of the taps routes: axis 0's four taps at `cell` of the cubic
+// pack, one 16-byte (f32) or two (f64) vector loads through the read-only
+// cache, contracted with axis 0's weights.
+template <typename T>
+struct RectTaps {
+  const T* q;  // the pack, 4 entries a cell
+  const T* w;  // axis 0's weights
+
+  __device__ __forceinline__ Lanes<T, 1> operator()(int cell) const {
+    using V = typename Vec16<T>::type;
+    constexpr int kPer = 16 / sizeof(T);
+    const V* p = reinterpret_cast<const V*>(q) + static_cast<int64_t>(cell) * (4 / kPer);
+    T v[4];
+#pragma unroll
+    for (int j = 0; j < 4 / kPer; ++j) Vec16<T>::put(v + j * kPer, __ldg(p + j));
+    return {dot4(w, v[0], v[1], v[2], v[3])};
+  }
+};
+
+// The plain version's choice where query i's contraction of table c is not
+// finite: that table's Hermite tree (`cubic_rectilinear`), read from the
+// table itself. The axes are located again, so that no weight stays live,
+// and the call is out of line, so that the tree's registers and spills stay
+// off the contraction's path (a finite table never takes it).
+template <typename T, int NDIMS>
+__device__ __noinline__ void cubic_tree_where_not_finite(const RectGrid<T>& grid,
+                                                          const ObsPtrs<T>& obs, int64_t i,
+                                                          const T* __restrict__ vals,
+                                                          int64_t table, int nch,
+                                                          T* __restrict__ out, int64_t n,
+                                                          bool lin) {
+  RectCubicAxis<T> ax[NDIMS];
+  int stride[NDIMS];
+  int base = 0;
+#pragma unroll
+  for (int k = 0; k < NDIMS; ++k) {
+    stride[k] = grid.stride[k];
+    base += cubic_axis(grid.col[k], grid.dim[k], __ldg(obs.p[k] + i), ax[k]) * stride[k];
+  }
+  for (int c = 0; c < nch; ++c) {
+    if (!isfinite(out[c * n + i])) {
+      out[c * n + i] = CubicTree<T, RectCubicAxis<T>, NDIMS>::eval(Ldg<T>{vals + c * table},
+                                                                   base, stride, ax, lin);
+    }
+  }
+}
+
+// Bytes of one buffer of kStagedTables: a table and its offset from a
+// 16-byte boundary, a multiple of 16.
+__host__ __device__ constexpr int64_t table_buffer(int64_t bytes) {
+  return ((bytes + 15) & ~int64_t(15)) + 16;
+}
+
+// kStagedTables: the queries a tile of Q * blockDim.x at a time, every
+// thread of the block in every tile, since the copies and barriers are the
+// block's. A thread builds its Q queries' weights once; table c + 1 is
+// copied into one half of the double buffer while table c, in the other, is
+// contracted. Two queries a thread in f32 halve the barriers and copies a
+// query (the stack of 8 at 20^3 0.3729 ms against 0.3974 with one); f64's
+// two weight sets would not fit the 64 registers (1.0504 against 0.3983).
+template <typename T, int NDIMS, int U>
+__device__ __forceinline__ void staged_tables(const RectGrid<T>& grid, const ObsPtrs<T>& obs,
+                                              const T* __restrict__ vals, int64_t table,
+                                              int nch, T* __restrict__ out, int64_t n,
+                                              bool lin, unsigned char* smem) {
+  constexpr int Q = sizeof(T) == 4 ? 2 : 1;
+  const int64_t bytes = table_buffer(table * static_cast<int64_t>(sizeof(T)));
+  int stride[NDIMS];
+#pragma unroll
+  for (int k = 0; k < NDIMS; ++k) stride[k] = grid.stride[k];
+  for (int64_t t0 = static_cast<int64_t>(blockIdx.x) * Q * blockDim.x; t0 < n;
+       t0 += static_cast<int64_t>(gridDim.x) * Q * blockDim.x) {
+    const T* s = stage_async(vals, table, smem);  // table 0 into the first half
+    T w[Q][4 * NDIMS];
+    int base[Q];
+    int64_t iq[Q];
+    bool active[Q], finite[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      iq[q] = t0 + q * blockDim.x + threadIdx.x;
+      active[q] = iq[q] < n;
+      finite[q] = true;
+      base[q] = 0;
+      if (active[q]) {
+#pragma unroll
+        for (int k = 0; k < NDIMS; ++k) {
+          base[q] += cubic_weights(grid.col[k], grid.dim[k], __ldg(obs.p[k] + iq[q]), lin,
+                                   w[q] + 4 * k) *
+                     stride[k];
+        }
+      }
+    }
+    for (int c = 0; c < nch; ++c) {
+      const T* next = s;
+      if (c + 1 < nch) {
+        next = stage_async(vals + (c + 1) * table, table, smem + ((c + 1) & 1) * bytes);
+        await_async<1>();  // this thread's copies of table c
+      } else {
+        await_async<0>();
+      }
+      __syncthreads();  // every thread's copies of table c
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (active[q]) {
+          const Channels<T, 1, true> at{s, 1, false};
+          const T r = WeightTree<T, NDIMS, 0, U>::eval(at, base[q], stride, w[q]).v[0];
+          out[c * n + iq[q]] = r;
+          finite[q] = finite[q] && isfinite(r);
+        }
+      }
+      __syncthreads();  // table c read: its half may take table c + 2
+      s = next;
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (active[q] && !finite[q]) {
+        cubic_tree_where_not_finite<T, NDIMS>(grid, obs, iq[q], vals, table, nch, out, n, lin);
+      }
+    }
+  }
+}
+
+// The contraction's unrolled levels (WeightTree's UNROLLED), whose reads
+// are all in flight at once: the tree's three (64 entries, or 16 cells of
+// the cubic pack) where each read goes to L1 or L2; fewer where the
+// registers are scarcer and the reads nearer: a staged table (1024 threads
+// a block leave 64 registers a thread; shared memory answers in tens of
+// cycles) and an interleaved stack (a sector of channels a read).
+template <typename T, int ROUTE>
+__host__ __device__ constexpr int unrolled_of() {
+  return ROUTE == kInterleaved ? 1
+                               : (ROUTE == kStaged || ROUTE == kStagedTables
+                                      ? (sizeof(T) == 4 ? 2 : 1)
+                                      : 3);
+}
+
+template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
+__global__ void __launch_bounds__(threads_of<ROUTE>())
     rectilinear_kernel(RectGrid<T> grid, ObsPtrs<T> obs, const T* __restrict__ vals,
-                       int64_t table, int nch, T* __restrict__ out, int64_t n, bool lin) {
+                       const T* __restrict__ layout, int64_t table, int nch,
+                       T* __restrict__ out, int64_t n, bool lin) {
+  constexpr bool kShared = ROUTE == kStaged;
+  constexpr int U = unrolled_of<T, ROUTE>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bar;
+  if constexpr (ROUTE == kStagedTables) {
+    staged_tables<T, NDIMS, U>(grid, obs, vals, table, nch, out, n, lin, smem);
+    return;
+  }
+  int stride[NDIMS];  // of the layout read: the table's, times nch interleaved
+#pragma unroll
+  for (int k = 0; k < NDIMS; ++k) stride[k] = grid.stride[k] * (ROUTE == kInterleaved ? nch : 1);
+  const T* src = layout;
+  bool pending = false;  // a bulk copy into shared memory not yet awaited
+  if constexpr (kShared) src = stage_table(vals, table * nch, smem, &bar, &pending);
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += nthreads) {
     int base = 0;
-    int stride[NDIMS];
     if constexpr (METHOD == kCubic) {
-      RectCubicAxis<T> ax[NDIMS];
+      T w[4 * NDIMS];
 #pragma unroll
       for (int k = 0; k < NDIMS; ++k) {
-        stride[k] = grid.stride[k];
-        base += cubic_axis(grid.col[k], grid.dim[k], __ldg(obs.p[k] + i), ax[k]) * stride[k];
+        base += cubic_weights(grid.col[k], grid.dim[k], __ldg(obs.p[k] + i), lin, w + 4 * k) *
+                stride[k];
       }
-      if constexpr (kStack) {
-        for (int c = 0; c < nch; ++c) {
-          out[c * n + i] = CubicTree<T, RectCubicAxis<T>, NDIMS>::eval(
-              Ldg<T>{vals + c * table}, base, stride, ax, lin);
+      if constexpr (kShared) {
+        if (pending) {
+          await_bulk(&bar);
+          pending = false;
         }
-      } else {
-        out[i] = CubicTree<T, RectCubicAxis<T>, NDIMS>::eval(Ldg<T>{vals}, base, stride, ax, lin);
+      }
+      bool finite = true;
+      if constexpr (ROUTE == kInterleaved) {  // W channels at a time
+        constexpr int W = lanes_of<T, ROUTE>();
+        const bool vec =
+            reinterpret_cast<uintptr_t>(src) % 16 == 0 && (nch * sizeof(T)) % 16 == 0;
+        for (int c0 = 0; c0 < nch; c0 += W) {
+          const int count = nch - c0 < W ? nch - c0 : W;
+          const Lanes<T, W> y = WeightTree<T, NDIMS, 0, U>::eval(
+              Channels<T, W, false>{src + c0, count, vec && count == W}, base, stride, w);
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            if (j < count) {
+              out[(c0 + j) * n + i] = y.v[j];
+              finite = finite && isfinite(y.v[j]);
+            }
+          }
+        }
+      } else if constexpr (taps(ROUTE)) {
+        const T r = WeightTree<T, NDIMS, 1, U>::eval(RectTaps<T>{src, w}, base, stride, w).v[0];
+        out[i] = r;
+        finite = isfinite(r);
+      } else {  // one table, or a stack's tables one at a time
+        for (int c = 0; c < nch; ++c) {
+          const Channels<T, 1, kShared> at{src + c * table, 1, false};
+          const T r = WeightTree<T, NDIMS, 0, U>::eval(at, base, stride, w).v[0];
+          out[c * n + i] = r;
+          finite = finite && isfinite(r);
+          if constexpr (!kStack) break;
+        }
+      }
+      if (!finite) {
+        cubic_tree_where_not_finite<T, NDIMS>(grid, obs, i, vals, table, kStack ? nch : 1,
+                                              out, n, lin);
       }
     } else {
       T t[NDIMS];
 #pragma unroll
       for (int k = 0; k < NDIMS; ++k) {
-        stride[k] = grid.stride[k];
         const T* __restrict__ g = grid.col[k];
         const T x = __ldg(obs.p[k] + i);
         const int iloc = partition_point(g, grid.dim[k], x) - 1;
@@ -142,6 +327,11 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
+  if constexpr (kShared) {
+    // a thread that read no table still lets the copy land before its
+    // block's shared memory is released
+    if (pending) await_bulk(&bar);
+  }
 }
 
 // What every launch of one call shares.
@@ -150,71 +340,109 @@ struct RectLaunch {
   const void* const* cols;
   const void* const* obs;
   const void* vals;
+  const void* layout;  // the layout the route reads: `vals`, or the layout buffer
+  int64_t table;
   int nch;
   void* out;
   int64_t n;
   bool lin;
-  int blocks;
   cudaStream_t stream;
 };
 
-template <typename T, int NDIMS, int METHOD, bool kStack>
-cudaError_t rect_launch(const RectLaunch& a) {
-  RectGrid<T> grid{};
-  ObsPtrs<T> ptrs{};
-  int acc = 1;
-  for (int k = NDIMS - 1; k >= 0; --k) {
-    grid.col[k] = static_cast<const T*>(a.cols[k]);
-    grid.dim[k] = a.dims[k];
-    grid.stride[k] = acc;
-    acc *= a.dims[k];
-    ptrs.p[k] = static_cast<const T*>(a.obs[k]);
+template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
+struct Rect {
+  static cudaError_t launch(const RectLaunch& a) {
+    const auto kernel = rectilinear_kernel<T, NDIMS, METHOD, kStack, ROUTE>;
+    constexpr int threads = threads_of<ROUTE>();
+    constexpr size_t reserve = reserve_of<ROUTE>();
+    // the staged tables and their offset from a 16-byte boundary; for
+    // kStagedTables two tables' buffers
+    const int64_t bytes = a.table * static_cast<int64_t>(sizeof(T));
+    const size_t smem = ROUTE == kStaged ? bytes * a.nch + 16
+                                         : (ROUTE == kStagedTables ? 2 * table_buffer(bytes) : 0);
+    if (smem > reserve) return cudaErrorInvalidValue;  // above the staging cap
+    // cubic: as many blocks as the card holds at once with the route's
+    // shared memory; linear and nearest keep their 8 blocks an SM, more
+    // than their registers let run at once (the 48-register linear stack
+    // ran 2.3% slower on its 5 resident blocks an SM, PERF.md)
+    int per_sm = 0, sms = 0;
+    const cudaError_t err = occupancy(occupancy_cache<Rect>(), kernel, threads, reserve,
+                                      &per_sm, &sms);
+    if (err != cudaSuccess) return err;
+    const int64_t most = static_cast<int64_t>(METHOD == kCubic ? per_sm : 8) * sms;
+    const int64_t want = (a.n + threads - 1) / threads;
+    const int blocks = static_cast<int>(want < most ? want : most);
+    if (blocks <= 0) return cudaErrorInvalidConfiguration;
+    RectGrid<T> grid{};
+    ObsPtrs<T> ptrs{};
+    int acc = 1;
+    for (int k = NDIMS - 1; k >= 0; --k) {
+      grid.col[k] = static_cast<const T*>(a.cols[k]);
+      grid.dim[k] = a.dims[k];
+      grid.stride[k] = acc;
+      acc *= a.dims[k];
+      ptrs.p[k] = static_cast<const T*>(a.obs[k]);
+    }
+    kernel<<<blocks, threads, smem, a.stream>>>(
+        grid, ptrs, static_cast<const T*>(a.vals), static_cast<const T*>(a.layout), a.table,
+        a.nch, static_cast<T*>(a.out), a.n, a.lin);
+    return cudaGetLastError();
   }
-  rectilinear_kernel<T, NDIMS, METHOD, kStack><<<a.blocks, kThreads, 0, a.stream>>>(
-      grid, ptrs, static_cast<const T*>(a.vals), acc, a.nch, static_cast<T*>(a.out), a.n,
-      a.lin);
-  return cudaGetLastError();
-}
 
-template <typename T, int METHOD, bool kStack>
-cudaError_t rect_ndims(int ndims, const RectLaunch& a) {
-  switch (ndims) {
-    case 1: return rect_launch<T, 1, METHOD, kStack>(a);
-    case 2: return rect_launch<T, 2, METHOD, kStack>(a);
-    case 3: return rect_launch<T, 3, METHOD, kStack>(a);
-    case 4: return rect_launch<T, 4, METHOD, kStack>(a);
-    case 5: return rect_launch<T, 5, METHOD, kStack>(a);
-    case 6: return rect_launch<T, 6, METHOD, kStack>(a);
-    case 7: return rect_launch<T, 7, METHOD, kStack>(a);
-    case 8: return rect_launch<T, 8, METHOD, kStack>(a);
-    default: return cudaErrorInvalidValue;
+  static cudaError_t info(int* out) {
+    return kernel_info(occupancy_cache<Rect>(), rectilinear_kernel<T, NDIMS, METHOD, kStack, ROUTE>,
+                       threads_of<ROUTE>(), reserve_of<ROUTE>(), out);
   }
-}
+};
 
-template <typename T, bool kStack>
-cudaError_t rect_method(int method, int ndims, const RectLaunch& a) {
-  switch (method) {
-    case kLinear: return rect_ndims<T, kLinear, kStack>(ndims, a);
-    case kCubic: return rect_ndims<T, kCubic, kStack>(ndims, a);
-    case kNearest: return rect_ndims<T, kNearest, kStack>(ndims, a);
-    default: return cudaErrorInvalidValue;
+// The rectilinear family for regular.cuh's `visit`.
+struct RectFamily {
+  static constexpr bool served(int route, int method, bool stack, int ndims) {
+    return rect_serves(route, method, stack, ndims);
   }
-}
+  template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
+  using Kernel = Rect<T, NDIMS, METHOD, kStack, ROUTE>;
+};
+
+struct RectLaunchOp {
+  const RectLaunch& a;
+  template <typename R>
+  cudaError_t run() {
+    return R::launch(a);
+  }
+};
 
 // The body of the sources' C entry points (see fused_rectilinear.cu).
 template <bool kStack>
 int rectilinear_entry(int method, int linearize, int is_f64, int ndims, const int* dims,
-                      const void* const* grids, const void* vals, const void* const* obs,
-                      void* out, long long n, int nch, int blocks, void* stream) {
-  if (ndims < 1 || ndims > kMaxDims || n <= 0 || nch <= 0 || blocks <= 0 ||
-      (!kStack && nch != 1)) {
+                      const void* const* grids, void* work, const void* vals,
+                      const void* const* obs, void* out, long long n, int nch, int route,
+                      void* stream) {
+  const bool relaid = route == kInterleaved || taps(route);
+  if (ndims < 1 || ndims > kMaxDims || n <= 0 || nch <= 0 || (!kStack && nch != 1) ||
+      method < kLinear || method > kNearest || !rect_serves(route, method, kStack, ndims) ||
+      (relaid && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const RectLaunch a{dims, grids, obs, vals, nch, out, n, linearize != 0, blocks,
-                     static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = is_f64 ? rect_method<double, kStack>(method, ndims, a)
-                                 : rect_method<float, kStack>(method, ndims, a);
-  return static_cast<int>(err);
+  int64_t table = 1;
+  for (int k = 0; k < ndims; ++k) table *= dims[k];
+  const auto s = static_cast<cudaStream_t>(stream);
+  // the route's layout into `work`, then the kernel that reads it
+  const cudaError_t err =
+      launch_layout<RectFamily, kStack>(route, is_f64, ndims, dims, vals, work, table, nch, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const RectLaunch a{dims, grids, obs, vals, relaid ? work : vals, table, nch, out, n,
+                     linearize != 0, s};
+  RectLaunchOp op{a};
+  return static_cast<int>(visit<RectFamily, kStack>(is_f64, route, method, ndims, op));
+}
+
+// The body of the sources' info entry points: registers, shared memory,
+// spills and resident blocks of one instantiation (see fused_rectilinear.cu).
+template <bool kStack>
+int rectilinear_info_entry(int method, int is_f64, int ndims, int route, int* out) {
+  InfoOp op{out};
+  return static_cast<int>(visit<RectFamily, kStack>(is_f64, route, method, ndims, op));
 }
 
 }  // namespace interp

@@ -105,6 +105,9 @@ constexpr int kQuads = 2;
 constexpr int kInterleaved = 3;
 constexpr int kTaps = 4;
 constexpr int kTapLanes = 5;
+// a stack read one table at a time, each staged into a double buffer in
+// shared memory (the rectilinear cubic stacks, rectilinear.cuh)
+constexpr int kStagedTables = 6;
 
 // Threads a block of the staged route. A staged block copies the whole
 // table, so the route runs the largest blocks, one or two copies an SM
@@ -128,14 +131,16 @@ __host__ __device__ constexpr int group_of(int route) { return route == kTapLane
 
 template <int ROUTE>
 constexpr int threads_of() {
-  return ROUTE == kStaged ? kStagedThreads : kThreads;
+  return ROUTE == kStaged || ROUTE == kStagedTables ? kStagedThreads : kThreads;
 }
 
 // Dynamic shared memory a block of the route reserves: the largest staged
-// table and its offset from a 16-byte boundary.
+// table and its offset from a 16-byte boundary (two of them, the double
+// buffer of kStagedTables).
 template <int ROUTE>
 constexpr size_t reserve_of() {
-  return ROUTE == kStaged ? kStageBytes + 16 : 0;
+  return ROUTE == kStaged ? kStageBytes + 16
+                          : (ROUTE == kStagedTables ? 2 * (kStageBytes + 16) : 0);
 }
 
 // Channels of a stack that run together: a sector of them, interleaved;
@@ -336,6 +341,42 @@ __device__ __forceinline__ void await_bulk(uint64_t* bar) {
         : "r"(smem_addr(bar))
         : "memory");
   } while (!done);
+}
+
+// Starts copying `entries` values from `vals` into the shared buffer `buf`
+// so that entry e lands at s[e], s = buf + (vals & 15), and returns s: the
+// 16-byte-aligned middle by asynchronous 16-byte copies (`cp.async`, one
+// group a call for each thread), the unaligned head and tail by plain
+// loads. The values are in place for every thread after `await_async` and a
+// __syncthreads.
+template <typename T>
+__device__ __forceinline__ const T* stage_async(const T* __restrict__ vals, int64_t entries,
+                                                unsigned char* buf) {
+  const uintptr_t g = reinterpret_cast<uintptr_t>(vals);
+  const uintptr_t a = (g + 15) & ~uintptr_t(15);
+  const uintptr_t e = (g + entries * sizeof(T)) & ~uintptr_t(15);
+  T* s = reinterpret_cast<T*>(buf + (g & 15));
+  const int64_t head = a < e ? static_cast<int64_t>((a - g) / sizeof(T)) : entries;
+  const int64_t tail = a < e ? static_cast<int64_t>((e - g) / sizeof(T)) : entries;
+  for (int64_t k = threadIdx.x; k < head; k += blockDim.x) s[k] = __ldg(vals + k);
+  for (int64_t k = tail + threadIdx.x; k < entries; k += blockDim.x) s[k] = __ldg(vals + k);
+  const int64_t chunks = a < e ? static_cast<int64_t>((e - a) / 16) : 0;
+  const uint32_t to = smem_addr(s + head);
+  for (int64_t k = threadIdx.x; k < chunks; k += blockDim.x) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     to + 16 * static_cast<uint32_t>(k)),
+                 "l"(reinterpret_cast<const unsigned char*>(a) + 16 * k)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return s;
+}
+
+// Waits until this thread's copies of `stage_async` but the last PENDING
+// groups have landed.
+template <int PENDING>
+__device__ __forceinline__ void await_async() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
 // --- the kernel -------------------------------------------------------------------------
@@ -724,6 +765,61 @@ cudaError_t launch_interleave(const T* vals, T* out, int64_t table, int nch,
   return cudaGetLastError();
 }
 
+// info[0..3] of one kernel instantiation: registers a thread, static shared
+// bytes, local (spill) bytes a thread, blocks an SM holds at once with its
+// route's reservation of dynamic shared memory.
+template <typename Kernel>
+cudaError_t kernel_info(Occupancy& o, Kernel kernel, int threads, size_t reserve, int* out) {
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = occupancy(o, kernel, threads, reserve, &out[3], &sms);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  return err;
+}
+
+// Launches the layout that `route` reads into `work` on `stream`: the cubic
+// pack (taps routes) or the pack (quads) of one table, the interleave
+// (interleaved) of the stack `vals`; nothing on the other routes. Only the
+// layout kernels that the family F serves (F::served) are instantiated, so
+// that each source builds those it launches and no other.
+template <typename F, bool kStack>
+cudaError_t launch_layout(int route, int is_f64, int ndims, const int* dims, const void* vals,
+                          void* work, int64_t table, int nch, cudaStream_t stream) {
+  constexpr bool kTapsServed = F::served(kTaps, kCubic, kStack, 2) ||
+                               F::served(kTapLanes, kCubic, kStack, 3);
+  if constexpr (kTapsServed) {
+    if (taps(route)) {
+      return is_f64 ? launch_cubic_pack(ndims, dims, static_cast<const double*>(vals),
+                                        static_cast<double*>(work), stream)
+                    : launch_cubic_pack(ndims, dims, static_cast<const float*>(vals),
+                                        static_cast<float*>(work), stream);
+    }
+  }
+  if constexpr (F::served(kQuads, kLinear, kStack, 2)) {
+    if (route == kQuads) {
+      return is_f64 ? launch_pack(ndims, dims, static_cast<const double*>(vals),
+                                  static_cast<double*>(work), stream)
+                    : launch_pack(ndims, dims, static_cast<const float*>(vals),
+                                  static_cast<float*>(work), stream);
+    }
+  }
+  constexpr bool kInterleaveServed =
+      F::served(kInterleaved, kLinear, kStack, 2) || F::served(kInterleaved, kCubic, kStack, 2);
+  if constexpr (kInterleaveServed) {
+    if (route == kInterleaved) {
+      return is_f64 ? launch_interleave(static_cast<const double*>(vals),
+                                        static_cast<double*>(work), table, nch, stream)
+                    : launch_interleave(static_cast<const float*>(vals),
+                                        static_cast<float*>(work), table, nch, stream);
+    }
+  }
+  return cudaSuccess;
+}
+
 // What every launch of one call shares.
 struct RegularLaunch {
   GridArgs grid;
@@ -760,79 +856,80 @@ struct Regular {
     return cudaGetLastError();
   }
 
-  // info[0..3]: registers a thread, static shared bytes, local (spill)
-  // bytes a thread, blocks an SM holds at once with the route's
-  // reservation of dynamic shared memory.
   static cudaError_t info(int* out) {
-    const auto kernel = regular_kernel<T, NDIMS, METHOD, kStack, ROUTE>;
-    cudaFuncAttributes attr{};
-    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-    if (err != cudaSuccess) return err;
-    int sms = 0;
-    err = occupancy(occupancy_cache<Regular>(), kernel,
-                    threads_of<ROUTE>(), reserve_of<ROUTE>(), &out[3], &sms);
-    out[0] = attr.numRegs;
-    out[1] = static_cast<int>(attr.sharedSizeBytes);
-    out[2] = static_cast<int>(attr.localSizeBytes);
-    return err;
+    return kernel_info(occupancy_cache<Regular>(),
+                       regular_kernel<T, NDIMS, METHOD, kStack, ROUTE>, threads_of<ROUTE>(),
+                       reserve_of<ROUTE>(), out);
   }
 };
 
-// Calls op.template run<Regular<...>>() for the instantiation of (dtype,
+// The regular family for `visit`: which instantiations exist, and their
+// launcher.
+struct RegularFamily {
+  static constexpr bool served(int route, int method, bool stack, int ndims) {
+    return serves(route, method, stack, ndims);
+  }
+  template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
+  using Kernel = Regular<T, NDIMS, METHOD, kStack, ROUTE>;
+};
+
+// Calls op.template run<F::Kernel<...>>() for the instantiation of the
+// family F (RegularFamily, rectilinear.cuh's RectFamily) for (dtype,
 // method, ndims, route); cudaErrorInvalidValue for a combination that has
-// none (`serves`).
-template <bool kStack, int ROUTE, typename T, int METHOD, int NDIMS, typename Op>
+// none (`F::served`).
+template <typename F, bool kStack, int ROUTE, typename T, int METHOD, int NDIMS, typename Op>
 cudaError_t run_served(Op& op) {
-  if constexpr (serves(ROUTE, METHOD, kStack, NDIMS)) {
-    return op.template run<Regular<T, NDIMS, METHOD, kStack, ROUTE>>();
+  if constexpr (F::served(ROUTE, METHOD, kStack, NDIMS)) {
+    return op.template run<typename F::template Kernel<T, NDIMS, METHOD, kStack, ROUTE>>();
   } else {
     return cudaErrorInvalidValue;
   }
 }
 
-template <bool kStack, int ROUTE, typename T, int METHOD, typename Op>
+template <typename F, bool kStack, int ROUTE, typename T, int METHOD, typename Op>
 cudaError_t visit_ndims(int ndims, Op& op) {
   switch (ndims) {
-    case 1: return run_served<kStack, ROUTE, T, METHOD, 1>(op);
-    case 2: return run_served<kStack, ROUTE, T, METHOD, 2>(op);
-    case 3: return run_served<kStack, ROUTE, T, METHOD, 3>(op);
-    case 4: return run_served<kStack, ROUTE, T, METHOD, 4>(op);
-    case 5: return run_served<kStack, ROUTE, T, METHOD, 5>(op);
-    case 6: return run_served<kStack, ROUTE, T, METHOD, 6>(op);
-    case 7: return run_served<kStack, ROUTE, T, METHOD, 7>(op);
-    case 8: return run_served<kStack, ROUTE, T, METHOD, 8>(op);
+    case 1: return run_served<F, kStack, ROUTE, T, METHOD, 1>(op);
+    case 2: return run_served<F, kStack, ROUTE, T, METHOD, 2>(op);
+    case 3: return run_served<F, kStack, ROUTE, T, METHOD, 3>(op);
+    case 4: return run_served<F, kStack, ROUTE, T, METHOD, 4>(op);
+    case 5: return run_served<F, kStack, ROUTE, T, METHOD, 5>(op);
+    case 6: return run_served<F, kStack, ROUTE, T, METHOD, 6>(op);
+    case 7: return run_served<F, kStack, ROUTE, T, METHOD, 7>(op);
+    case 8: return run_served<F, kStack, ROUTE, T, METHOD, 8>(op);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kStack, int ROUTE, typename T, typename Op>
+template <typename F, bool kStack, int ROUTE, typename T, typename Op>
 cudaError_t visit_method(int method, int ndims, Op& op) {
   switch (method) {
-    case kLinear: return visit_ndims<kStack, ROUTE, T, kLinear>(ndims, op);
-    case kCubic: return visit_ndims<kStack, ROUTE, T, kCubic>(ndims, op);
-    case kNearest: return visit_ndims<kStack, ROUTE, T, kNearest>(ndims, op);
+    case kLinear: return visit_ndims<F, kStack, ROUTE, T, kLinear>(ndims, op);
+    case kCubic: return visit_ndims<F, kStack, ROUTE, T, kCubic>(ndims, op);
+    case kNearest: return visit_ndims<F, kStack, ROUTE, T, kNearest>(ndims, op);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kStack, typename T, typename Op>
+template <typename F, bool kStack, typename T, typename Op>
 cudaError_t visit_route(int route, int method, int ndims, Op& op) {
   switch (route) {
-    case kDirect: return visit_method<kStack, kDirect, T>(method, ndims, op);
-    case kStaged: return visit_method<kStack, kStaged, T>(method, ndims, op);
-    case kQuads: return visit_method<kStack, kQuads, T>(method, ndims, op);
-    case kInterleaved: return visit_method<kStack, kInterleaved, T>(method, ndims, op);
-    case kTaps: return visit_method<kStack, kTaps, T>(method, ndims, op);
-    case kTapLanes: return visit_method<kStack, kTapLanes, T>(method, ndims, op);
+    case kDirect: return visit_method<F, kStack, kDirect, T>(method, ndims, op);
+    case kStaged: return visit_method<F, kStack, kStaged, T>(method, ndims, op);
+    case kQuads: return visit_method<F, kStack, kQuads, T>(method, ndims, op);
+    case kInterleaved: return visit_method<F, kStack, kInterleaved, T>(method, ndims, op);
+    case kTaps: return visit_method<F, kStack, kTaps, T>(method, ndims, op);
+    case kTapLanes: return visit_method<F, kStack, kTapLanes, T>(method, ndims, op);
+    case kStagedTables: return visit_method<F, kStack, kStagedTables, T>(method, ndims, op);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kStack, typename Op>
+template <typename F, bool kStack, typename Op>
 cudaError_t visit(int is_f64, int route, int method, int ndims, Op& op) {
   if (ndims < 1 || ndims > kMaxDims) return cudaErrorInvalidValue;
-  return is_f64 ? visit_route<kStack, double>(route, method, ndims, op)
-                : visit_route<kStack, float>(route, method, ndims, op);
+  return is_f64 ? visit_route<F, kStack, double>(route, method, ndims, op)
+                : visit_route<F, kStack, float>(route, method, ndims, op);
 }
 
 struct LaunchOp {
@@ -882,24 +979,8 @@ int regular_entry(int method, int linearize, int is_f64, int ndims, const int* d
   }
   a.stream = static_cast<cudaStream_t>(stream);
   a.vals = relaid ? work : vals;
-  // the route's layout into `work`, then the kernel that reads it
-  cudaError_t err = cudaSuccess;
-  if (taps(route)) {
-    err = is_f64 ? launch_cubic_pack(ndims, dims, static_cast<const double*>(vals),
-                                     static_cast<double*>(work), a.stream)
-                 : launch_cubic_pack(ndims, dims, static_cast<const float*>(vals),
-                                     static_cast<float*>(work), a.stream);
-  } else if (route == kQuads) {
-    err = is_f64 ? launch_pack(ndims, dims, static_cast<const double*>(vals),
-                               static_cast<double*>(work), a.stream)
-                 : launch_pack(ndims, dims, static_cast<const float*>(vals),
-                               static_cast<float*>(work), a.stream);
-  } else if (route == kInterleaved) {
-    err = is_f64 ? launch_interleave(static_cast<const double*>(vals),
-                                     static_cast<double*>(work), table, nch, a.stream)
-                 : launch_interleave(static_cast<const float*>(vals),
-                                     static_cast<float*>(work), table, nch, a.stream);
-  }
+  const cudaError_t err = launch_layout<RegularFamily, kStack>(route, is_f64, ndims, dims, vals,
+                                                               work, table, nch, a.stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   a.obs = obs;
   a.starts = starts;
@@ -910,7 +991,7 @@ int regular_entry(int method, int linearize, int is_f64, int ndims, const int* d
   a.n = n;
   a.lin = linearize != 0;
   LaunchOp op{a};
-  return static_cast<int>(visit<kStack>(is_f64, route, method, ndims, op));
+  return static_cast<int>(visit<RegularFamily, kStack>(is_f64, route, method, ndims, op));
 }
 
 // The body of the sources' info entry points: registers, shared memory,
@@ -918,7 +999,7 @@ int regular_entry(int method, int linearize, int is_f64, int ndims, const int* d
 template <bool kStack>
 int regular_info_entry(int method, int is_f64, int ndims, int route, int* out) {
   InfoOp op{out};
-  return static_cast<int>(visit<kStack>(is_f64, route, method, ndims, op));
+  return static_cast<int>(visit<RegularFamily, kStack>(is_f64, route, method, ndims, op));
 }
 
 }  // namespace interp

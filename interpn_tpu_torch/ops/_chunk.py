@@ -25,13 +25,15 @@ def chunk_len(row_elems: int, itemsize: int, chunk_bytes=None) -> int:
 
 def chunk_queries(f, obs, row_elems: int, itemsize: int, chunk_bytes=None):
     """Evaluate ``f(obs_tuple)`` over query chunks of `chunk_len` queries.
-    `f` maps flat (m,) queries to an (m,) result; the result has obs[0]'s
-    shape."""
+    `f` maps flat (m,) queries to a (..., m) result; the result has shape
+    (..., *obs[0].shape)."""
     shape = obs[0].shape
     n = obs[0].numel()
     chunk = chunk_len(row_elems, itemsize, chunk_bytes)
     flat = [o.reshape(-1) for o in obs]
     if n <= chunk:
-        return f(tuple(flat)).reshape(shape)
-    parts = [f(tuple(o[i : i + chunk] for o in flat)) for i in range(0, n, chunk)]
-    return torch.cat(parts).reshape(shape)
+        r = f(tuple(flat))
+    else:
+        r = torch.cat([f(tuple(o[i : i + chunk] for o in flat)) for i in range(0, n, chunk)],
+                      dim=-1)
+    return r.reshape(*r.shape[:-1], *shape)

@@ -24,6 +24,16 @@ its gradient path, and the plain version of the cubic kernels
 The rectilinear variant carries the 4 bracketing grid coordinates per axis
 and uses the distance-weighted nonuniform centered difference with the
 reference's h-ratio normalizations.
+
+`cubic_rectilinear_weighted` computes the same function the way the
+rectilinear kernels K2 and K6 do (`csrc/rectilinear.cuh`) and the JAX
+package's K2 does (`interpn_tpu/ops/pallas_v3.py::_rect_locs_weights`):
+each axis's four weights, its node on the four unit bases
+(`rectilinear_cubic_weights`), built once for every table of a stack, and
+the stencil contracted with them axis 0 first (`contract_cubic`); where a
+result is not finite, the gather tree's in its place, so that a NaN or inf
+in a stencil gives the gather tree's answer (a contraction turns 0 * inf
+into NaN).
 """
 
 from __future__ import annotations
@@ -108,6 +118,34 @@ def _axis_reduce_rectilinear(v, x, gc, low, high, outside, linearize: bool):
     return _finish_node(res, tt, y0, k1, v, low, high, outside, linearize)
 
 
+def unit_bases(like):
+    """The four unit bases (e_0 .. e_3) of a stencil row, as scalar tensors
+    of `like`'s dtype and device: the node on basis j is tap j's weight."""
+    zero = torch.zeros((), dtype=like.dtype, device=like.device)
+    one = torch.ones((), dtype=like.dtype, device=like.device)
+    return [tuple(one if j == i else zero for j in range(4)) for i in range(4)]
+
+
+def rectilinear_cubic_weights(x, grid, linearize: bool):
+    """(loc, [w0, w1, w2, w3]) of one rectilinear axis at `x`, in x's dtype:
+    the stencil's first index and `_axis_reduce_rectilinear` on the four
+    unit bases (the kernels' `cubic_weights`, csrc/interp_common.cuh)."""
+    cl, gc = locate_rectilinear_cubic(x, grid)
+    return cl.loc, [_axis_reduce_rectilinear(e, x, gc, cl.low, cl.high, cl.outside, linearize)
+                    for e in unit_bases(x)]
+
+
+def contract_cubic(c, weights):
+    """The vertex-major stencil matrix c (..., 4^N, n) contracted with each
+    axis's four weights, axis 0 first: each group of four adjacent rows
+    becomes ((w0 v0 + w1 v1) + w2 v2) + w3 v3, the kernels' order
+    (`WeightTree`, csrc/interp_common.cuh)."""
+    for w in weights:
+        g = c.reshape(*c.shape[:-2], c.shape[-2] // 4, 4, c.shape[-1])
+        c = w[0] * g[..., 0, :] + w[1] * g[..., 1, :] + w[2] * g[..., 2, :] + w[3] * g[..., 3, :]
+    return c[..., 0, :]
+
+
 def _reduce_tree(c, node):
     """Collapse the vertex-major corner matrix one axis at a time, dim 0
     first: node(k, (v0, v1, v2, v3)) reduces groups of 4 adjacent rows."""
@@ -170,3 +208,29 @@ def cubic_rectilinear(grids, vals, obs, linearize_extrapolation: bool):
         )
 
     return chunk_queries(impl, obs, 4 ** len(dims), vals.element_size())
+
+
+def cubic_rectilinear_weighted(grids, vals, obs, linearize_extrapolation: bool):
+    """Multicubic eval on a rectilinear grid by weights, for one table
+    (flat) or a stack (nch, prod(dims)) sharing them: the result shaped like
+    obs[0], with a leading nch for a stack. `cubic_rectilinear` within
+    rounding, and its value wherever the contraction is not finite."""
+    dims = tuple(int(g.shape[0]) for g in grids)
+    lin = bool(linearize_extrapolation)
+    stack = vals if vals.dim() == 2 else vals[None]
+
+    def impl(ob):
+        strides = c_strides(dims)
+        base = torch.zeros(ob[0].shape, dtype=torch.int32, device=ob[0].device)
+        weights = []
+        for k in range(len(dims)):
+            loc, w = rectilinear_cubic_weights(ob[k], grids[k], lin)
+            base = base + loc * strides[k]
+            weights.append(w)
+        out = torch.stack([contract_cubic(gather_corners_matrix(v, base, dims, 4), weights)
+                           for v in stack])
+        tree = torch.stack([cubic_rectilinear(grids, v, ob, lin) for v in stack])
+        return torch.where(torch.isfinite(out), out, tree)
+
+    out = chunk_queries(impl, obs, 4 ** len(dims), vals.element_size())
+    return out if vals.dim() == 2 else out[0]

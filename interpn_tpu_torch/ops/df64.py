@@ -42,9 +42,8 @@ from ..utils import c_strides
 from . import fused as _fused
 from ._chunk import chunk_len
 from .bspline import spline_locs_weights
-from .cubic import _axis_reduce_rectilinear, _axis_reduce_regular
+from .cubic import _axis_reduce_regular, rectilinear_cubic_weights, unit_bases
 from .locate import (
-    locate_rectilinear_cubic,
     locate_rectilinear_linear,
     locate_regular_cubic,
     locate_regular_linear,
@@ -221,12 +220,6 @@ def table_taps(vals, dims, footprint):
 # --- per-axis weights in float64 -------------------------------------------------------
 
 
-def _unit_bases(like):
-    zero = torch.zeros((), dtype=like.dtype, device=like.device)
-    one = torch.ones((), dtype=like.dtype, device=like.device)
-    return [tuple(one if j == i else zero for j in range(4)) for i in range(4)]
-
-
 def _axis_weights(dims, starts, steps, grids, obs, method, linearize):
     """Per axis (loc, [w...]) in float64 (`pallas_df64._axis_weights_f64`):
     linear (1 - t, t); cubic the node function on the four unit bases, as
@@ -242,16 +235,13 @@ def _axis_weights(dims, starts, steps, grids, obs, method, linearize):
                 cl = locate_regular_cubic(x, starts[k], steps[k], dims[k])
                 out.append((cl.loc, [
                     _axis_reduce_regular(e, cl.t, cl.low, cl.high, cl.outside, linearize)
-                    for e in _unit_bases(x)]))
+                    for e in unit_bases(x)]))
         elif method == "linear":
             loc, x0, x1 = locate_rectilinear_linear(x, grids[k])
             t = (x - x0) / (x1 - x0)
             out.append((loc, [1.0 - t, t]))
         else:
-            cl, gc = locate_rectilinear_cubic(x, grids[k])
-            out.append((cl.loc, [
-                _axis_reduce_rectilinear(e, x, gc, cl.low, cl.high, cl.outside, linearize)
-                for e in _unit_bases(x)]))
+            out.append(rectilinear_cubic_weights(x, grids[k], linearize))
     return out
 
 

@@ -12,7 +12,10 @@
   `csrc/fused_rectilinear.cu` / `fused_rectilinear_stack.cu`, the
   counterpart of `pallas_v3.eval_rectilinear_pre` (K2: linear, cubic),
   `pallas_v3.eval_rectilinear` (K3: nearest) and
-  `pallas_v3.eval_rectilinear_stack` (K6).
+  `pallas_v3.eval_rectilinear_stack` (K6). Cubic builds each axis's
+  weights once a query and contracts every table's stencil with them,
+  reading the layout `rectilinear_route` picks (K1's staged table and cubic
+  pack, K5's interleave, or the table itself).
 * `eval_bspline` / `eval_bspline_stack` launch `csrc/fused_bspline.cu` /
   `fused_bspline_stack.cu`, the counterpart of `pallas_v3.eval_bspline`
   (K4, and K2's spline use) and `pallas_v3.eval_bspline_stack` (K7).
@@ -36,9 +39,11 @@ the sources for what bounds them on the card.
 
 On a CPU tensor each wrapper runs its kernel's plain version (the `plain_*`
 functions below: the gather trees of `ops/linear.py`, `ops/cubic.py`,
-`ops/nearest.py` and `ops/bspline.py`, over each channel for a stack;
-for K8/K9 the float64 weights, `df64.plain_df64` / `i8.plain_i8` and the
-recombination). On a CUDA tensor it launches the kernel or raises.
+`ops/nearest.py` and `ops/bspline.py`, over each channel for a stack, but
+for rectilinear cubic `cubic.cubic_rectilinear_weighted`, the weights and
+their contraction; for K8/K9 the float64 weights, `df64.plain_df64` /
+`i8.plain_i8` and the recombination). On a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import torch
 
 from .. import _build
 from .bspline import bspline_gather
-from .cubic import cubic_rectilinear, cubic_regular
+from .cubic import cubic_rectilinear, cubic_rectilinear_weighted, cubic_regular
 from .linear import linear_rectilinear, linear_regular
 from .nearest import nearest_rectilinear, nearest_regular
 
@@ -69,19 +74,24 @@ _SINGLE = (*(f"{grid}_{m}" for grid in ("regular", "rectilinear") for m in METHO
 PACK = "regular_pack"  # the quads route's pack, in csrc/fused_regular.cu
 CUBIC_PACK = "regular_cubic_pack"  # the taps routes' pack, in csrc/fused_regular.cu
 INTERLEAVE = "regular_interleave"  # the interleaved route's, in csrc/fused_regular_stack.cu
+# the same layout kernels in the rectilinear sources, launched by K2's and
+# K6's entries
+RECT_CUBIC_PACK = "rectilinear_cubic_pack"
+RECT_INTERLEAVE = "rectilinear_interleave"
 KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES, PACK, CUBIC_PACK,
-           INTERLEAVE)
+           INTERLEAVE, RECT_CUBIC_PACK, RECT_INTERLEAVE)
 
 # Kernel launches by name; a run resets and reads them to show that its main
 # path went through the kernels.
 launches = dict.fromkeys(KERNELS, 0)
 
 # the route codes of csrc/regular.cuh: kDirect, kStaged, kQuads, kInterleaved,
-# kTaps, kTapLanes
-ROUTES = ("direct", "staged", "quads", "interleaved", "taps", "tap_lanes")
-TAP_ROUTES = ROUTES[4:]  # the routes that read the cubic pack
+# kTaps, kTapLanes, kStagedTables
+ROUTES = ("direct", "staged", "quads", "interleaved", "taps", "tap_lanes", "staged_tables")
+TAP_ROUTES = ROUTES[4:6]  # the routes that read the cubic pack
 # the layout kernel that the entry launches before the kernel, by route
 LAYOUTS = {"quads": PACK, "interleaved": INTERLEAVE, **dict.fromkeys(TAP_ROUTES, CUBIC_PACK)}
+RECT_LAYOUTS = {"interleaved": RECT_INTERLEAVE, **dict.fromkeys(TAP_ROUTES, RECT_CUBIC_PACK)}
 # An f32 linear table (a stack read table by table: all its tables) of at
 # most this many bytes is staged in shared memory (kStageBytes in
 # csrc/regular.cuh, which refuses a larger one). Nearest reads one entry a
@@ -103,12 +113,17 @@ TAP_BYTES = 32 * 2**20
 # 4x larger, would not (25^3 and 30^3 f64 ran 5-36% slower through it).
 L1_BYTES = 256 * 1024
 # A linear or nearest stack with this many bytes of channels a table entry
-# or more (8 f32, 4 f64 tables) is read channel-interleaved (kRunBytes).
+# or more (8 f32, 4 f64 tables) is read channel-interleaved (kRunBytes); so
+# is a rectilinear cubic stack of tables above STAGE_BYTES, f32 always, f64
+# up to 3D or above L1_BYTES: on an H100 8 f32 channels a sector ran
+# 4.1-7.4x ahead of direct at 3-5D, 4 f64 1.1-3.6x at 30^3-100^3, 20^4 and
+# 9^5, but 8.5% and 13% behind it at 12^4 and 8^5, whose tables direct
+# reads from L1, and level at 6^6 (`scripts/torch_regular_ab.py`).
 RUN_BYTES = 32
 
 _THREADS = 256  # kThreads in the sources
-# 2048 resident threads per SM at 256 threads a block; the regular family
-# sizes its grid from each instantiation's occupancy instead
+# 2048 resident threads per SM at 256 threads a block; the regular and
+# rectilinear families size their grid in C instead
 _BLOCKS_PER_SM = 8
 _MAX_DIMS = 8
 _INT32_LIMIT = 2**31
@@ -119,12 +134,11 @@ _DIMS = [_INT, ctypes.POINTER(_INT)]  # ndims, dims
 _TAIL = [_VOIDP, _PTRS, _VOIDP, ctypes.c_longlong, _INT, _INT, _VOIDP]
 _FAMILY_ARGTYPES = {
     # (method, linearize, is_f64 | degree, is_f64), ndims, dims, the grid
-    # (starts, steps, the layout buffer of the quads and interleaved routes |
-    # columns | knots), then
-    # vals, obs, out, n, nch, blocks (regular: the route), stream; a family's
-    # single-table and stack sources take the same
+    # (starts, steps, the layout buffer | columns, the layout buffer |
+    # knots), then vals, obs, out, n, nch, blocks (regular, rectilinear: the
+    # route), stream; a family's single-table and stack sources take the same
     "regular": [_INT, _INT, _INT] + _DIMS + [_VOIDP, _VOIDP, _VOIDP] + _TAIL,
-    "rectilinear": [_INT, _INT, _INT] + _DIMS + [_PTRS] + _TAIL,
+    "rectilinear": [_INT, _INT, _INT] + _DIMS + [_PTRS, _VOIDP] + _TAIL,
     "bspline": [_INT, _INT] + _DIMS + [_PTRS] + _TAIL,
     # kind, footprint, linearize, ndims, dims, starts, steps, columns, taps,
     # obs, out, n, blocks, stream
@@ -144,8 +158,9 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-# the regular sources' other entries: method, is_f64, ndims, route, out[4]
-# (`interpn_regular[_stack]_info`); is_f64, ndims, dims, vals, out, stream
+# the regular and rectilinear sources' other entries: method, is_f64, ndims,
+# route, out[4] (`interpn_{regular,rectilinear}[_stack]_info`); is_f64,
+# ndims, dims, vals, out, stream
 # (`interpn_regular_pack`, `interpn_regular_cubic_pack`); is_f64, table,
 # nch, vals, out, stream (`interpn_regular_stack_interleave`)
 _ENTRY_ARGTYPES = {
@@ -233,12 +248,22 @@ def plain_interleave(vals_stack):
     return vals_stack.t().contiguous()
 
 
-def plain_rectilinear(grids, vals, obs, method="linear", linearize=True):
-    """The gather tree that `eval_rectilinear` launches the kernel of."""
+def gather_rectilinear(grids, vals, obs, method="linear", linearize=True):
+    """The gather tree of a rectilinear method (`ops/linear.py`,
+    `ops/cubic.py`, `ops/nearest.py`)."""
     if method == "cubic":
         return cubic_rectilinear(grids, vals, obs, linearize)
     plain = linear_rectilinear if method == "linear" else nearest_rectilinear
     return plain(grids, vals, obs)
+
+
+def plain_rectilinear(grids, vals, obs, method="linear", linearize=True):
+    """What `eval_rectilinear` launches the kernel of: the gather tree, but
+    for cubic the weights and their contraction
+    (`cubic.cubic_rectilinear_weighted`)."""
+    if method == "cubic":
+        return cubic_rectilinear_weighted(grids, vals, obs, linearize)
+    return gather_rectilinear(grids, vals, obs, method)
 
 
 def _per_channel(single, vals_stack):
@@ -253,9 +278,17 @@ def plain_regular_stack(dims, starts, steps, vals_stack, obs, method="linear",
 
 
 def plain_rectilinear_stack(grids, vals_stack, obs, method="linear", linearize=True):
-    """`plain_rectilinear` over each table of the stack."""
+    """`plain_rectilinear` over each table of the stack, cubic's weights
+    built once for all of them."""
+    if method == "cubic":
+        return cubic_rectilinear_weighted(grids, vals_stack, obs, linearize)
+    return gather_rectilinear_stack(grids, vals_stack, obs, method)
+
+
+def gather_rectilinear_stack(grids, vals_stack, obs, method="linear", linearize=True):
+    """`gather_rectilinear` over each table of the stack."""
     return _per_channel(
-        lambda v: plain_rectilinear(grids, v, obs, method, linearize), vals_stack)
+        lambda v: gather_rectilinear(grids, v, obs, method, linearize), vals_stack)
 
 
 plain_bspline = bspline_gather
@@ -305,6 +338,31 @@ def regular_route(dims, dtype, method, nch=None) -> str:
     if nch is None and _packed_size(dims) * dtype.itemsize <= QUAD_BYTES:
         return "quads"
     return "direct"
+
+
+def rectilinear_route(dims, dtype, method, nch=None) -> str:
+    """The layout the rectilinear kernel reads, as `regular_route` decides
+    it for the regular one: for one cubic table `_cubic_route`'s, but one
+    lane a query on the cubic pack from 2D ('taps'; four lanes ran 100^3 f32
+    1.6x slower); for a cubic stack 'staged' where all its tables fit
+    STAGE_BYTES, 'staged_tables' where each does (one table at a time in a
+    double buffer), else 'interleaved' at RUN_BYTES of channels or more (f64
+    from 4D only above L1_BYTES), else 'direct'; linear and nearest
+    'direct'. A function of these arguments alone, and the only place the
+    choice is made."""
+    if method != "cubic":
+        return "direct"
+    if nch is None:
+        route = _cubic_route(dims, dtype)
+        return "taps" if route == "tap_lanes" else route
+    table = math.prod(dims) * dtype.itemsize
+    if table * nch <= STAGE_BYTES:
+        return "staged"
+    if table <= STAGE_BYTES:
+        return "staged_tables"
+    wide = nch * dtype.itemsize >= RUN_BYTES and (
+        dtype == torch.float32 or len(dims) <= 3 or table > L1_BYTES)
+    return "interleaved" if wide else "direct"
 
 
 def _cubic_route(dims, dtype) -> str:
@@ -423,14 +481,15 @@ def interleave(vals_stack):
     return out
 
 
-def regular_info(method, dtype, ndims, route, stacked=False) -> dict:
+def regular_info(method, dtype, ndims, route, stacked=False, family="regular") -> dict:
     """Registers a thread, static shared bytes, local (spill) bytes a thread
     and resident blocks an SM (with the route's reservation of dynamic
     shared memory: the largest staged table on the staged route) of the
-    regular kernel's instantiation for (method, dtype, ndims, route), one
-    table's or a stack's, on the current CUDA device."""
+    regular (`family` "rectilinear": the rectilinear) kernel's
+    instantiation for (method, dtype, ndims, route), one table's or a
+    stack's, on the current CUDA device."""
     got = (_INT * 4)()
-    source = _name("fused_regular", stacked)
+    source = _name(f"fused_{family}", stacked)
     rc = _fn(source, "_info")(_method(method), int(dtype == torch.float64), ndims,
                               ROUTES.index(route), got)
     if rc != 0:
@@ -439,27 +498,34 @@ def regular_info(method, dtype, ndims, route, stacked=False) -> dict:
 
 
 def _regular(dims, starts, steps, vals, obs, method, linearize, *, stacked):
-    code = _method(method)
+    _method(method)  # refuses an unknown method on every device
     dims = tuple(int(d) for d in dims)
     obs = tuple(obs)
     if _device((vals, starts, steps, *obs)).type == "cpu":
         plain = plain_regular_stack if stacked else plain_regular
         return plain(dims, starts, steps, vals, obs, method, linearize)
     n = _check(dims, starts, steps, vals, obs, method, stacked)
-    nch = int(vals.shape[0]) if stacked else None
-    route = regular_route(dims, vals.dtype, method, nch)
+    route = regular_route(dims, vals.dtype, method, int(vals.shape[0]) if stacked else None)
+    return _relaid_launch("regular", route, LAYOUTS, dims, vals, obs, method, linearize, n,
+                          stacked, starts.data_ptr(), steps.data_ptr())
+
+
+def _relaid_launch(family, route, layouts, dims, vals, obs, method, linearize, n, stacked,
+                   *grid_args):
+    """Launch the `family` source's entry on `route`, with the buffer its
+    layout kernel (`layouts[route]`) fills first, which the entry then
+    reads; count the launches. `grid_args` come before the buffer."""
     size = _layout_size(dims, route, vals)
     if size is not None and size >= _INT32_LIMIT:
         raise ValueError(f"the {route} layout of {size} values needs int64 indices")
-    layout = LAYOUTS.get(route) if n else None
+    layout = layouts.get(route) if n else None
     work = None
     if layout:  # the entry lays the table out in this buffer, then reads it
         work = torch.empty(size, dtype=vals.dtype, device=vals.device)
     out = _launch(
-        _name("fused_regular", stacked), _name(f"regular_{method}", stacked),
-        (code, int(bool(linearize)), _is_f64(vals)), dims, vals, obs, n, stacked,
-        starts.data_ptr(), steps.data_ptr(), None if work is None else work.data_ptr(),
-        route=route,
+        _name(f"fused_{family}", stacked), _name(f"{family}_{method}", stacked),
+        (_method(method), int(bool(linearize)), _is_f64(vals)), dims, vals, obs, n, stacked,
+        *grid_args, None if work is None else work.data_ptr(), route=route,
     )
     if layout:
         launches[layout] += 1
@@ -480,7 +546,7 @@ def eval_rectilinear_stack(grids, vals_stack, obs, method="linear", linearize=Tr
 
 
 def _rectilinear(grids, vals, obs, method, linearize, *, stacked):
-    code = _method(method)
+    _method(method)  # refuses an unknown method on every device
     grids = tuple(grids)
     obs = tuple(obs)
     if _device((vals, *grids, *obs)).type == "cpu":
@@ -488,11 +554,10 @@ def _rectilinear(grids, vals, obs, method, linearize, *, stacked):
         return plain(grids, vals, obs, method, linearize)
     n = _check_rectilinear(grids, vals, obs, method, stacked)
     dims = tuple(int(g.shape[0]) for g in grids)
-    return _launch(
-        _name("fused_rectilinear", stacked), _name(f"rectilinear_{method}", stacked),
-        (code, int(bool(linearize)), _is_f64(vals)), dims, vals, obs, n, stacked,
-        (_VOIDP * len(grids))(*(g.data_ptr() for g in grids)),
-    )
+    route = rectilinear_route(dims, vals.dtype, method, int(vals.shape[0]) if stacked else None)
+    return _relaid_launch("rectilinear", route, RECT_LAYOUTS, dims, vals, obs, method,
+                          linearize, n, stacked,
+                          (_VOIDP * len(grids))(*(g.data_ptr() for g in grids)))
 
 
 def eval_bspline(knots, coeffs, obs, k: int):
@@ -590,8 +655,8 @@ def _check_common(dims, vals, obs, params, need, stacked) -> int:
 
 def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route=None):
     """Launch `csrc/<source>.cu` on the current stream; count the launch.
-    The regular family takes its `route` where the others take a block
-    count."""
+    The regular and rectilinear families take their `route` where the
+    B-spline family takes a block count."""
     nch = int(vals.shape[0]) if stacked else 1
     out = torch.empty((nch, n) if stacked else (n,), dtype=vals.dtype, device=vals.device)
     if n == 0 or nch == 0:

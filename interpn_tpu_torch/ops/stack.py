@@ -6,7 +6,9 @@ B-spline coefficient tables) that share one grid, evaluated at the same
 queries into an (nch, *obs[0].shape) block. A CUDA tensor goes to the
 source's kernel with the channel count (`ops/fused.py`, K5-K7: one locate
 and weight build per query for every table, f32 and f64 alike); a CPU tensor
-to the single-table gather tree over each channel. The JAX package's f64
+to the single-table gather tree over each channel (`fused.plain_*_stack`;
+for rectilinear grids `fused.gather_rectilinear_stack`, since the plain
+version of rectilinear cubic contracts weights). The JAX package's f64
 channel loop and `vals_finite` guard answer TPU limits and have no
 counterpart: `vals_finite` is accepted and ignored. Gradients come from the
 per-channel gather tree, as in `ops/dispatch.py`.
@@ -36,7 +38,7 @@ def _rectilinear_stack(method, grids, vals_stack, obs, lin=True):
     ng = len(grids)
     return _stack(
         lambda *a: _fused.eval_rectilinear_stack(a[:ng], a[ng], a[ng + 1 :], method, lin),
-        lambda *a: _fused.plain_rectilinear_stack(a[:ng], a[ng], a[ng + 1 :], method, lin),
+        lambda *a: _fused.gather_rectilinear_stack(a[:ng], a[ng], a[ng + 1 :], method, lin),
         tuple(grids), vals_stack, obs,
     )
 

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Times the port's regular-grid kernels, K1 (one table) and K5 (a stack),
-and the rectilinear K2, which shares K1's cubic tree, against an earlier
-checkout's on one CUDA card, in turns.
+"""Times the port's grid kernels, K1 (regular, one table) and K5 (a
+stack), K2/K3 (rectilinear) and K6 (a stack), and the B-spline kernels K4
+and K7, against an earlier checkout's on one CUDA card, in turns.
 
     PYTHONPATH=. python3 scripts/torch_regular_ab.py --parent DIR
 
 DIR is the root of an earlier checkout of the repository (unpacked with
 `git archive` into a gitignored directory). Its `interpn_tpu_torch`, whose
 imports are relative, is imported beside this checkout's under another
-name, and each builds its two regular sources and the rectilinear one with
-its own `_build.py`, all six at once.
+name, and each builds the sources its cases launch (SOURCES) with its own
+`_build.py`, both checkouts' at once.
 
 Each case of CASES is a table on a [0, 10] grid (random values from a
 seed) and 1e6 queries uniform in [-0.5, 10.5]: every K1 and K5 path of
@@ -37,10 +37,27 @@ seed) and 1e6 queries uniform in [-0.5, 10.5]: every K1 and K5 path of
    from CUDA tensors into a preallocated `out`, in turns, on the host clock
    over one pass of the batches ending in a synchronize.
 
-Each case of RECT_CASES (jittered axes on [0, 10]) times both checkouts'
-`eval_rectilinear` so, parts 1 and 2 without the other routes. One line
-per case, then the card's name and power limit and one JSON object of
-every time; exits non-zero without a CUDA device.
+Each case of RECT_CASES (`chip_smoke.py`'s jittered axes on [0, 10], a
+random table or stack) times both checkouts' `eval_rectilinear[_stack]`
+and this checkout's entry on each other route listed (`fused.
+rectilinear_route` picks this one's) so, parts 1 and 2 without the layout
+kernels and `raw`: this checkout's result bitwise equal to its plain
+version on the card and on every route, and the earlier checkout's
+bitwise equal to it for linear and nearest, within rtol = atol 1e-4 (f32)
+or 1e-13 (f64) for cubic, whose plain version changed from the gather tree
+to a weight contraction (a cubic case beyond that bar is timed all the
+same and printed with both checkouts' largest errors against the float64
+plain version on the same inputs, and the script then exits non-zero);
+registers, local bytes and blocks an SM of each
+route timed (`fused.regular_info(..., family="rectilinear")`) and the
+earlier checkout's (the same, or its ptxas log). Each case of
+BSPLINE_CASES (`chip_smoke.py`'s spline paths) times both checkouts'
+`eval_bspline[_stack]` so, bitwise equal. `--paths REGEX` keeps the cases
+whose label it finds, and the build only their sources; `--unchecked`
+compares no rectilinear result of the earlier checkout (a copy whose kernel
+skips part of the work, timed to see what the rest costs). One line per
+case, then the card's name and power limit and one JSON object of every
+time; exits non-zero without a CUDA device.
 
     PYTHONPATH=. python3 scripts/torch_regular_ab.py --parent DIR --engines
 
@@ -60,7 +77,7 @@ checkout's instantiation (`ops.fused.engine_info`) and the registers and
 stack frame of the earlier one's (its ptxas log). An earlier checkout whose
 kernels build the weights too (it has `ops.fused.i8_route`), such as a copy
 of this one with a variant of a kernel, is timed by its whole call on both
-sides. `--paths TEXT` keeps the paths whose label holds TEXT.
+sides. `--paths REGEX` keeps the paths whose label it finds.
 """
 
 from __future__ import annotations
@@ -68,7 +85,6 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
-import itertools
 import json
 import re
 import statistics
@@ -85,7 +101,8 @@ from interpn_tpu_torch import _build
 from interpn_tpu_torch.ops import fused
 from interpn_tpu_torch.utils.profiling import cuda_time
 
-SOURCES = ("fused_regular", "fused_regular_stack", "fused_rectilinear")
+SOURCES = ("fused_regular", "fused_regular_stack", "fused_rectilinear",
+           "fused_rectilinear_stack", "fused_bspline", "fused_bspline_stack")
 ENGINE_SOURCES = ("fused_df64", "fused_i8")
 N, BATCHES, LO, HI = 1_000_000, 20, -0.5, 10.5
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
@@ -133,15 +150,66 @@ CASES = [
       for method in ("linear", "nearest") for n, nd in ((12, 4), (8, 5), (4, 8))
       for dt, nch in (("f32", 8), ("f64", 4))),
 ]
-# (method, points an axis, ndims, dtype) of K2
-RECT_CASES = [("cubic", 20, 3, "f32"), ("cubic", 20, 3, "f64"), ("cubic", 100, 3, "f32"),
-              ("linear", 20, 3, "f32")]
+# K2, K3 and K6 as CASES: (method, points an axis, ndims, dtype, tables of a
+# stack or None, the other routes timed)
+RECT_CASES = [
+    ("cubic", 20, 3, "f32", None, ("direct",)),
+    ("cubic", 20, 3, "f64", None, ("direct",)),
+    ("cubic", 100, 3, "f32", None, ("direct",)),
+    ("cubic", 12, 4, "f32", None, ("taps", "direct")),
+    ("cubic", 20, 3, "f32", 8, ("interleaved", "direct")),
+    ("cubic", 20, 3, "f32", 3, ("staged_tables", "interleaved", "direct")),
+    ("cubic", 20, 3, "f64", 4, ("interleaved", "direct")),
+    # stacks of tables above STAGE_BYTES each: interleaved against direct
+    ("cubic", 40, 3, "f32", 8, ("interleaved", "direct")),
+    ("cubic", 40, 3, "f64", 4, ("interleaved", "direct")),
+    ("cubic", 100, 3, "f32", 8, ("interleaved", "direct")),
+    ("cubic", 100, 3, "f64", 4, ("interleaved", "direct")),
+    ("cubic", 12, 4, "f64", 4, ("interleaved", "direct")),
+    ("cubic", 20, 4, "f64", 4, ("interleaved", "direct")),
+    ("cubic", 8, 5, "f64", 4, ("interleaved", "direct")),
+    ("cubic", 14, 4, "f32", 8, ("interleaved", "direct")),
+    ("cubic", 20, 4, "f32", 8, ("interleaved", "direct")),
+    ("cubic", 12, 5, "f32", 8, ("interleaved", "direct")),
+    # f64 tables on either side of L1_BYTES
+    ("cubic", 30, 3, "f64", 4, ("interleaved", "direct")),
+    ("cubic", 9, 5, "f64", 4, ("interleaved", "direct")),
+    ("cubic", 6, 6, "f64", 4, ("interleaved", "direct")),
+    ("linear", 20, 3, "f32", None, ()),
+    ("nearest", 20, 3, "f32", None, ()),
+    ("linear", 20, 3, "f32", 8, ()),
+    ("nearest", 20, 3, "f32", 8, ()),
+]
+# K4 and K7: (spline degree, points an axis, ndims, dtype, tables of a stack
+# or None), `chip_smoke.py`'s spline paths
+BSPLINE_CASES = [(3, 20, 3, "f32", None), (3, 20, 3, "f64", None), (3, 100, 2, "f64", None),
+                 (5, 20, 3, "f32", None), (3, 20, 3, "f32", 8)]
+# cubic against an earlier checkout whose plain version was the gather tree:
+# the JAX package's bars of a weight contraction against it
+GATHER_TOL = {torch.float32: 1e-4, torch.float64: 1e-13}
+# whether the earlier checkout's rectilinear results are held against this
+# one's (not with --unchecked: a copy whose kernel skips part of the work)
+COMPARE_EARLIER = True
 
 
-def label(case) -> str:
+def label(case, family="regular") -> str:
     method, n, nd, dt, nch, _ = case
     stack = f"stack of {nch} " if nch else ""
-    return f"K{5 if nch else 1} {method} {stack}{n}^{nd} {dt}"
+    if family == "regular":
+        k = 5 if nch else 1
+    else:
+        k = 6 if nch else (3 if method == "nearest" else 2)
+    return f"K{k} {method} {stack}{n}^{nd} {dt}"
+
+
+def bspline_label(case) -> str:
+    k, n, nd, dt, nch = case
+    what = {3: "cubic_spline", 5: "quintic"}[k]
+    return f"K{7 if nch else 4} {what} {f'stack of {nch} ' if nch else ''}{n}^{nd} {dt}"
+
+
+def source_of(family, case) -> str:
+    return f"fused_{family}{'_stack' if case[4] else ''}"
 
 
 def grid(case, cuda):
@@ -249,21 +317,108 @@ def layout_fns(case, route, earlier, vals) -> dict:
     return {}
 
 
+def earlier_rect_info(earlier, case) -> dict:
+    """Registers (and, where the earlier checkout reports them, local bytes
+    and blocks an SM) of the earlier rectilinear instantiation for the case."""
+    method, n, nd, dt, nch, _ = case
+    try:
+        return earlier.regular_info(method, DTYPES[dt], nd, "direct", bool(nch), "rectilinear")
+    except TypeError:  # a checkout before the rectilinear routes: its ptxas log
+        build = importlib.import_module("earlier_port._build")
+        log = build.library_path(source_of("rectilinear", case)).with_suffix(".log").read_text()
+        t = "d" if dt == "f64" else "f"
+        m = re.search(rf"rectilinear_kernelI{t}Li{nd}ELi"
+                      rf"{fused.METHODS.index(method)}ELb{int(bool(nch))}E\S*' for \S+\n[^\n]*\n"
+                      r"\s+(\d+) bytes stack frame[^\n]*\n[^\n]*Used (\d+) registers", log)
+        return {"registers": int(m.group(2)), "stack_bytes": int(m.group(1))} if m else {}
+
+
 def rect_times(case, earlier, cuda) -> dict:
-    """Parts 1 and 2 of a RECT_CASES case: both checkouts' K2 through
-    `eval_rectilinear`, every result bitwise equal to the earlier one's."""
+    """Parts 1 and 2 of a RECT_CASES case (see the module's docstring)."""
     import chip_smoke as cs
 
-    method, n, nd, dt = case
+    method, n, nd, dt, nch, others = case
     dtype = DTYPES[dt]
     rng = np.random.default_rng(n * 10 + nd)
     axes = tuple(torch.as_tensor(a, dtype=dtype, device=cuda) for a in cs.bench_rect_axes(n, nd))
-    vals = torch.as_tensor(rng.standard_normal(n**nd), dtype=dtype, device=cuda)
-    fns = {side: (lambda ob, m=m: m.eval_rectilinear(axes, vals, ob, method))
-           for side, m in (("earlier", earlier), ("this", fused))}
-    main = batches((method, n, nd, dt, None, ()), cuda)
-    cs.bitwise(fns["this"](main[0]), fns["earlier"](main[0]), f"K2 {method} {n}^{nd} {dt}")
-    entry = {"case": f"K2 {method} {n}^{nd} {dt}", "route": "this", "kernel_ms": {},
+    vals = torch.as_tensor(rng.standard_normal((nch, n**nd) if nch else n**nd), dtype=dtype,
+                           device=cuda)
+    dims = (n,) * nd
+    picked = fused.rectilinear_route(dims, dtype, method, nch)
+
+    def public(m):
+        f = m.eval_rectilinear_stack if nch else m.eval_rectilinear
+        return lambda ob: f(axes, vals, ob, method)
+
+    def on_route(route):
+        cols = (fused._VOIDP * nd)(*(g.data_ptr() for g in axes))
+        return lambda ob: fused._relaid_launch("rectilinear", route, fused.RECT_LAYOUTS, dims,
+                                               vals, ob, method, True, ob[0].shape[0],
+                                               bool(nch), cols)
+
+    fns = {"earlier": public(earlier), picked: public(fused)}
+    fns.update({r: on_route(r) for r in others if r != picked})
+    main = batches((method, n, nd, dt, nch, ()), cuda)
+    what = label(case, "rectilinear")
+    plain = fused.plain_rectilinear_stack if nch else fused.plain_rectilinear
+    want = fns[picked](main[0])
+    cs.bitwise(want, plain(axes, vals, main[0], method), f"{what}: {picked} vs plain")
+    for r in fns:
+        if r not in ("earlier", picked):
+            cs.bitwise(fns[r](main[0]), want, f"{what}: {r} vs {picked}")
+    got = fns["earlier"](main[0])
+    entry = {"case": what, "route": picked, "kernel_ms": {}, "loop_ms": {}, "issue_ms": {}}
+    if not COMPARE_EARLIER:
+        pass
+    elif method == "cubic":
+        try:
+            torch.testing.assert_close(got, want, rtol=GATHER_TOL[dtype],
+                                       atol=GATHER_TOL[dtype], equal_nan=True)
+        except AssertionError as e:
+            entry["mismatch"] = beyond_the_bar(e, got, want, plain, axes, vals, main[0], method)
+    else:
+        cs.bitwise(got, want, f"{what}: earlier vs this")
+    for name in [*fns, *reversed(fns)]:
+        entry["kernel_ms"].setdefault(name, []).append(cuda_time(fns[name], main).device_ms)
+    for side in ("earlier", "this", "this", "earlier"):
+        loop, issue = back_to_back(fns["earlier" if side == "earlier" else picked], main)
+        entry["loop_ms"].setdefault(side, []).extend(loop)
+        entry["issue_ms"].setdefault(side, []).extend(issue)
+    entry["info"] = {r: fused.regular_info(method, dtype, nd, r, bool(nch), "rectilinear")
+                     for r in fns if r != "earlier"}
+    entry["info"]["earlier"] = earlier_rect_info(earlier, case)
+    return entry
+
+
+def beyond_the_bar(error, got, want, plain, axes, vals, obs, method) -> dict:
+    """Where the earlier checkout's cubic result and this one's differ
+    beyond GATHER_TOL: the failed comparison, and each one's largest error
+    against the plain version in float64 on the same inputs (the float64
+    weight contraction, within 1e-13 of the exact value of those inputs)."""
+    ref = plain(tuple(a.double() for a in axes), vals.double(),
+                tuple(o.double() for o in obs), method)
+    far = (got.double() - want.double()).abs().argmax()
+    return {"failed": str(error).splitlines()[:4],
+            "error_vs_f64": {name: (r.double() - ref).abs().max().item()
+                             for name, r in (("earlier", got), ("this", want))},
+            "at_worst_difference": {name: (r.double() - ref).flatten()[far].abs().item()
+                                    for name, r in (("earlier", got), ("this", want))}}
+
+
+def bspline_times(case, earlier, cuda) -> dict:
+    """Parts 1 and 2 of a BSPLINE_CASES case: both checkouts' K4 (K7)
+    through `eval_bspline[_stack]` on `chip_smoke.path_grid`'s knots and
+    coefficients, bitwise equal."""
+    import chip_smoke as cs
+
+    k, n, nd, dt, nch = case
+    p = cs.Path(f"bspline_k{k}{'_stack' if nch else ''}", DTYPES[dt], n, nd)
+    knots, coeffs = cs.path_grid(p, cuda)
+    fns = {side: (lambda ob, m=m: (m.eval_bspline_stack if nch else m.eval_bspline)(
+        knots, coeffs, ob, k)) for side, m in (("earlier", earlier), ("this", fused))}
+    main = batches(("", n, nd, dt, nch, ()), cuda)
+    cs.bitwise(fns["this"](main[0]), fns["earlier"](main[0]), f"{p.label}: this vs earlier")
+    entry = {"case": bspline_label(case), "route": "this", "kernel_ms": {},
              "loop_ms": {}, "issue_ms": {}}
     for side in ("earlier", "this", "this", "earlier"):
         entry["kernel_ms"].setdefault(side, []).append(cuda_time(fns[side], main).device_ms)
@@ -336,7 +491,7 @@ def case_times(case, earlier, cuda) -> dict:
 def engine_paths(only=None):
     import chip_smoke as cs
 
-    return [p for p in cs.PATHS if p.engine and (only is None or only in p.label)]
+    return [p for p in cs.PATHS if p.engine and (only is None or re.search(only, p.label))]
 
 
 def engine_fns(port, p, grid):
@@ -495,15 +650,27 @@ def main() -> None:
                         help="root of the earlier checkout")
     parser.add_argument("--engines", action="store_true",
                         help="time the f64 engines K8 and K9 instead")
-    parser.add_argument("--paths", help="engine paths whose label holds this text only")
+    parser.add_argument("--paths", help="the cases (engine paths) whose label this regular "
+                        "expression finds only")
+    parser.add_argument("--unchecked", action="store_true",
+                        help="time the earlier checkout's rectilinear kernels without holding "
+                        "their results against this one's (a copy whose kernel skips work)")
     args = parser.parse_args()
+    global COMPARE_EARLIER
+    COMPARE_EARLIER = not args.unchecked
     if not torch.cuda.is_available():
         sys.exit("torch_regular_ab: torch.cuda.is_available() is False; needs a CUDA device")
     cuda = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     earlier = load_earlier(args.parent.resolve())
-    sources = ENGINE_SOURCES if args.engines else SOURCES
+    cases = [(case_times, c, label(c), source_of("regular", c)) for c in CASES]
+    cases += [(rect_times, c, label(c, "rectilinear"), source_of("rectilinear", c))
+              for c in RECT_CASES]
+    cases += [(bspline_times, c, bspline_label(c), source_of("bspline", c))
+              for c in BSPLINE_CASES]
+    cases = [c for c in cases if args.paths is None or re.search(args.paths, c[2])]
+    sources = ENGINE_SOURCES if args.engines else sorted({c[3] for c in cases})
     with ThreadPoolExecutor(2) as pool:
         for built in [pool.submit(b.build_all, sources) for b in (_build, earlier._build)]:
             built.result()
@@ -516,8 +683,8 @@ def main() -> None:
         print(json.dumps({"card": smi, "engines": record}))
         return
     record = []
-    for entry in itertools.chain((case_times(c, earlier, cuda) for c in CASES),
-                                 (rect_times(c, earlier, cuda) for c in RECT_CASES)):
+    for times, case, _, _ in cases:
+        entry = times(case, earlier, cuda)
         record.append(entry)
         best = {k: min(v) for k, v in entry["kernel_ms"].items()}
         kern = "; ".join(f"{k} {v:.4f}" for k, v in best.items())
@@ -526,15 +693,17 @@ def main() -> None:
                           for k, v in entry["issue_ms"].items())
         extra = ""
         if "info" in entry:
-            extra += "; registers/local bytes/blocks an SM: " + ", ".join(
-                f"{k} {i['registers']}/{i['local_bytes']}/{i['blocks_per_sm']}"
-                for k, i in entry["info"].items())
+            extra += "; registers/static shared bytes/local bytes/blocks an SM: " + ", ".join(
+                f"{k} " + "/".join(f"{v}" for v in i.values()) for k, i in entry["info"].items())
         if "raw_ms" in entry:
             extra += "; raw entry ms/call, best of two: " + ", ".join(
                 f"{k} {min(v):.4f}" for k, v in entry["raw_ms"].items())
         if "layout_ms" in entry:
             extra += "; layout kernel alone, best of two: " + ", ".join(
                 f"{k} {min(v):.4f}" for k, v in entry["layout_ms"].items())
+        if "mismatch" in entry:
+            extra += (f"; EARLIER DIFFERS BEYOND rtol = atol {GATHER_TOL[DTYPES[case[3]]]}: "
+                      f"{json.dumps(entry['mismatch'])}")
         if "in_grid_ms" in entry:
             extra += "; in the grid: " + ", ".join(
                 f"{k} {min(v):.4f}" for k, v in entry["in_grid_ms"].items())
@@ -543,6 +712,8 @@ def main() -> None:
               f"of 10 passes: {loop}; host ms/call: {issue}{extra}", flush=True)
     print(smi)
     print(json.dumps({"card": smi, "cases": record}))
+    if any("mismatch" in entry for entry in record):
+        sys.exit("torch_regular_ab: the earlier checkout's results differ beyond the bar")
 
 
 if __name__ == "__main__":

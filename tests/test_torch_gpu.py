@@ -298,8 +298,8 @@ def test_rectilinear_kernel_equals_plain(cuda, dims, dtype, method, lin):
     grids, vals, obs = _rect_case(dims, dtype, cuda, n=_n(dims, 20_000), seed=len(dims))
     got = _launched(f"rectilinear_{method}",
                     lambda: fused.eval_rectilinear(grids, vals, obs, method, lin))
-    if method == "cubic":
-        want = cubic.cubic_rectilinear(grids, vals, obs, lin)
+    if method == "cubic":  # the weights and their contraction
+        want = fused.plain_rectilinear(grids, vals, obs, method, lin)
     elif method == "linear":
         want = linear.linear_rectilinear(grids, vals, obs)
     else:
@@ -341,6 +341,168 @@ def test_rectilinear_grid_nodes_exact(cuda, dtype):
     for method, lin in (("cubic", True), ("cubic", False), ("nearest", True)):
         got = fused.eval_rectilinear(grids, vals_t, obs, method, lin)
         assert torch.equal(got, vals_t), method
+
+
+def _rect_grid(dims, dtype, device, seed):
+    """Jittered sorted axes of `dims` on the device."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(np.cumsum(0.2 + rng.random(d)), dtype=dtype, device=device)
+                 for d in dims)
+
+
+def _rect_obs(grids, n, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(_obs(rng, float(g[0]), float(g[-1]), n), dtype=g.dtype,
+                                 device=g.device) for g in grids)
+
+
+def _spoil(vals, seed):
+    """A copy of the table (or stack) with a NaN, +inf and -inf inside."""
+    rng = np.random.default_rng(seed)
+    out = vals.clone().reshape(-1)
+    spots = torch.as_tensor(rng.choice(out.numel(), 3, replace=False), device=vals.device)
+    out[spots] = torch.tensor([math.nan, math.inf, -math.inf], dtype=vals.dtype,
+                              device=vals.device)
+    return out.reshape(vals.shape)
+
+
+@pytest.mark.parametrize("ndims", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_rectilinear_cubic_routes_around_the_caps(cuda, ndims, dtype):
+    """K2 cubic on tables at and one row over each cap of its route
+    (`fused.rectilinear_route`: staged, the cubic pack, direct), both
+    extrapolation modes, on a random table and on the same
+    table with a NaN and infinities inside: bitwise the plain version (where
+    a contraction is not finite, the gather tree's value); the cubic pack
+    launched once a call on the taps routes."""
+    for dims in _cubic_cap_dims(ndims, dtype):
+        grids = _rect_grid(dims, dtype, cuda, seed=ndims)
+        obs = _rect_obs(grids, min(20_000, 2**24 // 4**ndims), seed=ndims)
+        vals = torch.as_tensor(np.random.default_rng(ndims).standard_normal(math.prod(dims)),
+                               dtype=dtype, device=cuda)
+        route = fused.rectilinear_route(dims, dtype, "cubic")
+        for table, lin in ((vals, True), (vals, False), (_spoil(vals, ndims), True)):
+            fused.reset_launches()
+            got = fused.eval_rectilinear(grids, table, obs, "cubic", lin)
+            want = {"rectilinear_cubic": 1,
+                    fused.RECT_CUBIC_PACK: int(route in fused.TAP_ROUTES)}
+            assert fused.launches == {k: want.get(k, 0) for k in fused.launches}, dims
+            _equal(got, fused.plain_rectilinear(grids, table, obs, "cubic", lin))
+
+
+@pytest.mark.parametrize("route", ["staged", "taps", "direct"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_rectilinear_cubic_every_route_at_20_cubed(cuda, route, dtype):
+    """Each cubic route of K2's entry on the same 20^3 table: bitwise the
+    plain version, at the grid's nodes the table itself, and where the
+    table holds a NaN or an infinity the gather tree's value."""
+    dims = (20, 20, 20)
+    grids = _rect_grid(dims, dtype, cuda, seed=5)
+    vals = torch.as_tensor(np.random.default_rng(5).standard_normal(8000), dtype=dtype,
+                           device=cuda)
+    cols = (fused._VOIDP * 3)(*(g.data_ptr() for g in grids))
+
+    def on_route(table, obs, lin):
+        return fused._relaid_launch("rectilinear", route, fused.RECT_LAYOUTS, dims, table,
+                                    obs, "cubic", lin, obs[0].shape[0], False, cols)
+
+    obs = _rect_obs(grids, 20_000, seed=6)
+    spoilt = _spoil(vals, 6)
+    for lin in (True, False):
+        _equal(on_route(vals, obs, lin), fused.plain_rectilinear(grids, vals, obs, "cubic", lin))
+        got = on_route(spoilt, obs, lin)
+        _equal(got, fused.plain_rectilinear(grids, spoilt, obs, "cubic", lin))
+        tree = cubic.cubic_rectilinear(grids, spoilt, obs, lin)
+        off = ~torch.isfinite(got)
+        _equal(got[off], tree[off])
+        nodes = tuple(g[torch.from_numpy(i).to(cuda)] for g, i in zip(grids, _nodes()))
+        assert torch.equal(on_route(vals, nodes, lin), vals), (route, lin)
+
+
+@pytest.mark.parametrize("n,nch", [(20, 1), (20, 3), (20, 4), (20, 8), (40, 3), (40, 8)],
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("lin", [True, False], ids=["linearize", "quadratic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_rectilinear_cubic_stacks(cuda, n, nch, lin, dtype):
+    """K6 cubic on 20^3 stacks of 1, 3, 4 and 8 tables, and on 40^3 stacks
+    of 3 and 8: staged while the stack fits STAGE_BYTES, a table at a time
+    while each table does, else interleaved from 8 f32 or 4 f64 tables,
+    else direct; bitwise against the plain version (one weight build for
+    every table) and, table by table, against K2; with a NaN and infinities
+    in some tables."""
+    dims = (n, n, n)
+    grids = _rect_grid(dims, dtype, cuda, seed=nch)
+    obs = _rect_obs(grids, 20_000, seed=nch)
+    vals = torch.as_tensor(np.random.default_rng(nch).standard_normal((nch, n**3)),
+                           dtype=dtype, device=cuda)
+    route = fused.rectilinear_route(dims, dtype, "cubic", nch)
+    size = n**3 * vals.element_size()
+    if size * nch <= fused.STAGE_BYTES:
+        assert route == "staged"
+    elif size <= fused.STAGE_BYTES:
+        assert route == "staged_tables"
+    else:
+        # at 3D f64 stacks of 4 are interleaved too
+        assert route == ("interleaved" if nch * vals.element_size() >= 32 else "direct")
+    for table in (vals, _spoil(vals, nch)):
+        fused.reset_launches()
+        got = fused.eval_rectilinear_stack(grids, table, obs, "cubic", lin)
+        want = {"rectilinear_cubic_stack": 1, fused.RECT_INTERLEAVE: int(route == "interleaved")}
+        assert fused.launches == {k: want.get(k, 0) for k in fused.launches}
+        _equal(got, fused.plain_rectilinear_stack(grids, table, obs, "cubic", lin))
+        for c in range(nch):
+            _equal(got[c], fused.eval_rectilinear(grids, table[c], obs, "cubic", lin))
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("nch", [None, 3], ids=["table", "stack3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_rectilinear_cubic_staged_at_an_unaligned_offset(cuda, offset, nch, dtype):
+    """A staged table or stack that is a view `offset` entries into its
+    storage: bitwise the plain version and the same values aligned."""
+    dims = (12, 10, 9)
+    grids = _rect_grid(dims, dtype, cuda, seed=offset)
+    obs = _rect_obs(grids, 20_000, seed=offset)
+    shape = (nch, 1080) if nch else (1080,)
+    vals = torch.as_tensor(np.random.default_rng(offset).standard_normal(shape), dtype=dtype,
+                           device=cuda)
+    storage = torch.zeros(offset + vals.numel() + 5, dtype=dtype, device=cuda)
+    view = storage[offset:offset + vals.numel()].view(shape)
+    view.copy_(vals)
+    assert fused.rectilinear_route(dims, dtype, "cubic", nch) == "staged"
+    kern = fused.eval_rectilinear_stack if nch else fused.eval_rectilinear
+    plain = fused.plain_rectilinear_stack if nch else fused.plain_rectilinear
+    for lin in (True, False):
+        got = kern(grids, view, obs, "cubic", lin)
+        _equal(got, plain(grids, view, obs, "cubic", lin))
+        _equal(got, kern(grids, vals, obs, "cubic", lin))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype,nch", [(torch.float32, 4), (torch.float64, 3)],
+                         ids=["float32-stack4", "float64-stack3"])
+def test_rectilinear_cubic_staged_tables_at_unaligned_offsets(cuda, offset, dtype, nch):
+    """A stack a table at a time (`staged_tables`) whose tables' bytes are
+    no multiple of 16 (21^3 entries), so that most tables start off a
+    16-byte boundary and their copies load an unaligned head and tail
+    apart from the `cp.async` middle, aligned and as a view `offset` entries
+    into its storage: bitwise the plain version and the same values
+    aligned, with a NaN and infinities in some tables."""
+    dims = (21, 21, 21)
+    assert math.prod(dims) * torch.finfo(dtype).bits // 8 % 16 != 0
+    grids = _rect_grid(dims, dtype, cuda, seed=offset)
+    obs = _rect_obs(grids, 20_000, seed=offset)
+    vals = torch.as_tensor(np.random.default_rng(offset).standard_normal((nch, 21**3)),
+                           dtype=dtype, device=cuda)
+    assert fused.rectilinear_route(dims, dtype, "cubic", nch) == "staged_tables"
+    for table in (vals, _spoil(vals, offset)):
+        storage = torch.zeros(offset + table.numel() + 5, dtype=dtype, device=cuda)
+        view = storage[offset:offset + table.numel()].view(table.shape)
+        view.copy_(table)
+        for lin in (True, False):
+            got = fused.eval_rectilinear_stack(grids, view, obs, "cubic", lin)
+            _equal(got, fused.plain_rectilinear_stack(grids, view, obs, "cubic", lin))
+            _equal(got, fused.eval_rectilinear_stack(grids, table, obs, "cubic", lin))
 
 
 def test_kernel_empty_batch_and_refusals(cuda):
@@ -421,6 +583,15 @@ def test_entry_points_launch_the_kernels(cuda):
         grids = [axes] * 3 if isinstance(axes, np.ndarray) else axes
         with config.device("cpu"):
             want = interpn_tpu_torch.interpn(obs, grids, vals.reshape(20, 20, 20), method=method)
+        if kernel == "rectilinear_cubic":
+            # interpn() on the CPU runs the gather tree; the kernel's own
+            # function on the CPU is its plain version, the weight
+            # contraction, which holds the tree at the f32 bar
+            plain = fused.eval_rectilinear(
+                [torch.from_numpy(a) for a in axes], torch.from_numpy(vals),
+                [torch.from_numpy(o) for o in obs], "cubic", True).numpy()
+            np.testing.assert_allclose(plain, want, rtol=1e-4, atol=1e-4)
+            want = plain
         out = np.zeros(n, np.float32)
         _launched(kernel, lambda: call(obs, out))
         tout = torch.zeros(n, device=cuda)

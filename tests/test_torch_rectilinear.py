@@ -173,12 +173,17 @@ def test_fused_rectilinear_plain_matches_pallas_k2(_interpret_mode, dims, route)
 
 @pytest.mark.parametrize("method", ["linear", "cubic", "nearest"])
 def test_fused_rectilinear_cpu_is_the_gather_tree(method):
+    """The wrapper's CPU route is its plain version: the gather tree, but
+    for cubic the weights and their contraction, which hold the gather tree
+    at f64 rtol=atol=1e-13 and give its NaNs."""
     dims = (6, 5, 7)
     args = _port(*_case(dims, np.float64), np.float64)
     for lin in (True, False):
         got = tfused.eval_rectilinear(*args, method, lin)
         if method == "cubic":
-            want = tcubic.cubic_rectilinear(*args, lin)
+            tree = tcubic.cubic_rectilinear(*args, lin)
+            torch.testing.assert_close(got, tree, rtol=1e-13, atol=1e-13, equal_nan=True)
+            want = tfused.plain_rectilinear(*args, method, lin)
         else:
             want = getattr(tdispatch, f"_{method}_rect_gather")(*args)
         torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)

@@ -247,7 +247,7 @@ def test_stack_kernel_route_grads_match_jax(method):
     leaves = [torch.tensor(a, requires_grad=True) for a in (*grid, vals, *obs)]
     out = tdispatch.KernelRoute.apply(
         lambda *a: tfused.eval_rectilinear_stack(a[:3], a[3], a[4:], method, *lin),
-        lambda *a: tfused.plain_rectilinear_stack(a[:3], a[3], a[4:], method, *lin),
+        lambda *a: tfused.gather_rectilinear_stack(a[:3], a[3], a[4:], method, *lin),
         *leaves,
     )
     out.backward(torch.from_numpy(cot))
