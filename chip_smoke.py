@@ -13,25 +13,27 @@ call computes the same function, that call.
 
     python3 chip_smoke.py
 
-Phases: 1 build (seconds, registers, spills; for K1/K5 and K2/K3/K6 also
-shared memory and blocks an SM of every instantiation), 2 kernel vs plain,
-bitwise
-(f32/f64, 1-8D, both cubic extrapolation modes, spline degrees 3 and 5,
+Phases: 1 build (seconds, registers, spills; for K1/K5, K2/K3/K6 and
+K4/K7 also shared memory and blocks an SM of every instantiation), 2
+kernel vs plain, bitwise (f32/f64, 1-8D, both cubic extrapolation modes, spline degrees 3 and 5,
 stacks of 1, 3 and 8, NaN and +-inf; K1's linear and nearest routes
 (staged, quads, direct) and cubic routes (staged, taps at 2D, four lanes
 on the taps from 3D, direct) under and over each cap, 100^3 and tables at
 odd offsets; the two packs and the interleave; K2/K6's cubic routes
 (staged, staged tables, taps, interleaved, direct) at and over each cap,
 on tables holding a NaN and infinities, at every node, and at the bench
-paths in both modes and dtypes; K8 and K9 on f64 2-8D, one
+paths in both modes and dtypes; K5 cubic's and K7's stack routes (staged
+groups, interleaved, direct) on stacks of 1, 3, 4, 8, 9 and 17 tables of
+20^3 and 21^3 (1 to 6 groups), aligned and at odd offsets, with NaN and
++-inf in the tables, each row against K1 / K4; K8 and K9 on f64 2-8D, one
 launch each from the queries against the plain chain that builds the
 float64 weights in torch, and K8 at the float range's edges), 3 nodes
 (exact, splines within 1e-11, K8 to the table's hi + lo, K9 within
 1e-13), 4 the paths (launch counts, the quads route's pack and the taps
 routes' cubic pack beside K1 and the interleave beside K5, the cubic pack
 beside K2 at 100^3, no torch weight build on an engine path, the route of
-each grid kernel, and checks; rectilinear cubic also against the gather
-tree at f32 1e-4, f64 1e-13), 5 timing: each kernel from CUDA
+each grid and spline kernel, and checks; rectilinear cubic also against
+the gather tree at f32 1e-4, f64 1e-13), 5 timing: each kernel from CUDA
 events behind a head start (`utils/profiling.py::cuda_time`), each plain
 version from the profiler's device events (`profiled_time`), for K8/K9
 also the whole call through the op a user calls, and the three layout
@@ -101,23 +103,28 @@ class Path:
         kernel, once a call: the layout kernel of its route (the quads
         route's pack, the taps routes' cubic pack, the interleaved route's
         interleave)."""
-        if self.engine or self.kind == "bspline":
+        if self.engine:
             return None
         from interpn_tpu_torch.ops import fused
 
-        return (fused.LAYOUTS if self.kind == "regular" else fused.RECT_LAYOUTS).get(self.route)
+        layouts = {"regular": fused.LAYOUTS, "rectilinear": fused.RECT_LAYOUTS,
+                   "bspline": fused.BSPLINE_LAYOUTS}[self.kind]
+        return layouts.get(self.route)
 
     @property
     def route(self) -> str | None:
         """The layout its kernel reads (`fused.regular_route`,
-        `fused.rectilinear_route`); None for a spline or an engine path."""
-        if self.engine or self.kind == "bspline":
+        `fused.rectilinear_route`, `fused.bspline_route`); None for an
+        engine path."""
+        if self.engine:
             return None
         from interpn_tpu_torch.ops import fused
 
+        nch = NCH if self.stacked else None
+        if self.kind == "bspline":
+            return fused.bspline_route((self.n,) * self.ndims, self.dtype, self.k, nch)
         choose = fused.regular_route if self.kind == "regular" else fused.rectilinear_route
-        return choose((self.n,) * self.ndims, self.dtype, self.method,
-                      NCH if self.stacked else None)
+        return choose((self.n,) * self.ndims, self.dtype, self.method, nch)
 
     @property
     def native(self) -> "Path":
@@ -225,13 +232,18 @@ def replaces(p: Path) -> str:
 def served(method: str, route: str, stacked: bool, ndims: int, family="regular") -> bool:
     """Whether K1 (K5 where `stacked`) has an instantiation for the method
     on the route (csrc/regular.cuh::serves): staged serves linear and
-    single-table cubic, quads single-table linear, interleaved the linear
-    and nearest stacks, taps single-table cubic at 2D, tap lanes from 3D.
+    single-table cubic, staged groups the cubic stacks, quads single-table
+    linear, interleaved the linear and nearest stacks, taps single-table
+    cubic at 2D, tap lanes from 3D.
     For the rectilinear `family`, K2 (K6) (csrc/rectilinear.cuh::rect_serves):
     direct every method; staged cubic; staged tables and interleaved the
-    cubic stacks; taps single-table cubic from 2D."""
+    cubic stacks; taps single-table cubic from 2D. For the B-spline
+    `family`, K4 (K7) (csrc/bspline.cuh::spline_serves): direct; staged
+    groups and interleaved the stacks."""
     from interpn_tpu_torch.ops import fused
 
+    if family == "bspline":  # K4, K7 of any degree (csrc/bspline.cuh::spline_serves)
+        return route == "direct" or (stacked and route in ("staged_groups", "interleaved"))
     if family == "rectilinear":
         if route == "direct":
             return True
@@ -242,6 +254,8 @@ def served(method: str, route: str, stacked: bool, ndims: int, family="regular")
         return route == "staged" or (stacked and route in ("staged_tables", "interleaved"))
     if route == "staged_tables":
         return False
+    if route == "staged_groups":
+        return method == "cubic" and stacked
     if route == "staged":
         return method == "linear" or (method == "cubic" and not stacked)
     if route == "quads":
@@ -801,6 +815,28 @@ def build_phase():
         for (method, dt), by_nd in sorted(table.items()):
             cells = ", ".join(f"{nd}D {r}/{s}" for nd, (r, s) in sorted(by_nd.items()))
             log(f"phase 1   {source} {method} {dt}: registers/spill-store bytes {cells}")
+        bspline_build_log(source)
+
+
+def bspline_build_log(source):
+    """Phase 1 for K4 and K7: registers, static shared memory, local
+    (spill) bytes and the blocks an SM holds at once as the launch sizes its
+    grid (with the route's reservation of dynamic shared memory) of every
+    instantiation (degree, route, dtype, 1-8D)."""
+    from interpn_tpu_torch.ops import fused
+
+    stacked = source.endswith("_stack")
+    for k, route in itertools.product(fused.DEGREES, fused.ROUTES):
+        if not served("cubic", route, stacked, 8, "bspline"):
+            continue
+        for dtype in (F32, F64):
+            cells = []
+            for nd in range(1, 9):
+                i = fused.regular_info(k, dtype, nd, route, stacked, "bspline")
+                cells.append(f"{nd}D {i['registers']}/{i['static_smem']}/{i['local_bytes']}/"
+                             f"{i['blocks_per_sm']}")
+            log(f"phase 1   {source} k={k} {route} {SHORT[dtype]}: registers/static shared "
+                f"bytes/local bytes/blocks an SM {', '.join(cells)}")
 
 
 # the layout kernel that the entry launches before the kernel, by route
@@ -1145,6 +1181,119 @@ def rectilinear_routes_phase(cuda):
         f"inside stencils, {unaligned} of them on staged_tables stacks of 21^3 tables "
         f"(bytes no multiple of 16) aligned and at an odd offset; all {nodes} node values "
         f"exact")
+
+
+def stack_routes(dims, dtype, family):
+    """Every route of a K5 cubic (`family` "regular") or K7 ("bspline")
+    stack of tables of `dims` that takes it: staged groups (each table
+    within GROUP_BYTES), direct; for K7 also interleaved."""
+    from interpn_tpu_torch.ops import fused
+
+    routes = ["direct"]
+    if math.prod(dims) * torch.empty((), dtype=dtype).element_size() <= fused.GROUP_BYTES:
+        routes.append("staged_groups")
+    if family == "bspline":
+        routes.append("interleaved")
+    return routes
+
+
+def at_offset(vals, offset):
+    """`vals` as a view `offset` entries into a larger storage."""
+    storage = torch.zeros(offset + vals.numel() + 5, dtype=vals.dtype, device=vals.device)
+    view = storage[offset:offset + vals.numel()].view(vals.shape)
+    view.copy_(vals)
+    return view
+
+
+def stack_routes_phase(cuda):
+    """Phase 2 for the stack routes of K5 cubic and K7: stacks of 1, 3, 4,
+    8, 9 and 17 tables of 20^3 and 21^3 entries (bytes no multiple of 16;
+    1 to 6 groups, as the C entry splits them),
+    aligned and as a view at an odd offset, each table holding a NaN, +inf
+    and -inf, in f32 and f64 (K5 in both extrapolation modes, K7 of degree
+    3 and 5), with extrapolated, NaN and +-inf queries: through the wrapper
+    (one launch, and the interleave where its route interleaves) and on
+    every route that takes the stack (`stack_routes`), each bitwise against
+    the plain version, each row bitwise against K1 / K4 on its table. Fails
+    unless every route ran."""
+    from interpn_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(19)
+    ran, results = {}, 0
+
+    def spoil(vals):
+        flat = vals.reshape(-1)
+        spots = torch.as_tensor(rng.choice(flat.numel(), 3 * len(vals), replace=False),
+                                device=cuda)
+        flat[spots] = torch.tensor([math.nan, math.inf, -math.inf] * len(vals),
+                                   dtype=vals.dtype, device=cuda)
+        return vals
+
+    for dtype, n, nch, offset in itertools.product((F32, F64), (20, 21), (1, 3, 4, 8, 9, 17),
+                                                   (0, 3)):
+        dims = (n,) * 3
+        (st, sp, vals), obs = random_case("regular", dims, dtype, N_CHECK // 5, rng, cuda, nch)
+        vals = spoil(vals)
+        vals = at_offset(vals, offset) if offset else vals
+        for lin in (True, False):
+            want = fused.plain_regular_stack(dims, st, sp, vals, obs, "cubic", lin)
+            rows = [fused.eval_regular(dims, st, sp, vals[c], obs, "cubic", lin)
+                    for c in range(nch)]
+            route = fused.regular_route(dims, dtype, "cubic", nch)
+            fused.reset_launches()
+            what = f"K5 cubic lin={lin} stack of {nch} {dims} {SHORT[dtype]} offset {offset}"
+            results += bitwise(fused.eval_regular_stack(dims, st, sp, vals, obs, "cubic", lin),
+                               want, f"{what} ({route})")
+            if fused.launches != {k: int(k == "regular_cubic_stack") for k in fused.launches}:
+                raise AssertionError(f"{what}: launches {fused.launches}")
+            for r in stack_routes(dims, dtype, "regular"):
+                got = fused._launch("fused_regular_stack", "regular_cubic_stack",
+                                    (1, int(lin), int(dtype == F64)), dims, vals, obs,
+                                    obs[0].shape[0], True, st.data_ptr(), sp.data_ptr(), None,
+                                    route=r)
+                results += bitwise(got, want, f"{what} {r}")
+                for c in range(nch):
+                    bitwise(got[c], rows[c], f"{what} {r}: table {c} vs K1")
+                ran["K5", r] = ran.get(("K5", r), 0) + 1
+        for k in SPLINE.values():
+            knots, coeffs, sobs = spline_case(dims, k, dtype, N_CHECK // 5, rng, cuda, nch)
+            coeffs = spoil(coeffs)
+            coeffs = at_offset(coeffs, offset) if offset else coeffs
+            want = fused.plain_bspline_stack(knots, coeffs, sobs, k)
+            rows = [fused.eval_bspline(knots, coeffs[c], sobs, k) for c in range(nch)]
+            route = fused.bspline_route(dims, dtype, k, nch)
+            fused.reset_launches()
+            what = f"K7 k={k} stack of {nch} {dims} {SHORT[dtype]} offset {offset}"
+            results += bitwise(fused.eval_bspline_stack(knots, coeffs, sobs, k), want,
+                               f"{what} ({route})")
+            layout = fused.BSPLINE_LAYOUTS.get(route)
+            if fused.launches != {name: int(name in (f"bspline_k{k}_stack", layout))
+                                  for name in fused.launches}:
+                raise AssertionError(f"{what}: launches {fused.launches}")
+            cols = (fused._VOIDP * 3)(*(t.data_ptr() for t in knots))
+            for r in stack_routes(dims, dtype, "bspline"):
+                work = (torch.empty(coeffs.numel(), dtype=dtype, device=cuda)
+                        if r == "interleaved" else None)
+                got = fused._launch("fused_bspline_stack", f"bspline_k{k}_stack",
+                                    (k, int(dtype == F64)), dims, coeffs, sobs, sobs[0].shape[0],
+                                    True, cols, None if work is None else work.data_ptr(),
+                                    route=r)
+                results += bitwise(got, want, f"{what} {r}")
+                for c in range(nch):
+                    bitwise(got[c], rows[c], f"{what} {r}: table {c} vs K4")
+                ran["K7", r] = ran.get(("K7", r), 0) + 1
+    for family, kernel in (("regular", "K5"), ("bspline", "K7")):
+        want = [r for r in fused.ROUTES if served("cubic", r, True, 3, family)]
+        if [r for r in fused.ROUTES if (kernel, r) in ran] != want:
+            raise AssertionError(f"phase 2 ran {kernel} on the routes "
+                                 f"{[r for k, r in ran if k == kernel]} only")
+    log(f"phase 2 kernel vs plain K5 cubic and K7 stack routes: stacks of 1, 3, 4, 8, 9, 17 "
+        f"tables of 20^3 and 21^3 (bytes no multiple of 16), aligned and at an odd offset, "
+        f"with a NaN, +inf and -inf in every table (f32, f64; K5 linearize True and False, K7 "
+        f"k=3 and 5; {', '.join(f'{k} {r} {c}' for (k, r), c in ran.items())} cases): all "
+        f"{results} results bitwise equal to the plain version, through the wrapper (one "
+        "launch, and the interleave where it interleaves) and on every route, each table's row "
+        "bitwise equal to K1 / K4 on that table")
 
 
 def engine_vs_plain_phase(cuda):
@@ -1816,6 +1965,7 @@ def main() -> None:
     kernel_vs_plain_phase(cuda)
     regular_routes_phase(cuda)
     rectilinear_routes_phase(cuda)
+    stack_routes_phase(cuda)
     engine_vs_plain_phase(cuda)
     nodes_phase(cuda)
 

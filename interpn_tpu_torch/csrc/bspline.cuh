@@ -17,19 +17,35 @@
 // per-lane gather; here one thread per query bisects its knot columns (a few
 // hundred bytes, read through the read-only cache) and reads only its
 // stencil. The weights stay in registers; the stack instantiation (kStack)
-// loops over its channels after the one weight build and writes row c of
-// the (nch, n) output, and the single-table instantiation has no loop (see
-// regular.cuh for why).
+// loops over its tables after the one weight build and writes row c of the
+// (nch, n) output, and the single-table instantiation has no loop (see
+// regular.cuh for why). A stack is read as `ops/fused.py::bspline_route`
+// says (one table direct):
+// - kStagedGroups (tables within kGroupBytes): groups of consecutive
+//   tables within kGroupBytes (one group where the whole stack fits),
+//   staged in shared memory by each 1024-thread block, as regular.cuh
+//   stages K5's cubic stacks; a block builds its queries' weights once for
+//   its group. Read direct, a
+//   stack of 8 20^3 f32 tables made 8 x 64 scattered L2 requests a query
+//   (0.6315 ms on an H100); staged, 0.28 ms, of which the weight build (a
+//   copy that only built the weights and stored) took 22% and the shared
+//   memory's bank conflicts most of the rest (PERF.md).
+// - kInterleaved (tables above kGroupBytes, 8 f32 or 4 f64 of them or
+//   more): K5's interleave, an entry's channels side by side, read as two
+//   16-byte loads, the tree run over the channels together with one
+//   running sum a channel a level (3.4x direct for 8 40^3 f32 tables).
+// - kDirect: each table's stencil straight from device memory.
 //
 // What bounds it on this card: the Cox-de Boor build is 7k(k+1)/2
 // operations per axis, k(k+1)/2 of them divisions, and the tree 2(k+1)^N
 // operations per table (128 for cubic 3D, 432 for quintic 3D); the (k+1)^N
-// stencil reads hit L1/L2 for the bench grids. Arithmetic and the scattered
-// reads bound it, not the query stream.
+// stencil reads hit L1/L2 (shared memory, staged) for the bench grids.
+// Arithmetic and the scattered reads bound it, not the query stream.
 
 #pragma once
 
 #include "interp_common.cuh"
+#include "regular.cuh"
 
 namespace interp {
 
@@ -40,58 +56,82 @@ struct KnotArgs {
   int stride[kMaxDims];    // C-order strides of the coefficient table
 };
 
-// The K+1 nonzero basis values at x into N, and the stencil's first
-// coefficient index along the axis (`spline_locs_weights`).
-template <typename T, int K>
-__device__ __forceinline__ int basis_weights(const T* __restrict__ t, int dim, T x, T* N) {
-  int span = count_below<true>(t, dim + K + 1, x) - 1;
-  span = span < K ? K : (span > dim - 1 ? dim - 1 : span);
-  T tk[2 * K];  // t[span - K + 1 .. span + K]
-#pragma unroll
-  for (int o = 0; o < 2 * K; ++o) tk[o] = __ldg(t + span - K + 1 + o);
-  N[0] = T(1);
-#pragma unroll
-  for (int j = 1; j <= K; ++j) N[j] = T(0);
-#pragma unroll
-  for (int j = 1; j <= K; ++j) {
-    T saved = T(0);
-#pragma unroll
-    for (int r = 0; r < j; ++r) {
-      const T right = tk[r + K];     // t[span + r + 1]
-      const T left = tk[r + K - j];  // t[span + r + 1 - j]
-      const T temp = div_rn(N[r], sub_rn(right, left));
-      N[r] = add_rn(saved, mul_rn(sub_rn(right, x), temp));
-      saved = mul_rn(sub_rn(x, left), temp);
-    }
-    N[j] = saved;
-  }
-  return span - K;
+// Whether the B-spline family has an instantiation for the route: direct
+// for one table or a stack; staged groups and interleaved for stacks only.
+constexpr bool spline_serves(int route, bool stack) {
+  return route == kDirect || (stack && (route == kStagedGroups || route == kInterleaved));
 }
 
-template <typename T, int NDIMS, int K, bool kStack>
-__global__ void __launch_bounds__(kThreads)
+// The spline tree's unrolled levels (SplineTree's UNROLLED): one where a
+// leaf is a sector of channels (interleaved), whose running sums take a
+// register each; kSplineUnrolled elsewhere.
+template <int W, int ROUTE>
+__host__ __device__ constexpr int spline_unrolled() {
+  return ROUTE == kInterleaved ? 1 : kSplineUnrolled<W>;
+}
+
+template <typename T, int NDIMS, int K, bool kStack, int ROUTE>
+__global__ void __launch_bounds__(threads_of<ROUTE>())
     bspline_kernel(KnotArgs<T> knots, ObsPtrs<T> obs, const T* __restrict__ coeffs,
-                   int64_t table, int nch, T* __restrict__ out, int64_t n) {
+                   int64_t table, int nch, int groups, T* __restrict__ out, int64_t n) {
   constexpr int W = K + 1;
-  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+  constexpr bool kShared = ROUTE == kStagedGroups;
+  constexpr int L = lanes_of<T, ROUTE>();  // channels a leaf
+  constexpr int U = spline_unrolled<W, ROUTE>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bar;
+  int stride[NDIMS];  // of the layout read: the table's, times nch interleaved
+#pragma unroll
+  for (int a = 0; a < NDIMS; ++a) stride[a] = knots.stride[a] * (ROUTE == kInterleaved ? nch : 1);
+  // the tables this block runs and the blocks that share them: its group
+  // and the group's blocks on the staged routes, all of them on the others
+  int first = 0, count = nch, b0 = 0, nb = gridDim.x;
+  if constexpr (kShared) block_group(nch, groups, gridDim.x, blockIdx.x, &first, &count, &b0, &nb);
+  const T* src = coeffs + first * table;
+  T* dst = out + first * n;
+  bool pending = false;  // a bulk copy into shared memory not yet awaited
+  if constexpr (kShared) src = stage_table(src, table * count, smem, &bar, &pending);
+  // 16-byte loads of an interleaved stack's channel runs: every run aligned
+  const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 && (nch * sizeof(T)) % 16 == 0;
+  const int64_t nthreads = static_cast<int64_t>(nb) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x - b0) * blockDim.x + threadIdx.x; i < n;
        i += nthreads) {
     T w[NDIMS * W];  // axis a's weights at w[a * W ..]
-    int stride[NDIMS];
     int base = 0;
 #pragma unroll
     for (int a = 0; a < NDIMS; ++a) {
-      stride[a] = knots.stride[a];
       base += basis_weights<T, K>(knots.col[a], knots.dim[a], __ldg(obs.p[a] + i), w + a * W) *
               stride[a];
     }
-    if constexpr (kStack) {
-      for (int c = 0; c < nch; ++c) {
-        out[c * n + i] = SplineTree<T, W, NDIMS, 0>::eval(coeffs + c * table, base, stride, w);
+    if constexpr (kShared) {
+      if (pending) {
+        await_bulk(&bar);
+        pending = false;
+      }
+    }
+    if constexpr (ROUTE == kInterleaved) {  // L channels at a time
+      for (int c0 = 0; c0 < nch; c0 += L) {
+        const int cnt = nch - c0 < L ? nch - c0 : L;
+        const Lanes<T, L> y = SplineTree<T, W, NDIMS, 0, U>::eval(
+            Channels<T, L, false>{src + c0, cnt, vec && cnt == L}, base, stride, w);
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          if (j < cnt) out[(c0 + j) * n + i] = y.v[j];
+        }
+      }
+    } else if constexpr (kStack) {  // the block's tables one after another
+      for (int c = 0; c < count; ++c) {
+        dst[c * n + i] = SplineTree<T, W, NDIMS, 0, U>::eval(
+            Channels<T, 1, kShared>{src + c * table, 1, false}, base, stride, w).v[0];
       }
     } else {
-      out[i] = SplineTree<T, W, NDIMS, 0>::eval(coeffs, base, stride, w);
+      out[i] = SplineTree<T, W, NDIMS, 0, U>::eval(Ldg<T>{coeffs}, base, stride, w).v[0];
     }
+  }
+  if constexpr (kShared) {
+    // a thread that read no table still lets the copy land before its
+    // block's shared memory is released
+    if (pending) await_bulk(&bar);
   }
 }
 
@@ -100,69 +140,123 @@ struct SplineLaunch {
   const int* dims;
   const void* const* knots;
   const void* const* obs;
-  const void* coeffs;
+  const void* coeffs;  // the stack, or its interleave
   int nch;
   void* out;
   int64_t n;
-  int blocks;
   cudaStream_t stream;
 };
 
-template <typename T, int NDIMS, int K, bool kStack>
-cudaError_t spline_launch(const SplineLaunch& a) {
-  KnotArgs<T> knots{};
-  ObsPtrs<T> ptrs{};
-  int acc = 1;
-  for (int k = NDIMS - 1; k >= 0; --k) {
-    knots.col[k] = static_cast<const T*>(a.knots[k]);
-    knots.dim[k] = a.dims[k];
-    knots.stride[k] = acc;
-    acc *= a.dims[k];
-    ptrs.p[k] = static_cast<const T*>(a.obs[k]);
-  }
-  bspline_kernel<T, NDIMS, K, kStack><<<a.blocks, kThreads, 0, a.stream>>>(
-      knots, ptrs, static_cast<const T*>(a.coeffs), acc, a.nch, static_cast<T*>(a.out), a.n);
-  return cudaGetLastError();
-}
+// Blocks an SM of the direct route, as the single-table kernel has always
+// run (2048 threads an SM at 256 a block, whatever its registers allow).
+constexpr int kDirectBlocksPerSm = 8;
 
-template <typename T, int K, bool kStack>
-cudaError_t spline_ndims(int ndims, const SplineLaunch& a) {
-  switch (ndims) {
-    case 1: return spline_launch<T, 1, K, kStack>(a);
-    case 2: return spline_launch<T, 2, K, kStack>(a);
-    case 3: return spline_launch<T, 3, K, kStack>(a);
-    case 4: return spline_launch<T, 4, K, kStack>(a);
-    case 5: return spline_launch<T, 5, K, kStack>(a);
-    case 6: return spline_launch<T, 6, K, kStack>(a);
-    case 7: return spline_launch<T, 7, K, kStack>(a);
-    case 8: return spline_launch<T, 8, K, kStack>(a);
-    default: return cudaErrorInvalidValue;
+template <typename T, int NDIMS, int K, bool kStack, int ROUTE>
+struct Spline {
+  static cudaError_t launch(const SplineLaunch& a) {
+    const auto kernel = bspline_kernel<T, NDIMS, K, kStack, ROUTE>;
+    constexpr int threads = threads_of<ROUTE>();
+    constexpr size_t reserve = reserve_of<ROUTE>();
+    constexpr bool kShared = ROUTE == kStagedGroups;
+    int64_t table = 1;
+    for (int k = 0; k < NDIMS; ++k) table *= a.dims[k];
+    const int groups = kShared ? table_groups<T>(table, a.nch) : 1;
+    if (groups < 1) return cudaErrorInvalidValue;  // a table above the group cap
+    // the largest staged group and its offset from a 16-byte boundary
+    const size_t smem = kShared ? table * ((a.nch + groups - 1) / groups) * sizeof(T) + 16 : 0;
+    if (smem > reserve) return cudaErrorInvalidValue;  // above the staging cap
+    int blocks = 0;
+    if constexpr (ROUTE == kDirect) {
+      int per_sm = 0, sms = 0;
+      const cudaError_t err = occupancy(occupancy_cache<Spline>(), kernel, threads, reserve,
+                                        &per_sm, &sms);
+      if (err != cudaSuccess) return err;
+      const int64_t want = (a.n + threads - 1) / threads;
+      const int64_t most = static_cast<int64_t>(kDirectBlocksPerSm) * sms;
+      blocks = static_cast<int>(want < most ? want : most);
+    } else {
+      const cudaError_t err = grid_blocks(occupancy_cache<Spline>(), kernel, threads, reserve,
+                                          a.n, &blocks, groups, a.nch);
+      if (err != cudaSuccess) return err;
+    }
+    KnotArgs<T> knots{};
+    ObsPtrs<T> ptrs{};
+    int acc = 1;
+    for (int k = NDIMS - 1; k >= 0; --k) {
+      knots.col[k] = static_cast<const T*>(a.knots[k]);
+      knots.dim[k] = a.dims[k];
+      knots.stride[k] = acc;
+      acc *= a.dims[k];
+      ptrs.p[k] = static_cast<const T*>(a.obs[k]);
+    }
+    kernel<<<blocks, threads, smem, a.stream>>>(knots, ptrs, static_cast<const T*>(a.coeffs),
+                                                table, a.nch, groups,
+                                                static_cast<T*>(a.out), a.n);
+    return cudaGetLastError();
   }
-}
 
-template <typename T, bool kStack>
-cudaError_t spline_degree(int degree, int ndims, const SplineLaunch& a) {
-  switch (degree) {
-    case 3: return spline_ndims<T, 3, kStack>(ndims, a);
-    case 5: return spline_ndims<T, 5, kStack>(ndims, a);
-    default: return cudaErrorInvalidValue;
+  static cudaError_t info(int* out) {
+    return kernel_info(occupancy_cache<Spline>(), bspline_kernel<T, NDIMS, K, kStack, ROUTE>,
+                       threads_of<ROUTE>(), reserve_of<ROUTE>(), out);
   }
+};
+
+// The B-spline family for regular.cuh's `visit`: the method slot carries
+// the degree (kLinear for 3, kCubic for 5, so that `visit_method` picks one
+// of two instantiations).
+struct SplineFamily {
+  static constexpr bool served(int route, int method, bool stack, int ndims) {
+    return method != kNearest && spline_serves(route, stack);
+  }
+  template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
+  using Kernel = Spline<T, NDIMS, METHOD == kLinear ? 3 : 5, kStack, ROUTE>;
+};
+
+struct SplineLaunchOp {
+  const SplineLaunch& a;
+  template <typename R>
+  cudaError_t run() {
+    return R::launch(a);
+  }
+};
+
+// The degree's slot in `visit`'s method (see SplineFamily); -1 for a degree
+// with no instantiation.
+constexpr int degree_slot(int degree) {
+  return degree == 3 ? kLinear : (degree == 5 ? kCubic : -1);
 }
 
 // The body of the sources' C entry points (see fused_bspline.cu).
 template <bool kStack>
 int bspline_entry(int degree, int is_f64, int ndims, const int* dims, const void* const* knots,
-                  const void* coeffs, const void* const* obs, void* out, long long n, int nch,
-                  int blocks, void* stream) {
-  if (ndims < 1 || ndims > kMaxDims || n <= 0 || nch <= 0 || blocks <= 0 ||
-      (!kStack && nch != 1)) {
+                  void* work, const void* coeffs, const void* const* obs, void* out,
+                  long long n, int nch, int route, void* stream) {
+  if (ndims < 1 || ndims > kMaxDims || n <= 0 || nch <= 0 || (!kStack && nch != 1) ||
+      degree_slot(degree) < 0 || !spline_serves(route, kStack) ||
+      (route == kInterleaved && work == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const SplineLaunch a{dims, knots, obs, coeffs, nch, out, n, blocks,
-                       static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = is_f64 ? spline_degree<double, kStack>(degree, ndims, a)
-                                 : spline_degree<float, kStack>(degree, ndims, a);
-  return static_cast<int>(err);
+  int64_t table = 1;
+  for (int k = 0; k < ndims; ++k) table *= dims[k];
+  const auto s = static_cast<cudaStream_t>(stream);
+  // the interleaved route's layout into `work`, then the kernel that reads it
+  const cudaError_t err =
+      launch_layout<SplineFamily, kStack>(route, is_f64, ndims, dims, coeffs, work, table, nch, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const SplineLaunch a{dims, knots, obs, route == kInterleaved ? work : coeffs, nch, out, n, s};
+  SplineLaunchOp op{a};
+  return static_cast<int>(
+      visit<SplineFamily, kStack>(is_f64, route, degree_slot(degree), ndims, op));
+}
+
+// The body of the sources' info entry points: registers, shared memory,
+// spills and resident blocks of one instantiation (see fused_bspline.cu).
+template <bool kStack>
+int bspline_info_entry(int degree, int is_f64, int ndims, int route, int* out) {
+  if (degree_slot(degree) < 0) return static_cast<int>(cudaErrorInvalidValue);
+  InfoOp op{out};
+  return static_cast<int>(
+      visit<SplineFamily, kStack>(is_f64, route, degree_slot(degree), ndims, op));
 }
 
 }  // namespace interp

@@ -10,11 +10,11 @@
 //   rectilinear (`locate_rectilinear_linear`);
 // - cubic: loc and the axis's node function on the four unit bases, as
 //   `_axis_weights` applies `_axis_reduce_regular` /
-//   `_axis_reduce_rectilinear` to `unit_bases` (RegularCubicAxis with K1's
-//   regular locate; interp_common.cuh's `cubic_weights`, shared with K2 and
-//   K6);
+//   `_axis_reduce_rectilinear` to `unit_bases` (interp_common.cuh's
+//   `regular_cubic_weights`, with K1's locate and node, and
+//   `cubic_weights`, shared with K2 and K6);
 // - B-spline of degree FP - 1: the de Boor span rebased to the first
-//   coefficient and the Cox-de Boor weights (bspline.cuh's `basis_weights`,
+//   coefficient and the Cox-de Boor weights (interp_common.cuh's `basis_weights`,
 //   `ops/bspline.py::spline_locs_weights`);
 // - the split `split_f64`: hi = f32(w), lo = f32(w - hi).
 // Every step is a _rn intrinsic and the build adds --fmad=false, so the
@@ -23,7 +23,6 @@
 
 #pragma once
 
-#include "bspline.cuh"
 #include "interp_common.cuh"
 
 namespace interp {
@@ -73,26 +72,8 @@ __device__ __forceinline__ int axis_weights(const EngineGrid& g, int k, double x
     return loc;
   } else if constexpr (FP == 4) {
     if (g.kind == kGridSpline) return basis_weights<double, 3>(g.col[k], dim, x, w);
-    // the node on unit basis j gives weight j
     if (g.kind == kGridRegular) {
-      const double start = __ldg(g.start + k), step = __ldg(g.step + k);
-      const double iloc = sub_rn(floor(div_rn(sub_rn(x, start), step)), 1.0);
-      const double last = static_cast<double>(dim - 4 > 0 ? dim - 4 : 0);
-      const int loc = static_cast<int>(clamp_(isnan(iloc) ? 0.0 : iloc, last));
-      const double high_at = static_cast<double>(dim - 3);
-      RegularCubicAxis<double> ax;
-      ax.low = iloc <= -1.0;
-      ax.high = !ax.low && iloc >= high_at;
-      ax.outside = iloc < -1.0 || (!ax.low && iloc > high_at);
-      const double t = div_rn(
-          sub_rn(x, add_rn(start, mul_rn(step, static_cast<double>(loc + 1)))), step);
-      ax.tt = ax.low ? -t : (ax.high ? sub_rn(t, 1.0) : t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        w[j] = ax.node(j == 0 ? 1.0 : 0.0, j == 1 ? 1.0 : 0.0, j == 2 ? 1.0 : 0.0,
-                       j == 3 ? 1.0 : 0.0, lin);
-      }
-      return loc;
+      return regular_cubic_weights(x, __ldg(g.start + k), __ldg(g.step + k), dim, lin, w);
     }
     return cubic_weights(g.col[k], dim, x, lin, w);
   } else {

@@ -19,16 +19,26 @@
 #include "interp_common.cuh"
 
 // Launches the kernel on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success). `degree` is 3 or 5. `dims` (the
-// coefficients along each axis), `knots` and `obs` are host arrays of
-// `ndims` entries; `knots` (one not-a-knot vector of dims[a] + degree + 1
-// entries per axis), `obs`, `coeffs` and `out` hold device pointers of the
-// type selected by `is_f64`. The caller guarantees 1 <= ndims <= 8,
-// every dim >= degree + 1, prod(dims) < 2^31, 0 < n < 2^31 and nch == 1.
+// cudaGetLastError() (0 on success), or the error that sizing the grid met.
+// `degree` is 3 or 5. `dims` (the coefficients along each axis), `knots`
+// and `obs` are host arrays of `ndims` entries; `knots` (one not-a-knot
+// vector of dims[a] + degree + 1 entries per axis), `obs`, `coeffs` and
+// `out` hold device pointers of the type selected by `is_f64`. `route` is
+// 0 (direct; the stack entry's routes, fused_bspline_stack.cu); `work` is
+// unused. The caller guarantees 1 <= ndims <= 8, every dim >=
+// degree + 1, prod(dims) < 2^31, 0 < n < 2^31 and nch == 1.
 extern "C" int interpn_bspline(int degree, int is_f64, int ndims, const int* dims,
-                               const void* const* knots, const void* coeffs,
+                               const void* const* knots, void* work, const void* coeffs,
                                const void* const* obs, void* out, long long n, int nch,
-                               int blocks, void* stream) {
-  return interp::bspline_entry<false>(degree, is_f64, ndims, dims, knots, coeffs, obs, out, n,
-                                      nch, blocks, stream);
+                               int route, void* stream) {
+  return interp::bspline_entry<false>(degree, is_f64, ndims, dims, knots, work, coeffs, obs, out,
+                                      n, nch, route, stream);
+}
+
+// Registers a thread, static shared bytes, local (spill) bytes a thread and
+// the blocks an SM holds at once with the route's reservation of dynamic
+// shared memory, of the instantiation `interpn_bspline` launches for
+// (degree, is_f64, ndims, route), into out[0..3].
+extern "C" int interpn_bspline_info(int degree, int is_f64, int ndims, int route, int* out) {
+  return interp::bspline_info_entry<false>(degree, is_f64, ndims, route, out);
 }

@@ -6,17 +6,21 @@
 // one weight build (`eval_regular_stack`), f32 only on the TPU. Here the
 // kernel of regular.cuh locates each query once and, for a linear or
 // nearest stack of 8 f32 or 4 f64 tables or more, reads it
-// channel-interleaved, a corner's channels side by side; a smaller stack
-// (linear staged in shared memory where the whole stack fits the cap) and a
-// cubic one are read table by table. f32 and f64. What bounds it and what
-// the layouts do about it are in regular.cuh.
+// channel-interleaved, a corner's channels side by side; a smaller linear
+// stack is staged in shared memory where the whole stack fits the cap, and
+// a cubic stack in groups of consecutive tables, one group to a block,
+// each block reading its tables one after another from its copy. f32 and
+// f64. What bounds it and what the layouts do about it are in regular.cuh.
 
 #include "interp_common.cuh"
 #include "regular.cuh"
 
 // As `interpn_regular` (fused_regular.cu), over `nch` >= 1 tables that
 // `vals` holds one after another, (nch, prod(dims)); `out` holds nch rows of
-// n; `route` is 0 direct or 1 staged (linear), which read `vals` as it is,
+// n; `route` is 0 direct, 1 staged (linear: the whole stack within
+// kStageBytes) or 7 staged groups (cubic: the fewest groups of consecutive
+// tables within kGroupBytes, which the entry counts, split as
+// `table_group` says; every table within it), which read `vals` as it is,
 // or 3 interleaved (linear and nearest): the interleave of `vals` into
 // `work`, (prod(dims), nch) in C order, is launched first and the kernel
 // reads it. `work` is unused on the other routes. The caller also

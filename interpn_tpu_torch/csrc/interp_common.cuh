@@ -1,7 +1,7 @@
 // Shared device code of the port's Hopper kernels (sm_90a): IEEE-rounded
-// arithmetic, the linear lerp tree, the cubic Hermite tree, a rectilinear
-// cubic axis's locate and four weights and the stencil's contraction with
-// them, the B-spline tree and the bisections.
+// arithmetic, the linear lerp tree, the cubic Hermite tree, a regular and a
+// rectilinear cubic axis's locate and four weights and the stencil's
+// contraction with them, the B-spline weights and tree, and the bisections.
 //
 // Every kernel mirrors its plain PyTorch version (`ops/linear.py`,
 // `ops/cubic.py`, `ops/nearest.py`, `ops/bspline.py`) node for node, so the
@@ -135,7 +135,47 @@ struct RegularCubicAxis {
     return cubic_finish(hermite(tt, y0, dy, k0, k1), tt, y0, k1, v0, v2, v3, low, high,
                         outside, lin);
   }
+
+  // the weight of tap j: the node on unit basis j, (0, 1, 0, 0) or
+  // (0, 0, 1, 0) exactly where tt is 0 (a grid node)
+  __device__ __forceinline__ void weights(bool lin, T* w) const {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      w[j] = node(j == 0 ? T(1) : T(0), j == 1 ? T(1) : T(0), j == 2 ? T(1) : T(0),
+                  j == 3 ? T(1) : T(0), lin);
+    }
+  }
 };
+
+// Regular cubic axis setup (`locate_regular_cubic` and the coordinate of
+// `_axis_reduce_regular`): the stencil's first index, clamped to [0, dim-4]
+// (NaN reads 0, +-inf the edge cells), and the region masks from the raw
+// iloc (all false for NaN).
+template <typename T>
+__device__ __forceinline__ int regular_cubic_axis(T x, T start, T step, int dim,
+                                                  RegularCubicAxis<T>& ax) {
+  const T iloc = sub_rn(floor_(div_rn(sub_rn(x, start), step)), T(1));
+  const T last = static_cast<T>(dim - 4 > 0 ? dim - 4 : 0);
+  const T high_at = static_cast<T>(dim - 3);
+  const int loc = static_cast<int>(clamp_(isnan(iloc) ? T(0) : iloc, last));
+  ax.low = iloc <= T(-1);
+  ax.high = !ax.low && iloc >= high_at;
+  ax.outside = iloc < T(-1) || (!ax.low && iloc > high_at);
+  const T t = div_rn(sub_rn(x, add_rn(start, mul_rn(step, static_cast<T>(loc + 1)))), step);
+  ax.tt = ax.low ? -t : (ax.high ? sub_rn(t, T(1)) : t);
+  return loc;
+}
+
+// loc and the four cubic weights of one regular axis at x: K1's node on the
+// four unit bases (`ops/cubic.py::regular_cubic_weights`).
+template <typename T>
+__device__ __forceinline__ int regular_cubic_weights(T x, T start, T step, int dim, bool lin,
+                                                     T* w) {
+  RegularCubicAxis<T> ax;
+  const int loc = regular_cubic_axis(x, start, step, dim, ax);
+  ax.weights(lin, w);
+  return loc;
+}
 
 // Distance-weighted central difference (`_centered_diff_nonuniform` with
 // h01 = p, h12 = q): a = p/(p+q) and c = q/(q+p) depend on the grid only and
@@ -373,35 +413,42 @@ struct WeightTree {
 
 // Value of the W^(NDIMS-A) sub-stencil at `base` with axes 0..A-1 fixed:
 // sum over r of w[A * W + r] (axis A's weights) times the sub-stencil one
-// axis in, summed left to right. Axis NDIMS-1 is reduced first and axis 0 last, the plain version's
-// order (`ops/bspline.py::_bspline_impl`). The inner kSplineUnrolled levels
-// unroll; each outer level is a loop of W with one running sum, started at
+// axis in, summed left to right, down to the leaf, which returns a table
+// entry's channels (`Ldg`, regular.cuh's `Channels`: one table, or the
+// channels of an interleaved stack side by side). Axis NDIMS-1 is reduced
+// first and axis 0 last, the plain version's order
+// (`ops/bspline.py::_bspline_impl`). The inner UNROLLED levels unroll; each
+// outer level is a loop of W with one running sum a channel, started at
 // -0.0 so that its first addition returns the first product bit for bit.
-template <typename T, int W, int NDIMS, int A>
+template <typename T, int W, int NDIMS, int A, int UNROLLED = kSplineUnrolled<W>>
 struct SplineTree {
-  static __device__ __forceinline__ T eval(const T* __restrict__ c, int base,
-                                           const int* stride, const T* w) {
+  template <typename Leaf>
+  static __device__ __forceinline__ auto eval(const Leaf& leaf, int base, const int* stride,
+                                              const T* w) {
     if constexpr (A == NDIMS) {
-      return __ldg(c + base);
+      return leaf(base);
     } else {
+      using Sub = SplineTree<T, W, NDIMS, A + 1, UNROLLED>;
+      using L = decltype(Sub::eval(leaf, base, stride, w));
       const int s = stride[A];
-      if constexpr (NDIMS - A <= kSplineUnrolled<W>) {
-        T acc = mul_rn(w[A * W], SplineTree<T, W, NDIMS, A + 1>::eval(c, base, stride, w));
+      L acc;
+      if constexpr (NDIMS - A <= UNROLLED) {
+        acc = Sub::eval(leaf, base, stride, w);
+#pragma unroll
+        for (int j = 0; j < L::kWidth; ++j) acc.v[j] = mul_rn(w[A * W], acc.v[j]);
 #pragma unroll
         for (int r = 1; r < W; ++r) {
-          const T y = SplineTree<T, W, NDIMS, A + 1>::eval(c, base + r * s, stride, w);
-          acc = add_rn(acc, mul_rn(w[A * W + r], y));
+          acc = madd(acc, w[A * W + r], Sub::eval(leaf, base + r * s, stride, w));
         }
-        return acc;
       } else {
-        T acc = T(-0.0);
+#pragma unroll
+        for (int j = 0; j < L::kWidth; ++j) acc.v[j] = T(-0.0);
 #pragma unroll 1
         for (int r = 0; r < W; ++r) {
-          const T y = SplineTree<T, W, NDIMS, A + 1>::eval(c, base + r * s, stride, w);
-          acc = add_rn(acc, mul_rn(pick<T, W>(w + A * W, r), y));
+          acc = madd(acc, pick<T, W>(w + A * W, r), Sub::eval(leaf, base + r * s, stride, w));
         }
-        return acc;
       }
+      return acc;
     }
   }
 };
@@ -483,6 +530,34 @@ __device__ __forceinline__ int cubic_weights(const T* __restrict__ g, int dim, T
   ax.set(cubic);
   ax.weights(lin, w);
   return loc;
+}
+
+// The K+1 nonzero basis values at x into N, and the stencil's first
+// coefficient index along the axis (`spline_locs_weights`).
+template <typename T, int K>
+__device__ __forceinline__ int basis_weights(const T* __restrict__ t, int dim, T x, T* N) {
+  int span = count_below<true>(t, dim + K + 1, x) - 1;
+  span = span < K ? K : (span > dim - 1 ? dim - 1 : span);
+  T tk[2 * K];  // t[span - K + 1 .. span + K]
+#pragma unroll
+  for (int o = 0; o < 2 * K; ++o) tk[o] = __ldg(t + span - K + 1 + o);
+  N[0] = T(1);
+#pragma unroll
+  for (int j = 1; j <= K; ++j) N[j] = T(0);
+#pragma unroll
+  for (int j = 1; j <= K; ++j) {
+    T saved = T(0);
+#pragma unroll
+    for (int r = 0; r < j; ++r) {
+      const T right = tk[r + K];     // t[span + r + 1]
+      const T left = tk[r + K - j];  // t[span + r + 1 - j]
+      const T temp = div_rn(N[r], sub_rn(right, left));
+      N[r] = add_rn(saved, mul_rn(sub_rn(right, x), temp));
+      saved = mul_rn(sub_rn(x, left), temp);
+    }
+    N[j] = saved;
+  }
+  return span - K;
 }
 
 }  // namespace interp

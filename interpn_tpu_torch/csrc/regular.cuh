@@ -87,8 +87,22 @@
 //   ran 2-3x slower than staged on an H100, `scripts/torch_regular_ab.py`),
 //   and a cubic tree over 8 lanes (4^N entries each) would not fit the
 //   registers.
+// - kStagedGroups (K5 cubic and K7, a stack whose tables fit kGroupBytes
+//   each): the stack split into the fewest groups of consecutive tables
+//   within kGroupBytes (`table_groups`; one group where the whole stack
+//   fits), as evenly as can be (`table_group`), the blocks the card
+//   holds at once shared among the groups in proportion to their tables
+//   (`block_group`); each 1024-thread block copies its group into shared
+//   memory once, as kStaged copies a table, and runs each query of its
+//   grid-stride loop over the group's tables from there, with no barrier
+//   after the copy lands. Read direct, a stack of 8 20^3 f32 tables made 8 x 64
+//   scattered L2 requests a query (0.6495 ms on an H100); from shared
+//   memory its reads cost bank conflicts instead, about 3.5 wavefronts a
+//   warp's read, which now set the pace (0.27 ms, PERF.md). Reading the
+//   group a table at a time through a double buffer (kStagedTables, K6's)
+//   and the interleave ran behind.
 // - kDirect (the rest): the stencil straight from the table through the
-//   read-only cache, a stack's tables one at a time (a cubic stack too).
+//   read-only cache, a stack's tables one at a time.
 
 #pragma once
 
@@ -108,6 +122,9 @@ constexpr int kTapLanes = 5;
 // a stack read one table at a time, each staged into a double buffer in
 // shared memory (the rectilinear cubic stacks, rectilinear.cuh)
 constexpr int kStagedTables = 6;
+// a stack split into groups of consecutive tables, each block staging its
+// group once (the cubic stacks, K5 and K7)
+constexpr int kStagedGroups = 7;
 
 // Threads a block of the staged route. A staged block copies the whole
 // table, so the route runs the largest blocks, one or two copies an SM
@@ -116,6 +133,9 @@ constexpr int kStagedThreads = 1024;
 // The largest staged table in bytes (ops/fused.py::STAGE_BYTES): half of
 // the 227 KB a block may use, so that two blocks share an SM.
 constexpr int kStageBytes = 112 * 1024;
+// The largest group of kStagedGroups in bytes (ops/fused.py::GROUP_BYTES):
+// about all that a block may use, one block an SM.
+constexpr int kGroupBytes = 224 * 1024;
 // Bytes of channels an interleaved stack reads and runs together: one
 // 32-byte sector, by two 16-byte loads (8 f32, 4 f64 channels).
 constexpr int kRunBytes = 32;
@@ -129,18 +149,63 @@ __host__ __device__ constexpr bool taps(int route) {
 // axis on four lanes on kTapLanes, one lane on the others.
 __host__ __device__ constexpr int group_of(int route) { return route == kTapLanes ? 4 : 1; }
 
+// Whether the route copies tables into shared memory.
+__host__ __device__ constexpr bool staged(int route) {
+  return route == kStaged || route == kStagedTables || route == kStagedGroups;
+}
+
 template <int ROUTE>
 constexpr int threads_of() {
-  return ROUTE == kStaged || ROUTE == kStagedTables ? kStagedThreads : kThreads;
+  return staged(ROUTE) ? kStagedThreads : kThreads;
 }
 
 // Dynamic shared memory a block of the route reserves: the largest staged
-// table and its offset from a 16-byte boundary (two of them, the double
-// buffer of kStagedTables).
+// table (group of tables) and its offset from a 16-byte boundary (two
+// tables, the double buffer of kStagedTables).
 template <int ROUTE>
 constexpr size_t reserve_of() {
   return ROUTE == kStaged ? kStageBytes + 16
-                          : (ROUTE == kStagedTables ? 2 * (kStageBytes + 16) : 0);
+                          : (ROUTE == kStagedTables
+                                 ? 2 * (kStageBytes + 16)
+                                 : (ROUTE == kStagedGroups ? kGroupBytes + 16 : 0));
+}
+
+// The groups of consecutive tables that kStagedGroups splits nch tables of
+// `table` entries of T into: the fewest whose even split (`table_group`)
+// keeps each within kGroupBytes; 0 where one table exceeds it.
+template <typename T>
+int table_groups(int64_t table, int nch) {
+  const int64_t per = kGroupBytes / (table * static_cast<int64_t>(sizeof(T)));
+  return per < 1 ? 0 : static_cast<int>((nch + per - 1) / per);
+}
+
+// Tables c0 .. c0 + count - 1 of group g when nch tables are split into
+// `groups` groups of consecutive tables as evenly as can be (the first
+// nch % groups groups hold one table more).
+__host__ __device__ inline void table_group(int nch, int groups, int g, int* c0, int* count) {
+  const int q = nch / groups, r = nch % groups;
+  *c0 = g * q + (g < r ? g : r);
+  *count = q + (g < r ? 1 : 0);
+}
+
+// The group of tables that block b of `blocks` runs (its tables c0 .. c0 +
+// count - 1), and that group's blocks b0 .. b0 + nb - 1: each group takes
+// blocks in proportion to its tables, blocks * c0 / nch onwards, so that a
+// smaller group does not leave its SMs idle while the larger ones run (a
+// stack of 8 split 3 + 3 + 2 over equal blocks ran 12% behind 4 + 4). At
+// least one block a group where blocks >= nch.
+__device__ __forceinline__ void block_group(int nch, int groups, int blocks, int b, int* c0,
+                                            int* count, int* b0, int* nb) {
+  for (int g = 0; g < groups; ++g) {
+    table_group(nch, groups, g, c0, count);
+    const int lo = static_cast<int>(static_cast<int64_t>(blocks) * *c0 / nch);
+    const int hi = static_cast<int>(static_cast<int64_t>(blocks) * (*c0 + *count) / nch);
+    if (b < hi || g == groups - 1) {
+      *b0 = lo;
+      *nb = hi - lo;
+      return;
+    }
+  }
 }
 
 // Channels of a stack that run together: a sector of them, interleaved;
@@ -152,11 +217,13 @@ __host__ __device__ constexpr int lanes_of() {
 
 // Whether the route has an instantiation for the method and ndims: staged
 // serves linear, one table or a stack read table by table, and single-table
-// cubic; quads single-table linear; interleaved the linear and nearest
-// stacks; taps single-table cubic at 2D, tap lanes from 3D.
+// cubic; staged groups the cubic stacks; quads single-table linear;
+// interleaved the linear and nearest stacks; taps single-table cubic at 2D,
+// tap lanes from 3D.
 constexpr bool serves(int route, int method, bool stack, int ndims) {
   return route == kDirect ||
          (route == kStaged && (method == kLinear || (method == kCubic && !stack))) ||
+         (route == kStagedGroups && method == kCubic && stack) ||
          (route == kQuads && method == kLinear && !stack) ||
          (route == kInterleaved && method != kCubic && stack) ||
          (taps(route) && method == kCubic && !stack &&
@@ -385,8 +452,8 @@ template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
 __global__ void __launch_bounds__(threads_of<ROUTE>())
     regular_kernel(GridArgs grid, ObsPtrs<T> obs, const T* __restrict__ starts,
                    const T* __restrict__ steps, const T* __restrict__ vals, int64_t table,
-                   int nch, T* __restrict__ out, int64_t n, bool lin) {
-  constexpr bool kShared = ROUTE == kStaged;
+                   int nch, int groups, T* __restrict__ out, int64_t n, bool lin) {
+  constexpr bool kShared = ROUTE == kStaged || ROUTE == kStagedGroups;
   constexpr int W = lanes_of<T, ROUTE>();
   constexpr int kGroup = group_of(ROUTE);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -403,19 +470,26 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
     high_at[k] = static_cast<T>(grid.dim[k] - 3);
     stride[k] = grid.stride[k];
   }
-  const T* src = vals;
+  // the tables this block runs and the blocks that share them: its group
+  // and the group's blocks on the staged routes, all of them on the others
+  int first = 0, count = nch, b0 = 0, nb = gridDim.x;
+  if constexpr (kShared && kStack) {
+    block_group(nch, groups, gridDim.x, blockIdx.x, &first, &count, &b0, &nb);
+  }
+  const T* src = vals + first * table;
+  T* dst = out + first * n;
   bool pending = false;  // a bulk copy into shared memory not yet awaited
-  if constexpr (kShared) src = stage_table(vals, table * nch, smem, &bar, &pending);
+  if constexpr (kShared) src = stage_table(src, table * count, smem, &bar, &pending);
   // 16-byte loads of a stack's channel runs: every entry's run aligned
   const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 && (nch * sizeof(T)) % 16 == 0;
-  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x / kGroup;
-  for (int64_t i = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kGroup;
+  const int64_t nthreads = static_cast<int64_t>(nb) * blockDim.x / kGroup;
+  for (int64_t i = (static_cast<int64_t>(blockIdx.x - b0) * blockDim.x + threadIdx.x) / kGroup;
        i < n; i += nthreads) {
     int base = 0;
     if constexpr (METHOD == kCubic) {
       RegularCubicAxis<T> ax[NDIMS];
 #pragma unroll
-      for (int k = 0; k < NDIMS; ++k) {
+      for (int k = 0; k < NDIMS; ++k) {  // as interp_common.cuh's `regular_cubic_axis`
         const T x = __ldg(obs.p[k] + i);
         const T iloc = sub_rn(floor_(div_rn(sub_rn(x, start[k]), step[k])), T(1));
         // the masks see the raw iloc (all false for NaN); the index sees
@@ -438,10 +512,10 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
         }
       }
       using Axis = RegularCubicAxis<T>;
-      if constexpr (kStack) {  // tables one after another
-        for (int c = 0; c < nch; ++c) {
-          out[c * n + i] =
-              CubicTree<T, Axis, NDIMS>::eval(Ldg<T>{vals + c * table}, base, stride, ax, lin);
+      if constexpr (kStack) {  // the block's tables one after another
+        for (int c = 0; c < count; ++c) {
+          dst[c * n + i] = CubicTree<T, Axis, NDIMS>::eval(
+              Channels<T, 1, kShared>{src + c * table, 1, false}, base, stride, ax, lin);
         }
       } else if constexpr (kGroup == 4) {
         // lane j of the query's four runs child j of the outermost axis;
@@ -487,12 +561,12 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
         constexpr int LEAF = NDIMS == 1 ? 1 : 2;
         out[i] = LerpTree<T, NDIMS, LEAF>::eval(Packed<T, LEAF>{vals, t}, base, stride, t).v[0];
       } else if constexpr (W == 1) {  // one table, or a stack's tables one at a time
-        for (int c = 0; c < nch; ++c) {
+        for (int c = 0; c < count; ++c) {
           const Channels<T, 1, kShared> at{src + c * table, 1, false};
           if constexpr (METHOD == kNearest) {
-            out[c * n + i] = at(base).v[0];
+            dst[c * n + i] = at(base).v[0];
           } else {
-            out[c * n + i] = LerpTree<T, NDIMS>::eval(at, base, stride, t).v[0];
+            dst[c * n + i] = LerpTree<T, NDIMS>::eval(at, base, stride, t).v[0];
           }
           if constexpr (!kStack) break;
         }
@@ -682,17 +756,21 @@ cudaError_t occupancy(Occupancy& o, Kernel kernel, int threads, size_t reserve, 
   return cudaSuccess;
 }
 
-// min(ceil(n / threads), SMs x resident blocks); an error where no block
-// fits.
+// min(ceil(n / threads) x groups, SMs x resident blocks): over the groups
+// of tables of a staged stack (`block_group`), as many blocks as the card
+// holds at once, at least one a table; an error where no block fits.
 template <typename Kernel>
 cudaError_t grid_blocks(Occupancy& o, Kernel kernel, int threads, size_t reserve, int64_t n,
-                        int* blocks) {
+                        int* blocks, int groups = 1, int nch = 1) {
   int per_sm = 0, sms = 0;
   const cudaError_t err = occupancy(o, kernel, threads, reserve, &per_sm, &sms);
   if (err != cudaSuccess) return err;
-  const int64_t want = (n + threads - 1) / threads;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  const int64_t want = (n + threads - 1) / threads * groups;
   const int64_t most = static_cast<int64_t>(per_sm) * sms;
-  *blocks = static_cast<int>(want < most ? want : most);
+  int64_t b = want < most ? want : most;
+  if (groups > 1 && b < nch) b = nch;
+  *blocks = static_cast<int>(b);
   return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
@@ -841,18 +919,22 @@ struct Regular {
     const auto kernel = regular_kernel<T, NDIMS, METHOD, kStack, ROUTE>;
     constexpr int threads = threads_of<ROUTE>();
     constexpr size_t reserve = reserve_of<ROUTE>();
-    // the staged table and its offset from a 16-byte boundary
-    const size_t smem = ROUTE == kStaged ? a.table * a.nch * sizeof(T) + 16 : 0;
+    constexpr bool kShared = ROUTE == kStaged || ROUTE == kStagedGroups;
+    const int groups = ROUTE == kStagedGroups ? table_groups<T>(a.table, a.nch) : 1;
+    if (groups < 1) return cudaErrorInvalidValue;  // a table above the group cap
+    // the largest staged group and its offset from a 16-byte boundary
+    const int most = (a.nch + groups - 1) / groups;
+    const size_t smem = kShared ? a.table * most * sizeof(T) + 16 : 0;
     if (smem > reserve) return cudaErrorInvalidValue;  // above the staging cap
     int blocks = 0;
     const cudaError_t err = grid_blocks(occupancy_cache<Regular>(), kernel, threads, reserve,
-                                        a.n * group_of(ROUTE), &blocks);
+                                        a.n * group_of(ROUTE), &blocks, groups, a.nch);
     if (err != cudaSuccess) return err;
     ObsPtrs<T> ptrs{};
     for (int k = 0; k < NDIMS; ++k) ptrs.p[k] = static_cast<const T*>(a.obs[k]);
     kernel<<<blocks, threads, smem, a.stream>>>(
         a.grid, ptrs, static_cast<const T*>(a.starts), static_cast<const T*>(a.steps),
-        static_cast<const T*>(a.vals), a.table, a.nch, static_cast<T*>(a.out), a.n, a.lin);
+        static_cast<const T*>(a.vals), a.table, a.nch, groups, static_cast<T*>(a.out), a.n, a.lin);
     return cudaGetLastError();
   }
 
@@ -921,6 +1003,7 @@ cudaError_t visit_route(int route, int method, int ndims, Op& op) {
     case kTaps: return visit_method<F, kStack, kTaps, T>(method, ndims, op);
     case kTapLanes: return visit_method<F, kStack, kTapLanes, T>(method, ndims, op);
     case kStagedTables: return visit_method<F, kStack, kStagedTables, T>(method, ndims, op);
+    case kStagedGroups: return visit_method<F, kStack, kStagedGroups, T>(method, ndims, op);
     default: return cudaErrorInvalidValue;
   }
 }

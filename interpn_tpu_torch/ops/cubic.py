@@ -135,6 +135,16 @@ def rectilinear_cubic_weights(x, grid, linearize: bool):
                     for e in unit_bases(x)]
 
 
+def regular_cubic_weights(x, start, step, dim: int, linearize: bool):
+    """(loc, [w0, w1, w2, w3]) of one regular axis at `x`, in x's dtype:
+    the stencil's first index and `_axis_reduce_regular` on the four unit
+    bases (K8's regular weights; the kernels' `regular_cubic_weights`,
+    csrc/interp_common.cuh)."""
+    cl = locate_regular_cubic(x, start, step, dim)
+    return cl.loc, [_axis_reduce_regular(e, cl.t, cl.low, cl.high, cl.outside, linearize)
+                    for e in unit_bases(x)]
+
+
 def contract_cubic(c, weights):
     """The vertex-major stencil matrix c (..., 4^N, n) contracted with each
     axis's four weights, axis 0 first: each group of four adjacent rows

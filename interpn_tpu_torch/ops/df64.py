@@ -42,12 +42,8 @@ from ..utils import c_strides
 from . import fused as _fused
 from ._chunk import chunk_len
 from .bspline import spline_locs_weights
-from .cubic import _axis_reduce_regular, rectilinear_cubic_weights, unit_bases
-from .locate import (
-    locate_rectilinear_linear,
-    locate_regular_cubic,
-    locate_regular_linear,
-)
+from .cubic import rectilinear_cubic_weights, regular_cubic_weights
+from .locate import locate_rectilinear_linear, locate_regular_linear
 
 _F32 = torch.float32
 _F64 = torch.float64
@@ -232,10 +228,7 @@ def _axis_weights(dims, starts, steps, grids, obs, method, linearize):
                 loc, t = locate_regular_linear(x, starts[k], steps[k], dims[k])
                 out.append((loc, [1.0 - t, t]))
             else:
-                cl = locate_regular_cubic(x, starts[k], steps[k], dims[k])
-                out.append((cl.loc, [
-                    _axis_reduce_regular(e, cl.t, cl.low, cl.high, cl.outside, linearize)
-                    for e in unit_bases(x)]))
+                out.append(regular_cubic_weights(x, starts[k], steps[k], dims[k], linearize))
         elif method == "linear":
             loc, x0, x1 = locate_rectilinear_linear(x, grids[k])
             t = (x - x0) / (x1 - x0)

@@ -4,10 +4,11 @@
   `fused_regular_stack.cu` (linear, cubic, nearest), the counterpart of
   `interpn_tpu/ops/pallas_v3.py::eval_regular` (K1) and
   `eval_regular_stack` (K5). The layout their kernel reads is
-  `regular_route`'s alone: the table staged in shared memory, its packed
-  quads, its cubic pack of axis 0's taps (one or four lanes a query), or a
-  stack channel-interleaved (each laid out every call by the same entry;
-  `pack`, `cubic_pack` and `interleave` alone), or the table itself.
+  `regular_route`'s alone: the table staged in shared memory, a cubic
+  stack's groups of tables staged one to a block, its packed quads, its
+  cubic pack of axis 0's taps (one or four lanes a query), or a stack
+  channel-interleaved (each laid out every call by the same entry; `pack`,
+  `cubic_pack` and `interleave` alone), or the table itself.
 * `eval_rectilinear` / `eval_rectilinear_stack` launch
   `csrc/fused_rectilinear.cu` / `fused_rectilinear_stack.cu`, the
   counterpart of `pallas_v3.eval_rectilinear_pre` (K2: linear, cubic),
@@ -18,7 +19,9 @@
   pack, K5's interleave, or the table itself).
 * `eval_bspline` / `eval_bspline_stack` launch `csrc/fused_bspline.cu` /
   `fused_bspline_stack.cu`, the counterpart of `pallas_v3.eval_bspline`
-  (K4, and K2's spline use) and `pallas_v3.eval_bspline_stack` (K7).
+  (K4, and K2's spline use) and `pallas_v3.eval_bspline_stack` (K7), on
+  `bspline_route`'s layout: a table direct; a stack staged as K5 stages a
+  cubic one, channel-interleaved, or direct.
 * `launch_df64` / `launch_i8` launch `csrc/fused_df64.cu` (K8, the
   counterpart of `interpn_tpu/ops/pallas_df64.py::_pallas_df64` with the
   float64 weight build before it) and `csrc/fused_i8.cu` (K9,
@@ -78,20 +81,24 @@ INTERLEAVE = "regular_interleave"  # the interleaved route's, in csrc/fused_regu
 # K6's entries
 RECT_CUBIC_PACK = "rectilinear_cubic_pack"
 RECT_INTERLEAVE = "rectilinear_interleave"
+# and the interleave in csrc/fused_bspline_stack.cu, launched by K7's entry
+BSPLINE_INTERLEAVE = "bspline_interleave"
 KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES, PACK, CUBIC_PACK,
-           INTERLEAVE, RECT_CUBIC_PACK, RECT_INTERLEAVE)
+           INTERLEAVE, RECT_CUBIC_PACK, RECT_INTERLEAVE, BSPLINE_INTERLEAVE)
 
 # Kernel launches by name; a run resets and reads them to show that its main
 # path went through the kernels.
 launches = dict.fromkeys(KERNELS, 0)
 
 # the route codes of csrc/regular.cuh: kDirect, kStaged, kQuads, kInterleaved,
-# kTaps, kTapLanes, kStagedTables
-ROUTES = ("direct", "staged", "quads", "interleaved", "taps", "tap_lanes", "staged_tables")
+# kTaps, kTapLanes, kStagedTables, kStagedGroups
+ROUTES = ("direct", "staged", "quads", "interleaved", "taps", "tap_lanes", "staged_tables",
+          "staged_groups")
 TAP_ROUTES = ROUTES[4:6]  # the routes that read the cubic pack
 # the layout kernel that the entry launches before the kernel, by route
 LAYOUTS = {"quads": PACK, "interleaved": INTERLEAVE, **dict.fromkeys(TAP_ROUTES, CUBIC_PACK)}
 RECT_LAYOUTS = {"interleaved": RECT_INTERLEAVE, **dict.fromkeys(TAP_ROUTES, RECT_CUBIC_PACK)}
+BSPLINE_LAYOUTS = {"interleaved": BSPLINE_INTERLEAVE}
 # An f32 linear table (a stack read table by table: all its tables) of at
 # most this many bytes is staged in shared memory (kStageBytes in
 # csrc/regular.cuh, which refuses a larger one). Nearest reads one entry a
@@ -120,10 +127,18 @@ L1_BYTES = 256 * 1024
 # 9^5, but 8.5% and 13% behind it at 12^4 and 8^5, whose tables direct
 # reads from L1, and level at 6^6 (`scripts/torch_regular_ab.py`).
 RUN_BYTES = 32
+# A cubic stack (K5) or B-spline stack (K7) whose tables fit this many bytes
+# each is split into the fewest groups of consecutive tables within it, as
+# evenly as it allows (one group where the whole stack fits), and each block
+# stages its group in shared memory ('staged_groups'; kGroupBytes in
+# csrc/regular.cuh, whose entries count the groups and refuse a larger
+# table): about all the shared memory a block may use, at one 1024-thread
+# block an SM.
+GROUP_BYTES = 224 * 1024
 
 _THREADS = 256  # kThreads in the sources
-# 2048 resident threads per SM at 256 threads a block; the regular and
-# rectilinear families size their grid in C instead
+# 2048 resident threads per SM at 256 threads a block (the f64 engines); the
+# grid families size their grid in C instead
 _BLOCKS_PER_SM = 8
 _MAX_DIMS = 8
 _INT32_LIMIT = 2**31
@@ -134,12 +149,12 @@ _DIMS = [_INT, ctypes.POINTER(_INT)]  # ndims, dims
 _TAIL = [_VOIDP, _PTRS, _VOIDP, ctypes.c_longlong, _INT, _INT, _VOIDP]
 _FAMILY_ARGTYPES = {
     # (method, linearize, is_f64 | degree, is_f64), ndims, dims, the grid
-    # (starts, steps, the layout buffer | columns, the layout buffer |
-    # knots), then vals, obs, out, n, nch, blocks (regular, rectilinear: the
-    # route), stream; a family's single-table and stack sources take the same
+    # (starts, steps | columns | knots) and the layout buffer, then vals,
+    # obs, out, n, nch, the route, stream; a family's single-table and
+    # stack sources take the same
     "regular": [_INT, _INT, _INT] + _DIMS + [_VOIDP, _VOIDP, _VOIDP] + _TAIL,
     "rectilinear": [_INT, _INT, _INT] + _DIMS + [_PTRS, _VOIDP] + _TAIL,
-    "bspline": [_INT, _INT] + _DIMS + [_PTRS] + _TAIL,
+    "bspline": [_INT, _INT] + _DIMS + [_PTRS, _VOIDP] + _TAIL,
     # kind, footprint, linearize, ndims, dims, starts, steps, columns, taps,
     # obs, out, n, blocks, stream
     "df64": [_INT, _INT, _INT] + _DIMS + [_VOIDP, _VOIDP, _PTRS, _VOIDP, _PTRS, _VOIDP,
@@ -324,11 +339,11 @@ def regular_route(dims, dtype, method, nch=None) -> str:
     linear, one table or a stack read table by table, all of it within
     STAGE_BYTES, copied into shared memory by each block), 'quads' (f32
     linear, one table above that, packed copy within QUAD_BYTES), for one
-    cubic table `_cubic_route`'s, or 'direct' (the rest, and cubic stacks;
-    linear f64 is never staged nor packed). A function of these arguments
-    alone, and the only place the choice is made."""
+    cubic table `_cubic_route`'s, for a cubic stack `_stack_route`'s, or
+    'direct' (the rest; linear f64 is never staged nor packed). A function
+    of these arguments alone, and the only place the choice is made."""
     if method == "cubic":
-        return "direct" if nch is not None else _cubic_route(dims, dtype)
+        return _cubic_route(dims, dtype) if nch is None else _stack_route(dims, dtype, nch, False)
     if nch is not None and nch * dtype.itemsize >= RUN_BYTES:
         return "interleaved"
     if method != "linear" or dtype != torch.float32:
@@ -362,6 +377,30 @@ def rectilinear_route(dims, dtype, method, nch=None) -> str:
         return "staged_tables"
     wide = nch * dtype.itemsize >= RUN_BYTES and (
         dtype == torch.float32 or len(dims) <= 3 or table > L1_BYTES)
+    return "interleaved" if wide else "direct"
+
+
+def bspline_route(dims, dtype, k, nch=None) -> str:
+    """The layout the B-spline kernel of degree `k` reads for coefficient
+    tables of `dims` in `dtype`: 'direct' for one table; for a stack of
+    `nch` `_stack_route`'s. A function of these arguments alone, and the
+    only place the choice is made."""
+    if k not in DEGREES:
+        raise ValueError(f"spline degree must be one of {DEGREES}, got {k!r}")
+    return "direct" if nch is None else _stack_route(dims, dtype, nch, True)
+
+
+def _stack_route(dims, dtype, nch, interleave) -> str:
+    """The route of a stack of nch cubic (K5) or B-spline (K7) tables:
+    'staged_groups' where each table fits GROUP_BYTES; else, where
+    `interleave` (K7, whose tree keeps one running sum a channel a level;
+    eight Hermite trees at once would not fit the registers),
+    'interleaved' at RUN_BYTES of channels or more while the interleave
+    has int32 indices; else 'direct'."""
+    size = math.prod(dims)
+    if size * dtype.itemsize <= GROUP_BYTES:
+        return "staged_groups"
+    wide = interleave and nch * dtype.itemsize >= RUN_BYTES and nch * size < _INT32_LIMIT
     return "interleaved" if wide else "direct"
 
 
@@ -485,13 +524,15 @@ def regular_info(method, dtype, ndims, route, stacked=False, family="regular") -
     """Registers a thread, static shared bytes, local (spill) bytes a thread
     and resident blocks an SM (with the route's reservation of dynamic
     shared memory: the largest staged table on the staged route) of the
-    regular (`family` "rectilinear": the rectilinear) kernel's
-    instantiation for (method, dtype, ndims, route), one table's or a
-    stack's, on the current CUDA device."""
+    regular (`family` "rectilinear": the rectilinear; "bspline": the
+    B-spline, `method` its degree) kernel's instantiation for (method,
+    dtype, ndims, route), one table's or a stack's, on the current CUDA
+    device."""
     got = (_INT * 4)()
     source = _name(f"fused_{family}", stacked)
-    rc = _fn(source, "_info")(_method(method), int(dtype == torch.float64), ndims,
-                              ROUTES.index(route), got)
+    head = int(method) if family == "bspline" else _method(method)
+    rc = _fn(source, "_info")(head, int(dtype == torch.float64), ndims, ROUTES.index(route),
+                              got)
     if rc != 0:
         raise RuntimeError(f"{source} info failed: CUDA error {rc}")
     return dict(zip(("registers", "static_smem", "local_bytes", "blocks_per_sm"), got))
@@ -514,7 +555,8 @@ def _relaid_launch(family, route, layouts, dims, vals, obs, method, linearize, n
                    *grid_args):
     """Launch the `family` source's entry on `route`, with the buffer its
     layout kernel (`layouts[route]`) fills first, which the entry then
-    reads; count the launches. `grid_args` come before the buffer."""
+    reads; count the launches. `grid_args` come before the buffer.
+    `method` is a B-spline's degree."""
     size = _layout_size(dims, route, vals)
     if size is not None and size >= _INT32_LIMIT:
         raise ValueError(f"the {route} layout of {size} values needs int64 indices")
@@ -522,10 +564,14 @@ def _relaid_launch(family, route, layouts, dims, vals, obs, method, linearize, n
     work = None
     if layout:  # the entry lays the table out in this buffer, then reads it
         work = torch.empty(size, dtype=vals.dtype, device=vals.device)
+    if family == "bspline":
+        kernel, head = f"bspline_k{method}", (method, _is_f64(vals))
+    else:
+        kernel = f"{family}_{method}"
+        head = (_method(method), int(bool(linearize)), _is_f64(vals))
     out = _launch(
-        _name(f"fused_{family}", stacked), _name(f"{family}_{method}", stacked),
-        (_method(method), int(bool(linearize)), _is_f64(vals)), dims, vals, obs, n, stacked,
-        *grid_args, None if work is None else work.data_ptr(), route=route,
+        _name(f"fused_{family}", stacked), _name(kernel, stacked), head, dims, vals, obs, n,
+        stacked, *grid_args, None if work is None else work.data_ptr(), route=route,
     )
     if layout:
         launches[layout] += 1
@@ -587,11 +633,9 @@ def _bspline(knots, coeffs, obs, k, *, stacked):
         raise ValueError("knots must be 1-D tensors, one per dim")
     dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
     n = _check_common(dims, coeffs, obs, knots, k + 1, stacked)
-    return _launch(
-        _name("fused_bspline", stacked), _name(f"bspline_k{k}", stacked), (k, _is_f64(coeffs)),
-        dims, coeffs, obs, n, stacked,
-        (_VOIDP * len(knots))(*(t.data_ptr() for t in knots)),
-    )
+    route = bspline_route(dims, coeffs.dtype, k, int(coeffs.shape[0]) if stacked else None)
+    return _relaid_launch("bspline", route, BSPLINE_LAYOUTS, dims, coeffs, obs, k, None, n,
+                          stacked, (_VOIDP * len(knots))(*(t.data_ptr() for t in knots)))
 
 
 def _need(method: str) -> int:
@@ -653,10 +697,9 @@ def _check_common(dims, vals, obs, params, need, stacked) -> int:
     return n
 
 
-def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route=None):
-    """Launch `csrc/<source>.cu` on the current stream; count the launch.
-    The regular and rectilinear families take their `route` where the
-    B-spline family takes a block count."""
+def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route):
+    """Launch `csrc/<source>.cu` on `route` on the current stream; count the
+    launch."""
     nch = int(vals.shape[0]) if stacked else 1
     out = torch.empty((nch, n) if stacked else (n,), dtype=vals.dtype, device=vals.device)
     if n == 0 or nch == 0:
@@ -665,10 +708,6 @@ def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route
     index = vals.device.index
     if index is None:
         index = torch.cuda.current_device()
-    if route is None:
-        last = min(-(-n // _THREADS), _sm_count(index) * _BLOCKS_PER_SM)
-    else:
-        last = ROUTES.index(route)
     with torch.cuda.device(index):
         rc = _fn(source)(
             *head,
@@ -680,7 +719,7 @@ def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route
             out.data_ptr(),
             n,
             nch,
-            last,
+            ROUTES.index(route),
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

@@ -13,7 +13,10 @@ name, and each builds the sources its cases launch (SOURCES) with its own
 
 Each case of CASES is a table on a [0, 10] grid (random values from a
 seed) and 1e6 queries uniform in [-0.5, 10.5]: every K1 and K5 path of
-`chip_smoke.py`, the routes' crossings, and stacks at 4, 5 and 8D. On each:
+`chip_smoke.py`, the routes' crossings, stacks at 4, 5 and 8D, and cubic
+stacks of 1-4 groups (the C entry counts a stack's groups; a copy built
+with another `kGroupBytes`, csrc/regular.cuh, splits it otherwise, and is
+timed as the earlier checkout). On each:
 
 1. the kernels: each checkout's public evaluator
    (`ops.fused.eval_regular[_stack]`; this checkout's on the route that
@@ -51,11 +54,13 @@ plain version on the same inputs, and the script then exits non-zero);
 registers, local bytes and blocks an SM of each
 route timed (`fused.regular_info(..., family="rectilinear")`) and the
 earlier checkout's (the same, or its ptxas log). Each case of
-BSPLINE_CASES (`chip_smoke.py`'s spline paths) times both checkouts'
-`eval_bspline[_stack]` so, bitwise equal. `--paths REGEX` keeps the cases
-whose label it finds, and the build only their sources; `--unchecked`
-compares no rectilinear result of the earlier checkout (a copy whose kernel
-skips part of the work, timed to see what the rest costs). One line per
+BSPLINE_CASES (`chip_smoke.py`'s spline paths, and K7 stacks around the
+group cap) times both checkouts' `eval_bspline[_stack]` and this
+checkout's entry on each other route listed so, bitwise equal.
+`--paths REGEX` keeps the cases whose label it finds, and the build only
+their sources; `--unchecked` compares no rectilinear or B-spline result of
+the earlier checkout (a copy whose kernel skips part of the work, timed to
+see what the rest costs). One line per
 case, then the card's name and power limit and one JSON object of every
 time; exits non-zero without a CUDA device.
 
@@ -140,8 +145,14 @@ CASES = [
     ("nearest", 20, 3, "f32", None, ()),
     ("nearest", 20, 3, "f64", None, ()),
     ("linear", 20, 3, "f32", 8, ("interleaved", "direct")),
-    ("cubic", 20, 3, "f32", 8, ()),
     ("nearest", 20, 3, "f32", 8, ("interleaved", "direct")),
+    # K5 cubic stacks: staged groups against direct
+    ("cubic", 20, 3, "f32", 8, ("direct",)),
+    ("cubic", 20, 3, "f32", 3, ("direct",)),
+    ("cubic", 20, 3, "f32", 9, ("direct",)),
+    ("cubic", 20, 3, "f64", 4, ("direct",)),
+    ("cubic", 40, 3, "f32", 8, ()),
+    ("cubic", 12, 4, "f32", 8, ("direct",)),
     ("linear", 20, 3, "f32", 1, ("staged", "interleaved", "direct")),
     ("linear", 20, 3, "f32", 3, ("staged", "interleaved", "direct")),
     ("linear", 20, 3, "f64", 4, ("interleaved", "direct")),
@@ -181,9 +192,19 @@ RECT_CASES = [
     ("nearest", 20, 3, "f32", 8, ()),
 ]
 # K4 and K7: (spline degree, points an axis, ndims, dtype, tables of a stack
-# or None), `chip_smoke.py`'s spline paths
-BSPLINE_CASES = [(3, 20, 3, "f32", None), (3, 20, 3, "f64", None), (3, 100, 2, "f64", None),
-                 (5, 20, 3, "f32", None), (3, 20, 3, "f32", 8)]
+# or None, the other routes timed), `chip_smoke.py`'s spline paths and K7
+# stacks around the group cap
+BSPLINE_CASES = [
+    (3, 20, 3, "f32", None, ()), (3, 20, 3, "f64", None, ()), (3, 100, 2, "f64", None, ()),
+    (5, 20, 3, "f32", None, ()),
+    (3, 20, 3, "f32", 8, ("interleaved", "direct")),
+    (3, 20, 3, "f32", 3, ("direct",)),
+    (3, 20, 3, "f32", 9, ("interleaved", "direct")),
+    (3, 20, 3, "f64", 4, ("interleaved", "direct")),
+    # tables above GROUP_BYTES: interleaved against direct
+    (3, 40, 3, "f32", 8, ("direct",)),
+    (3, 40, 3, "f64", 4, ("direct",)),
+]
 # cubic against an earlier checkout whose plain version was the gather tree:
 # the JAX package's bars of a weight contraction against it
 GATHER_TOL = {torch.float32: 1e-4, torch.float64: 1e-13}
@@ -203,7 +224,7 @@ def label(case, family="regular") -> str:
 
 
 def bspline_label(case) -> str:
-    k, n, nd, dt, nch = case
+    k, n, nd, dt, nch, _ = case
     what = {3: "cubic_spline", 5: "quintic"}[k]
     return f"K{7 if nch else 4} {what} {f'stack of {nch} ' if nch else ''}{n}^{nd} {dt}"
 
@@ -411,21 +432,48 @@ def bspline_times(case, earlier, cuda) -> dict:
     coefficients, bitwise equal."""
     import chip_smoke as cs
 
-    k, n, nd, dt, nch = case
-    p = cs.Path(f"bspline_k{k}{'_stack' if nch else ''}", DTYPES[dt], n, nd)
+    k, n, nd, dt, nch, others = case
+    dtype = DTYPES[dt]
+    p = cs.Path(f"bspline_k{k}{'_stack' if nch else ''}", dtype, n, nd)
     knots, coeffs = cs.path_grid(p, cuda)
-    fns = {side: (lambda ob, m=m: (m.eval_bspline_stack if nch else m.eval_bspline)(
-        knots, coeffs, ob, k)) for side, m in (("earlier", earlier), ("this", fused))}
+    if nch:  # the path's first nch tables (its 8, then nch - 8 more shifted)
+        coeffs = torch.cat([coeffs + 8 * j for j in range(-(-nch // 8))])[:nch].contiguous()
+    dims = (n,) * nd
+    picked = fused.bspline_route(dims, dtype, k, nch)
+
+    def public(m):
+        return lambda ob: (m.eval_bspline_stack if nch else m.eval_bspline)(knots, coeffs, ob, k)
+
+    def on_route(route):
+        size = fused._layout_size(dims, route, coeffs)
+        cols = (fused._VOIDP * nd)(*(t.data_ptr() for t in knots))
+
+        def call(ob):
+            work = None if size is None else torch.empty(size, dtype=dtype, device=cuda)
+            return fused._launch("fused_bspline_stack", f"bspline_k{k}_stack",
+                                 (k, int(dtype == torch.float64)), dims, coeffs, ob,
+                                 ob[0].shape[0], True, cols,
+                                 None if work is None else work.data_ptr(), route=route)
+        return call
+
+    fns = {"earlier": public(earlier), picked: public(fused)}
+    fns.update({r: on_route(r) for r in others if r != picked})
     main = batches(("", n, nd, dt, nch, ()), cuda)
-    cs.bitwise(fns["this"](main[0]), fns["earlier"](main[0]), f"{p.label}: this vs earlier")
-    entry = {"case": bspline_label(case), "route": "this", "kernel_ms": {},
+    want = fns[picked](main[0])
+    for r in fns:
+        if r != "earlier" or COMPARE_EARLIER:
+            cs.bitwise(fns[r](main[0]), want, f"{bspline_label(case)}: {r} vs {picked}")
+    entry = {"case": bspline_label(case), "route": picked, "kernel_ms": {},
              "loop_ms": {}, "issue_ms": {}}
+    for name in [*fns, *reversed(fns)]:
+        entry["kernel_ms"].setdefault(name, []).append(cuda_time(fns[name], main).device_ms)
     for side in ("earlier", "this", "this", "earlier"):
-        entry["kernel_ms"].setdefault(side, []).append(cuda_time(fns[side], main).device_ms)
-    for side in ("earlier", "this", "this", "earlier"):
-        loop, issue = back_to_back(fns[side], main)
+        loop, issue = back_to_back(fns["earlier" if side == "earlier" else picked], main)
         entry["loop_ms"].setdefault(side, []).extend(loop)
         entry["issue_ms"].setdefault(side, []).extend(issue)
+    if nch:
+        entry["info"] = {r: fused.regular_info(k, dtype, nd, r, True, "bspline")
+                         for r in fns if r != "earlier"}
     return entry
 
 

@@ -74,7 +74,9 @@ def test_cubic_route_at_each_cap(ndims, dtype):
     STAGE_BYTES; then its cubic pack, read by one lane a query at 2D and
     four from 3D, while the pack fits TAP_BYTES, but direct for an f64
     table of at most L1_BYTES at 2-3D; then direct. A 1-D table reads
-    direct beyond the staging cap, and a stack of cubic tables at any size."""
+    direct beyond the staging cap. A stack of cubic tables is staged in
+    groups within GROUP_BYTES a table, else read direct (`_stack_route`,
+    tests/test_torch_stack_cubic.py)."""
     item = torch.empty((), dtype=dtype).element_size()
     rest = 4 ** (ndims - 1)
     packed = {1: "direct", 2: "taps"}.get(ndims, "tap_lanes")
@@ -85,7 +87,7 @@ def test_cubic_route_at_each_cap(ndims, dtype):
     at_stage = fused.STAGE_BYTES // (rest * item)
     if at_stage >= 4:
         assert route(at_stage) == "staged"
-        assert route(at_stage, 1) == route(at_stage, 3) == "direct"
+        assert route(at_stage, 1) == route(at_stage, 3) == "staged_groups"
     in_l1 = dtype == F64 and ndims <= 3
     assert route(max(at_stage + 1, 4)) == ("direct" if in_l1 else packed)
     if in_l1:

@@ -711,9 +711,9 @@ def test_stack_kernels_equal_plain(cuda, dims, nch, method, lin, dtype):
 def test_stacks_around_the_stage_cap(cuda, nch, method, lin, dtype):
     """K5 on 20^3 stacks of 1, 3, 4 and 8 tables: f32 linear staged up to 3
     tables (the whole stack within the cap, read table by table), linear
-    and nearest interleaved from 8 f32 or 4 f64 tables, the rest direct;
-    bitwise against the plain version and, table by table, against the
-    single-table kernel."""
+    and nearest interleaved from 8 f32 or 4 f64 tables, cubic staged in
+    groups of tables, the rest direct; bitwise against the plain
+    version and, table by table, against the single-table kernel."""
     rng = np.random.default_rng(nch)
     dims, st, sp, _, ob = _case((20, 20, 20), dtype, cuda, n=20_000, seed=nch)
     vals = torch.as_tensor(rng.standard_normal((nch, 8000)), dtype=dtype, device=cuda)
@@ -752,6 +752,96 @@ def test_bspline_stack_kernel_equals_plain(cuda, dims, nch, k, dtype):
     got = _launched(f"bspline_k{k}_stack", lambda: fused.eval_bspline_stack(kt, ct, obs, k))
     _equal(got, fused.plain_bspline_stack(kt, ct, obs, k))
     _equal(got[0], fused.eval_bspline(kt, ct[0], obs, k))
+
+
+def _at_offset(vals, offset):
+    """`vals` as a view `offset` entries into a larger storage."""
+    storage = torch.zeros(offset + vals.numel() + 5, dtype=vals.dtype, device=vals.device)
+    view = storage[offset:offset + vals.numel()].view(vals.shape)
+    view.copy_(vals)
+    return view
+
+
+def _stack_routes(dims, dtype, kernel):
+    """Every route of a K5 cubic (`kernel` "regular") or K7 ("bspline")
+    stack that takes these tables: staged groups (each table within
+    GROUP_BYTES), interleaved (K7), direct."""
+    routes = ["direct"]
+    if math.prod(dims) * torch.empty((), dtype=dtype).element_size() <= fused.GROUP_BYTES:
+        routes.append("staged_groups")
+    if kernel == "bspline":
+        routes.append("interleaved")
+    return routes
+
+
+# stacks of 1 to 6 groups of 20^3 and 21^3 tables: 7 f32 and 3 f64 20^3
+# tables fit GROUP_BYTES, 6 f32 and 3 f64 21^3 ones
+STACKS = [1, 3, 4, 8, 9, 17]
+
+
+@pytest.mark.parametrize("n", [20, 21], ids=lambda n: f"{n}^3")
+@pytest.mark.parametrize("nch", STACKS)
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_cubic_stack_routes(cuda, n, nch, offset, dtype):
+    """K5 cubic on every route that takes the stack (the wrapper's, one
+    launch and no layout kernel; the C entry splits the stack into groups
+    by its size), in both extrapolation modes, on 20^3 and
+    21^3 tables (bytes no multiple of 16) aligned and as a view at an odd
+    offset, with a NaN, +inf and -inf in the tables: bitwise against the
+    plain version, each row against K1 on its table."""
+    dims, st, sp, _, ob = _case((n,) * 3, dtype, cuda, n=20_000, seed=nch + n)
+    rng = np.random.default_rng(nch)
+    vals = torch.as_tensor(rng.standard_normal((nch, n**3)), dtype=dtype, device=cuda)
+    vals.view(-1)[torch.as_tensor(rng.choice(vals.numel(), 3, replace=False), device=cuda)] = (
+        torch.tensor(BAD, dtype=dtype, device=cuda))
+    vals = _at_offset(vals, offset) if offset else vals
+    assert fused.regular_route(dims, dtype, "cubic", nch) == "staged_groups"
+    for lin in (True, False):
+        want = fused.plain_regular_stack(dims, st, sp, vals, ob, "cubic", lin)
+        rows = [fused.eval_regular(dims, st, sp, vals[c], ob, "cubic", lin) for c in range(nch)]
+        fused.reset_launches()
+        _equal(fused.eval_regular_stack(dims, st, sp, vals, ob, "cubic", lin), want)
+        assert fused.launches == {k: int(k == "regular_cubic_stack") for k in fused.launches}
+        for r in _stack_routes(dims, dtype, "regular"):
+            got = fused._launch("fused_regular_stack", "regular_cubic_stack",
+                                (1, int(lin), fused._is_f64(vals)), dims, vals, ob,
+                                ob[0].shape[0], True, st.data_ptr(), sp.data_ptr(), None,
+                                route=r)
+            _equal(got, want)
+            for c in range(nch):
+                _equal(got[c], rows[c])
+
+
+@pytest.mark.parametrize("nch", STACKS)
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_bspline_stack_routes(cuda, nch, k, offset, dtype):
+    """K7 on every route that takes the stack, on 21^3 coefficient tables
+    (bytes no multiple of 16) aligned and at an odd offset: the wrapper's
+    route one launch (and the interleave one where it interleaves); every
+    route bitwise against the plain version, each row against K4."""
+    dims = (21,) * 3
+    kt, ct, obs = _spline_case(dims, k, dtype, cuda, 20_000, nch=nch, seed=nch + k)
+    ct = _at_offset(ct, offset) if offset else ct.contiguous()
+    want = fused.plain_bspline_stack(kt, ct, obs, k)
+    rows = [fused.eval_bspline(kt, ct[c], obs, k) for c in range(nch)]
+    route = fused.bspline_route(dims, dtype, k, nch)
+    fused.reset_launches()
+    _equal(fused.eval_bspline_stack(kt, ct, obs, k), want)
+    layout = fused.BSPLINE_LAYOUTS.get(route)
+    assert fused.launches == {name: int(name in (f"bspline_k{k}_stack", layout))
+                              for name in fused.launches}
+    knots = (fused._VOIDP * 3)(*(t.data_ptr() for t in kt))
+    for r in _stack_routes(dims, dtype, "bspline"):
+        work = torch.empty(ct.numel(), dtype=dtype, device=cuda) if r == "interleaved" else None
+        got = fused._launch("fused_bspline_stack", f"bspline_k{k}_stack",
+                            (k, fused._is_f64(ct)), dims, ct, obs, obs[0].shape[0], True, knots,
+                            None if work is None else work.data_ptr(), route=r)
+        _equal(got, want)
+        for c in range(nch):
+            _equal(got[c], rows[c])
 
 
 def test_new_routes_launch_their_kernels(cuda):

@@ -59,18 +59,21 @@ def test_route_at_the_stage_cap():
 def test_f64_reads_its_table_direct():
     """Linear and nearest f64 are never staged nor packed, whatever the
     table's size or the stack's: a table and a narrow stack read direct, a
-    wide stack interleaved; a cubic stack reads direct. One cubic f64 table
-    is staged within STAGE_BYTES and read through its cubic pack beyond
-    L1_BYTES (`_cubic_route`)."""
+    wide stack interleaved. One cubic f64 table is staged within STAGE_BYTES
+    and read through its cubic pack beyond L1_BYTES (`_cubic_route`); a
+    cubic stack is staged in groups of tables where each fits GROUP_BYTES,
+    else read direct (`_stack_route`)."""
     cubic = {(50,): "staged", (20,) * 3: "staged", (12,) * 4: "tap_lanes",
              (100,) * 3: "tap_lanes"}
+    # a stack's tables within GROUP_BYTES, but 100^3
+    stack = {(100,) * 3: "direct"}
     for dims in ((50,), (20,) * 3, (12,) * 4, (100,) * 3):
         for method in ("linear", "cubic", "nearest"):
             for nch in (None, 1, 3, 8):
                 wide = nch == 8 and method != "cubic"
                 want = "interleaved" if wide else "direct"
-                if method == "cubic" and nch is None:
-                    want = cubic[dims]
+                if method == "cubic":
+                    want = cubic[dims] if nch is None else stack.get(dims, "staged_groups")
                 assert fused.regular_route(dims, F64, method, nch) == want
 
 
@@ -86,7 +89,7 @@ def test_route_of_stacks():
     for nch in (1, 3, 8):
         wide = "interleaved" if nch == 8 else "direct"
         assert fused.regular_route((at // nch,), F32, "nearest", nch) == wide
-        assert fused.regular_route((at // nch,), F32, "cubic", nch) == "direct"
+        assert fused.regular_route((at // nch,), F32, "cubic", nch) == "staged_groups"
     assert fused.regular_route((at // 8,), F32, "linear", 8) == "interleaved"
     # the bench's stack of 8 20^3 f32 tables (256 KB) reads from device memory
     assert fused.regular_route((20,) * 3, F32, "linear", 8) == "interleaved"
@@ -226,8 +229,8 @@ def test_quads_read_equals_plain(dims, dtype):
 @pytest.mark.parametrize("dtype", [F32, F64], ids=str)
 def test_which_stacks_interleave(dtype):
     """Linear and nearest stacks of 32 bytes of channels or more (8 f32, 4
-    f64 tables) are read interleaved; smaller ones and cubic ones as given,
-    and never a single table."""
+    f64 tables) are read interleaved; smaller ones as given, cubic ones
+    never (`_stack_route`), and never a single table."""
     wide = 32 // torch.empty((), dtype=dtype).element_size()
     for dims in ((20,) * 3, (100,) * 3):
         for method in ("linear", "nearest"):
@@ -235,7 +238,7 @@ def test_which_stacks_interleave(dtype):
             assert fused.regular_route(dims, dtype, method, wide) == "interleaved"
             assert fused.regular_route(dims, dtype, method, 3 * wide + 1) == "interleaved"
             assert fused.regular_route(dims, dtype, method) != "interleaved"
-        assert fused.regular_route(dims, dtype, "cubic", 4 * wide) == "direct"
+        assert fused.regular_route(dims, dtype, "cubic", 4 * wide) != "interleaved"
 
 
 def test_interleave_index_contract():
