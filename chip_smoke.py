@@ -22,21 +22,25 @@ on the taps from 3D, direct) under and over each cap, 100^3 and tables at
 odd offsets; the two packs and the interleave; K2/K6's cubic routes
 (staged, staged tables, taps, interleaved, direct) at and over each cap,
 on tables holding a NaN and infinities, at every node, and at the bench
-paths in both modes and dtypes; K5 cubic's and K7's stack routes (staged
-groups, interleaved, direct) on stacks of 1, 3, 4, 8, 9 and 17 tables of
-20^3 and 21^3 (1 to 6 groups), aligned and at odd offsets, with NaN and
-+-inf in the tables, each row against K1 / K4; K8 and K9 on f64 2-8D, one
+paths in both modes and dtypes; K6 linear's and nearest's stack routes
+(interleaved, staged, direct) on stacks of 1-17 tables at 1-8D and at and
+over the staging cap, each row against K2 / K3; K4's routes (staged
+groups, direct) at and over the cap and on the bench tables; K5 cubic's and K7's
+stack routes (staged groups, interleaved, direct) on stacks of 1, 3, 4, 8,
+9 and 17 tables of 20^3 and 21^3 (1 to 6 groups), aligned and at odd
+offsets, with NaN and +-inf in the tables, each row against K1 / K4; a
+staged launch over its cap raises; K8 and K9 on f64 2-8D, one
 launch each from the queries against the plain chain that builds the
 float64 weights in torch, and K8 at the float range's edges), 3 nodes
 (exact, splines within 1e-11, K8 to the table's hi + lo, K9 within
 1e-13), 4 the paths (launch counts, the quads route's pack and the taps
-routes' cubic pack beside K1 and the interleave beside K5, the cubic pack
+routes' cubic pack beside K1 and the interleave beside K5 and K6, the cubic pack
 beside K2 at 100^3, no torch weight build on an engine path, the route of
 each grid and spline kernel, and checks; rectilinear cubic also against
 the gather tree at f32 1e-4, f64 1e-13), 5 timing: each kernel from CUDA
 events behind a head start (`utils/profiling.py::cuda_time`), each plain
 version from the profiler's device events (`profiled_time`), for K8/K9
-also the whole call through the op a user calls, and the three layout
+also the whole call through the op a user calls, and the four layout
 kernels. A failed
 check raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
@@ -237,18 +241,20 @@ def served(method: str, route: str, stacked: bool, ndims: int, family="regular")
     cubic at 2D, tap lanes from 3D.
     For the rectilinear `family`, K2 (K6) (csrc/rectilinear.cuh::rect_serves):
     direct every method; staged cubic; staged tables and interleaved the
-    cubic stacks; taps single-table cubic from 2D. For the B-spline
-    `family`, K4 (K7) (csrc/bspline.cuh::spline_serves): direct; staged
-    groups and interleaved the stacks."""
+    cubic stacks; taps single-table cubic from 2D; interleaved the linear
+    and nearest stacks, staged the linear ones. For the B-spline `family`,
+    K4 (K7) (csrc/bspline.cuh::spline_serves): direct and staged groups;
+    interleaved the stacks."""
     from interpn_tpu_torch.ops import fused
 
     if family == "bspline":  # K4, K7 of any degree (csrc/bspline.cuh::spline_serves)
-        return route == "direct" or (stacked and route in ("staged_groups", "interleaved"))
+        return route in ("direct", "staged_groups") or (stacked and route == "interleaved")
     if family == "rectilinear":
         if route == "direct":
             return True
         if method != "cubic":
-            return False
+            return stacked and (route == "interleaved" or
+                                (route == "staged" and method == "linear"))
         if route == "taps":
             return not stacked and ndims >= 2
         return route == "staged" or (stacked and route in ("staged_tables", "interleaved"))
@@ -1183,6 +1189,150 @@ def rectilinear_routes_phase(cuda):
         f"exact")
 
 
+def over_cap(launch, what):
+    """A staged launch over its cap must raise (the C entry's
+    cudaErrorInvalidValue), not give way to another route."""
+    try:
+        launch()
+    except RuntimeError as e:
+        if "CUDA error 1" not in str(e):
+            raise
+        return
+    raise AssertionError(f"{what}: a staged launch over its cap ran")
+
+
+def rectilinear_stack_routes_phase(cuda):
+    """Phase 2 for K6 linear and nearest (K5's layouts on rectilinear
+    stacks): stacks of 1, 3, 4, 7, 8, 9 and 17 tables at 1, 3, 4 and 8D and
+    f32 linear stacks at and one row over STAGE_BYTES, aligned and as a view
+    at an odd offset, each table holding a NaN, +inf and -inf, in f32 and
+    f64, with extrapolated, NaN and +-inf queries: through the wrapper (one
+    launch, and the interleave where it interleaves) and on every route that
+    takes the stack (direct, interleaved, staged for linear within its cap),
+    each bitwise against the plain version and each row bitwise against
+    K2 / K3 on its table; a staged launch over the cap raises. Fails unless
+    every route ran."""
+    from interpn_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(23)
+    ran, results = {}, 0
+    cases = [(dims, dtype, nch, off) for dims in ((50,), (20,) * 3, (12,) * 4, (4,) * 8)
+             for dtype in (F32, F64) for nch in (1, 3, 4, 7, 8, 9, 17) for off in (0, 3)]
+    for nch in (1, 3, 8):  # f32 linear stacks at the staging cap and one row over
+        at = fused.STAGE_BYTES // (nch * 16 * 16 * 4)
+        cases += [((d0, 16, 16), F32, nch, off) for d0 in (at, at + 1) for off in (0, 1)]
+    for dims, dtype, nch, off in cases:
+        n = min(N_CHECK // 5, 2**24 // 2 ** len(dims) // nch)
+        (grids, vals), obs = random_case("rectilinear", dims, dtype, n, rng, cuda, nch)
+        flat = vals.reshape(-1)
+        spots = torch.as_tensor(rng.choice(flat.numel(), 3 * nch, replace=False), device=cuda)
+        flat[spots] = torch.tensor([math.nan, math.inf, -math.inf] * nch, dtype=dtype,
+                                   device=cuda)
+        vals = at_offset(vals, off) if off else vals
+        cols = (fused._VOIDP * len(dims))(*(g.data_ptr() for g in grids))
+        size = math.prod(dims) * nch * torch.empty((), dtype=dtype).element_size()
+        for method in ("linear", "nearest"):
+            what = (f"K6 {method} stack of {nch} {dims} {SHORT[dtype]} offset {off}")
+            want = fused.plain_rectilinear_stack(grids, vals, obs, method)
+            rows = [fused.eval_rectilinear(grids, vals[c], obs, method) for c in range(nch)]
+            route = fused.rectilinear_route(dims, dtype, method, nch)
+            fused.reset_launches()
+            results += bitwise(fused.eval_rectilinear_stack(grids, vals, obs, method), want,
+                               f"{what} ({route})")
+            layout = fused.RECT_LAYOUTS.get(route)
+            if fused.launches != {k: int(k in (f"rectilinear_{method}_stack", layout))
+                                  for k in fused.launches}:
+                raise AssertionError(f"{what}: launches {fused.launches}")
+            routes = ["direct", "interleaved"]
+            if method == "linear":
+                routes.append("staged")
+
+            def on(r):
+                return fused._relaid_launch("rectilinear", r, fused.RECT_LAYOUTS, dims, vals,
+                                            obs, method, True, n, True, cols)
+            for r in routes:
+                if r == "staged" and size > fused.STAGE_BYTES:
+                    over_cap(lambda: on(r), f"{what} staged")
+                    ran["over the cap", r] = ran.get(("over the cap", r), 0) + 1
+                    continue
+                got = on(r)
+                results += bitwise(got, want, f"{what} {r}")
+                for c in range(nch):
+                    bitwise(got[c], rows[c], f"{what} {r}: table {c} vs the single-table "
+                            "kernel")
+                ran[method, r] = ran.get((method, r), 0) + 1
+    want = {(m, r) for m in ("linear", "nearest") for r in fused.ROUTES
+            if served(m, r, True, 3, "rectilinear")} | {("over the cap", "staged")}
+    if set(ran) != want:
+        raise AssertionError(f"phase 2 ran K6 linear/nearest on {sorted(ran)} only")
+    log(f"phase 2 kernel vs plain K6 linear and nearest stack routes: stacks of 1, 3, 4, 7, "
+        f"8, 9, 17 tables at 1, 3, 4, 8D and f32 linear stacks at and one row over "
+        f"{fused.STAGE_BYTES} bytes, aligned and at an odd offset, with a NaN, +inf and -inf "
+        f"in every table (f32, f64; {', '.join(f'{m} {r} {c}' for (m, r), c in ran.items())} "
+        f"cases): all {results} results bitwise equal to the plain version, through the "
+        "wrapper (one launch, and the interleave where it interleaves) and on every route, "
+        "each table's row bitwise equal to K2 / K3 on that table; a staged launch over the "
+        "cap raised")
+
+
+def bspline_table_routes_phase(cuda):
+    """Phase 2 for K4's routes: one coefficient table of degree 3 and 5 at
+    and one row over the staging cap (GROUP_BYTES) and the
+    bench tables (20^3, 100^2), aligned and as a view at an odd offset,
+    holding a NaN, +inf and -inf, in f32 and f64, with extrapolated, NaN and
+    +-inf queries: through the wrapper (one launch) and on every route that
+    takes the table (direct, staged, staged groups within their caps), each
+    bitwise against the plain version; a staged launch over its cap raises.
+    Fails unless every route ran."""
+    from interpn_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(29)
+    ran, results = {}, 0
+    caps = {"staged_groups": fused.GROUP_BYTES}
+    for k, dtype in itertools.product(SPLINE.values(), (F32, F64)):
+        item = torch.empty((), dtype=dtype).element_size()
+        shapes = [(20,) * 3, (100,) * 2]
+        for cap in caps.values():
+            at = cap // (36 * item)
+            shapes += [(at, 6, 6), (at + 1, 6, 6)]
+        for dims, off in itertools.product(shapes, (0, 3)):
+            knots, coeffs, obs = spline_case(dims, k, dtype, N_CHECK // 10, rng, cuda, 1)
+            coeffs = coeffs.reshape(-1)
+            coeffs[torch.as_tensor(rng.choice(coeffs.numel(), 3, replace=False),
+                                   device=cuda)] = torch.tensor(
+                [math.nan, math.inf, -math.inf], dtype=dtype, device=cuda)
+            coeffs = at_offset(coeffs, off) if off else coeffs
+            what = f"K4 k={k} {dims} {SHORT[dtype]} offset {off}"
+            want = fused.plain_bspline(knots, coeffs, obs, k)
+            route = fused.bspline_route(dims, dtype, k)
+            fused.reset_launches()
+            results += bitwise(fused.eval_bspline(knots, coeffs, obs, k), want,
+                               f"{what} ({route})")
+            if fused.launches != {name: int(name == f"bspline_k{k}") for name in fused.launches}:
+                raise AssertionError(f"{what}: launches {fused.launches}")
+            cols = (fused._VOIDP * len(dims))(*(t.data_ptr() for t in knots))
+
+            def on(r):
+                return fused._launch("fused_bspline", f"bspline_k{k}", (k, int(dtype == F64)),
+                                     dims, coeffs, obs, obs[0].shape[0], False, cols, None,
+                                     route=r)
+            for r in ("direct", *caps):
+                if r in caps and math.prod(dims) * item > caps[r]:
+                    over_cap(lambda: on(r), f"{what} {r}")
+                    ran[r, "over the cap"] = ran.get((r, "over the cap"), 0) + 1
+                    continue
+                results += bitwise(on(r), want, f"{what} {r}")
+                ran[r, "within"] = ran.get((r, "within"), 0) + 1
+    want = {("direct", "within")} | {(r, w) for r in caps for w in ("within", "over the cap")}
+    if set(ran) != want:
+        raise AssertionError(f"phase 2 ran K4 on {sorted(ran)} only")
+    log(f"phase 2 kernel vs plain K4 routes: one table of degree 3 and 5 at and one row over "
+        f"{fused.GROUP_BYTES} bytes, 20^3 and 100^2, aligned "
+        f"and at an odd offset, with a NaN, +inf and -inf in the table (f32, f64; "
+        f"{', '.join(f'{r} {w} {c}' for (r, w), c in ran.items())} cases): all {results} "
+        f"results bitwise equal to the plain version; every staged launch over the cap raised")
+
+
 def stack_routes(dims, dtype, family):
     """Every route of a K5 cubic (`family` "regular") or K7 ("bspline")
     stack of tables of `dims` that takes it: staged groups (each table
@@ -1845,7 +1995,8 @@ def timing_phase(p: Path, cuda, gen, smi):
 # whose route launches each
 LAYOUT_PATHS = {"regular_pack": Path("regular_linear", F32, 100, 3),
                 "regular_cubic_pack": Path("regular_cubic", F32, 20, 4),
-                "regular_interleave": Path("regular_linear_stack", F32, 20, 3)}
+                "regular_interleave": Path("regular_linear_stack", F32, 20, 3),
+                "rectilinear_interleave": Path("rectilinear_linear_stack", F32, 20, 3)}
 
 
 def layout_phase(name, cuda, smi, driven) -> dict:
@@ -1866,7 +2017,7 @@ def layout_phase(name, cuda, smi, driven) -> dict:
 
     p = LAYOUT_PATHS[name]
     dims = (p.n,) * p.ndims
-    vals = path_grid(p, cuda)[2]
+    vals = path_grid(p, cuda)[-1]
     if name == fused.PACK:
         kern, plain = (lambda v: fused.pack(dims, v)), (lambda v: fused.plain_pack(dims, v))
         lib = (lambda v: v.reshape(dims[0], dims[1], -1).unfold(0, 2, 1).unfold(1, 2, 1)
@@ -1878,7 +2029,8 @@ def layout_phase(name, cuda, smi, driven) -> dict:
         lib = lambda v: v.reshape(dims).unfold(0, 4, 1).contiguous()  # noqa: E731
         lib_name, what = "the unfold windows' .contiguous()", "the cubic pack of the taps routes"
     else:
-        kern, plain, lib = fused.interleave, fused.plain_interleave, fused.plain_interleave
+        kern = lambda v: fused.interleave(v, p.kind)  # noqa: E731
+        plain = lib = fused.plain_interleave
         lib_name, what = ".t().contiguous()", "the interleave of the interleaved route"
     got, want = kern(vals), plain(vals)
     bitwise(got, want, f"{name} vs its plain version")
@@ -1909,7 +2061,7 @@ def layout_phase(name, cuda, smi, driven) -> dict:
     return {
         "name": f"fused_{name}",
         "route": "cuda",
-        "source": f"interpn_tpu_torch/csrc/fused_regular{'_stack' if p.stacked else ''}.cu",
+        "source": f"interpn_tpu_torch/csrc/fused_{p.kind}{'_stack' if p.stacked else ''}.cu",
         "replaces": replaces(p),
         "config": f"{what.split(' of the ')[0].removeprefix('the ')} of the {p.label} table",
         "launches": driven[p][2][name],
@@ -1965,6 +2117,8 @@ def main() -> None:
     kernel_vs_plain_phase(cuda)
     regular_routes_phase(cuda)
     rectilinear_routes_phase(cuda)
+    rectilinear_stack_routes_phase(cuda)
+    bspline_table_routes_phase(cuda)
     stack_routes_phase(cuda)
     engine_vs_plain_phase(cuda)
     nodes_phase(cuda)

@@ -19,9 +19,16 @@
 // stencil. The weights stay in registers; the stack instantiation (kStack)
 // loops over its tables after the one weight build and writes row c of the
 // (nch, n) output, and the single-table instantiation has no loop (see
-// regular.cuh for why). A stack is read as `ops/fused.py::bspline_route`
-// says (one table direct):
-// - kStagedGroups (tables within kGroupBytes): groups of consecutive
+// regular.cuh for why). A table or stack is read as
+// `ops/fused.py::bspline_route` says:
+// - one table within kGroupBytes: kStagedGroups with one group of one
+//   table, staged in shared memory by each 1024-thread block
+//   (`stage_table`), one block an SM; read direct, each query's 64 (cubic)
+//   or 216 (quintic 3D) scattered reads went through L1 and L2 (20^3 f32
+//   0.0907 and 0.2618 ms on an H100, staged 0.0528 and 0.1293; K1's 112 KiB
+//   reservation timed the same, its 46-59 registers a thread leaving one
+//   1024-thread block an SM either way, PERF.md); larger tables direct;
+// - a stack, kStagedGroups (tables within kGroupBytes): groups of consecutive
 //   tables within kGroupBytes (one group where the whole stack fits),
 //   staged in shared memory by each 1024-thread block, as regular.cuh
 //   stages K5's cubic stacks; a block builds its queries' weights once for
@@ -57,9 +64,10 @@ struct KnotArgs {
 };
 
 // Whether the B-spline family has an instantiation for the route: direct
-// for one table or a stack; staged groups and interleaved for stacks only.
+// and staged groups for one table (its one group) or a stack; interleaved
+// for stacks only.
 constexpr bool spline_serves(int route, bool stack) {
-  return route == kDirect || (stack && (route == kStagedGroups || route == kInterleaved));
+  return route == kDirect || route == kStagedGroups || (stack && route == kInterleaved);
 }
 
 // The spline tree's unrolled levels (SplineTree's UNROLLED): one where a
@@ -86,7 +94,9 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
   // the tables this block runs and the blocks that share them: its group
   // and the group's blocks on the staged routes, all of them on the others
   int first = 0, count = nch, b0 = 0, nb = gridDim.x;
-  if constexpr (kShared) block_group(nch, groups, gridDim.x, blockIdx.x, &first, &count, &b0, &nb);
+  if constexpr (kShared && kStack) {
+    block_group(nch, groups, gridDim.x, blockIdx.x, &first, &count, &b0, &nb);
+  }
   const T* src = coeffs + first * table;
   T* dst = out + first * n;
   bool pending = false;  // a bulk copy into shared memory not yet awaited
@@ -124,6 +134,9 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
         dst[c * n + i] = SplineTree<T, W, NDIMS, 0, U>::eval(
             Channels<T, 1, kShared>{src + c * table, 1, false}, base, stride, w).v[0];
       }
+    } else if constexpr (kShared) {  // one table, from its copy in shared memory
+      out[i] = SplineTree<T, W, NDIMS, 0, U>::eval(Channels<T, 1, true>{src, 1, false}, base,
+                                                   stride, w).v[0];
     } else {
       out[i] = SplineTree<T, W, NDIMS, 0, U>::eval(Ldg<T>{coeffs}, base, stride, w).v[0];
     }

@@ -24,9 +24,11 @@
 // and `obs` are host arrays of `ndims` entries; `knots` (one not-a-knot
 // vector of dims[a] + degree + 1 entries per axis), `obs`, `coeffs` and
 // `out` hold device pointers of the type selected by `is_f64`. `route` is
-// 0 (direct; the stack entry's routes, fused_bspline_stack.cu); `work` is
-// unused. The caller guarantees 1 <= ndims <= 8, every dim >=
-// degree + 1, prod(dims) < 2^31, 0 < n < 2^31 and nch == 1.
+// 0 direct or 7 staged groups (the table, within kGroupBytes, copied into
+// each 1024-thread block's shared memory; over the cap the entry returns
+// cudaErrorInvalidValue). `work` is unused. The caller guarantees
+// 1 <= ndims <= 8, every dim >= degree + 1, prod(dims) < 2^31,
+// 0 < n < 2^31 and nch == 1.
 extern "C" int interpn_bspline(int degree, int is_f64, int ndims, const int* dims,
                                const void* const* knots, void* work, const void* coeffs,
                                const void* const* obs, void* out, long long n, int nch,

@@ -29,12 +29,24 @@
 // tables share them and no per-table node arithmetic remains: about 2N
 // divisions and 4N nodes on unit bases a query, then 2 * 4^N - 1 operations
 // a table (the Hermite tree took 4 divisions and ~27 operations a node, 21
-// nodes a 3D table). Linear and nearest read the table direct.
+// nodes a 3D table). One linear or nearest table reads direct; a linear or
+// nearest stack reads K5's layouts (regular.cuh), its trees unchanged, so
+// every row is the single-table kernel's bits:
+// - kInterleaved (kRunBytes of channels or more, the interleave within
+//   int32 indices): the interleave, a corner's channels in one sector, read
+//   as two 16-byte loads, the lerp tree over the channels together
+//   (`LerpTree` on `Channels<T, W>`), nearest one vector read of its
+//   channels. Direct, a stack of 8 f32 tables at 20^3 made 8 x 8 scattered
+//   reads a linear query (0.1006 ms on an H100; K5 read interleaved in
+//   0.0621, PERF.md).
+// - kStaged (an f32 linear stack of at most kStageBytes in all): every
+//   table copied into each 1024-thread block's shared memory, as K5 stages
+//   one, and read there table by table.
 //
-// The cubic routes: `ops/fused.py::rectilinear_route` alone picks one, lays
+// The routes: `ops/fused.py::rectilinear_route` alone picks one, lays
 // the table out for it (the entry launches regular.cuh's layout kernels)
 // and passes its code; the C side checks only that it has an instantiation
-// (`rect_serves`).
+// (`rect_serves`). The cubic ones:
 // - kStaged (one table, or a whole stack, of at most kStageBytes): each
 //   1024-thread block copies it into shared memory by one bulk copy, as K1
 //   does, and reads the stencil there (20^3 f32 0.0829 ms against 0.1303
@@ -65,7 +77,8 @@
 //
 // What bounds it on this card: the query stream (sizeof(T)*(ndims+nch)
 // bytes per query) for linear and nearest, plus about log2(dim) dependent
-// column reads per axis for the bisection; for cubic the weight build and
+// column reads per axis for the bisection and the corners' scattered reads
+// (a sector of channels each, interleaved); for cubic the weight build and
 // the stencil's 4^N reads a table, from shared memory or L2 (PERF.md).
 
 #pragma once
@@ -83,12 +96,15 @@ struct RectGrid {
 };
 
 // Whether the rectilinear family has an instantiation for the route: direct
-// for every method; the cubic routes as the header says (taps from 2D).
+// for every method; the cubic routes as the header says (taps from 2D);
+// for a linear or nearest stack K5's, interleaved, and staged for linear.
 constexpr bool rect_serves(int route, int method, bool stack, int ndims) {
   return route == kDirect ||
          (method == kCubic &&
           (route == kStaged || (stack && (route == kInterleaved || route == kStagedTables)) ||
-           (!stack && route == kTaps && ndims >= 2)));
+           (!stack && route == kTaps && ndims >= 2))) ||
+         (method != kCubic && stack &&
+          (route == kInterleaved || (route == kStaged && method == kLinear)));
 }
 
 // The leaf of the taps routes: axis 0's four taps at `cell` of the cubic
@@ -311,7 +327,36 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
         // nearest: the lower index at the tie; NaN t fails <= and takes +1
         base += (METHOD == kNearest ? loc + (t[k] <= T(0.5) ? 0 : 1) : loc) * stride[k];
       }
-      if constexpr (kStack) {
+      if constexpr (kShared) {
+        if (pending) {
+          await_bulk(&bar);
+          pending = false;
+        }
+      }
+      if constexpr (ROUTE == kInterleaved) {  // W channels at a time, as K5 reads them
+        constexpr int W = lanes_of<T, ROUTE>();
+        const bool vec =
+            reinterpret_cast<uintptr_t>(src) % 16 == 0 && (nch * sizeof(T)) % 16 == 0;
+        for (int c0 = 0; c0 < nch; c0 += W) {
+          const int count = nch - c0 < W ? nch - c0 : W;
+          const Channels<T, W, false> at{src + c0, count, vec && count == W};
+          Lanes<T, W> y;
+          if constexpr (METHOD == kNearest) {
+            y = at(base);
+          } else {
+            y = LerpTree<T, NDIMS>::eval(at, base, stride, t);
+          }
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            if (j < count) out[(c0 + j) * n + i] = y.v[j];
+          }
+        }
+      } else if constexpr (kShared) {  // a linear stack's tables from shared memory
+        for (int c = 0; c < nch; ++c) {
+          const Channels<T, 1, true> at{src + c * table, 1, false};
+          out[c * n + i] = LerpTree<T, NDIMS>::eval(at, base, stride, t).v[0];
+        }
+      } else if constexpr (kStack) {
         for (int c = 0; c < nch; ++c) {
           if constexpr (METHOD == kNearest) {
             out[c * n + i] = __ldg(vals + c * table + base);
@@ -361,15 +406,16 @@ struct Rect {
     const size_t smem = ROUTE == kStaged ? bytes * a.nch + 16
                                          : (ROUTE == kStagedTables ? 2 * table_buffer(bytes) : 0);
     if (smem > reserve) return cudaErrorInvalidValue;  // above the staging cap
-    // cubic: as many blocks as the card holds at once with the route's
-    // shared memory; linear and nearest keep their 8 blocks an SM, more
-    // than their registers let run at once (the 48-register linear stack
-    // ran 2.3% slower on its 5 resident blocks an SM, PERF.md)
+    // as many blocks as the card holds at once with the route's shared
+    // memory; but linear and nearest read direct keep their 8 blocks an
+    // SM, more than their registers let run at once (the 48-register linear
+    // stack ran 2.3% slower on its 5 resident blocks an SM, PERF.md)
     int per_sm = 0, sms = 0;
     const cudaError_t err = occupancy(occupancy_cache<Rect>(), kernel, threads, reserve,
                                       &per_sm, &sms);
     if (err != cudaSuccess) return err;
-    const int64_t most = static_cast<int64_t>(METHOD == kCubic ? per_sm : 8) * sms;
+    const bool eight = METHOD != kCubic && ROUTE == kDirect;
+    const int64_t most = static_cast<int64_t>(eight ? 8 : per_sm) * sms;
     const int64_t want = (a.n + threads - 1) / threads;
     const int blocks = static_cast<int>(want < most ? want : most);
     if (blocks <= 0) return cudaErrorInvalidConfiguration;
@@ -395,10 +441,20 @@ struct Rect {
   }
 };
 
-// The rectilinear family for regular.cuh's `visit`.
+// The methods whose instantiations a translation unit builds, as bits 1 <<
+// method: all of them for one table; the stack source builds cubic in
+// fused_rectilinear_stack.cu and linear and nearest in
+// fused_rectilinear_stack_lerp.cu, two units compiled at once (in one unit
+// the stack source's build took 199 s on the card's host, PERF.md).
+constexpr int kAllMethods = (1 << kLinear) | (1 << kCubic) | (1 << kNearest);
+constexpr int kLerpMethods = (1 << kLinear) | (1 << kNearest);
+
+// The rectilinear family for regular.cuh's `visit`, over the methods of
+// kMethods.
+template <int kMethods>
 struct RectFamily {
   static constexpr bool served(int route, int method, bool stack, int ndims) {
-    return rect_serves(route, method, stack, ndims);
+    return ((kMethods >> method) & 1) != 0 && rect_serves(route, method, stack, ndims);
   }
   template <typename T, int NDIMS, int METHOD, bool kStack, int ROUTE>
   using Kernel = Rect<T, NDIMS, METHOD, kStack, ROUTE>;
@@ -412,7 +468,30 @@ struct RectLaunchOp {
   }
 };
 
-// The body of the sources' C entry points (see fused_rectilinear.cu).
+// The launch of the kernel instantiation for (dtype, route, method, ndims)
+// among those of kMethods, and its info (InfoOp's out[4]).
+template <bool kStack, int kMethods>
+cudaError_t rect_launch(int is_f64, int route, int method, int ndims, const RectLaunch& a) {
+  RectLaunchOp op{a};
+  return visit<RectFamily<kMethods>, kStack>(is_f64, route, method, ndims, op);
+}
+
+template <bool kStack, int kMethods>
+cudaError_t rect_info(int is_f64, int route, int method, int ndims, int* out) {
+  InfoOp op{out};
+  return visit<RectFamily<kMethods>, kStack>(is_f64, route, method, ndims, op);
+}
+
+// rect_launch<true, kLerpMethods> and rect_info<true, kLerpMethods>, built
+// in fused_rectilinear_stack_lerp.cu.
+cudaError_t rect_stack_lerp_launch(int is_f64, int route, int method, int ndims,
+                                   const RectLaunch& a);
+cudaError_t rect_stack_lerp_info(int is_f64, int route, int method, int ndims, int* out);
+
+// The body of the sources' C entry points (see fused_rectilinear.cu): the
+// checks and the route's layout kernel here, in the unit of the entry; the
+// kernel through `launch` (the stack source's linear and nearest:
+// rect_stack_lerp_launch).
 template <bool kStack>
 int rectilinear_entry(int method, int linearize, int is_f64, int ndims, const int* dims,
                       const void* const* grids, void* work, const void* vals,
@@ -428,21 +507,33 @@ int rectilinear_entry(int method, int linearize, int is_f64, int ndims, const in
   for (int k = 0; k < ndims; ++k) table *= dims[k];
   const auto s = static_cast<cudaStream_t>(stream);
   // the route's layout into `work`, then the kernel that reads it
-  const cudaError_t err =
-      launch_layout<RectFamily, kStack>(route, is_f64, ndims, dims, vals, work, table, nch, s);
+  const cudaError_t err = launch_layout<RectFamily<kAllMethods>, kStack>(
+      route, is_f64, ndims, dims, vals, work, table, nch, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const RectLaunch a{dims, grids, obs, vals, relaid ? work : vals, table, nch, out, n,
                      linearize != 0, s};
-  RectLaunchOp op{a};
-  return static_cast<int>(visit<RectFamily, kStack>(is_f64, route, method, ndims, op));
+  if constexpr (kStack) {
+    if (method != kCubic) {
+      return static_cast<int>(rect_stack_lerp_launch(is_f64, route, method, ndims, a));
+    }
+    return static_cast<int>(rect_launch<true, 1 << kCubic>(is_f64, route, method, ndims, a));
+  } else {
+    return static_cast<int>(rect_launch<false, kAllMethods>(is_f64, route, method, ndims, a));
+  }
 }
 
 // The body of the sources' info entry points: registers, shared memory,
 // spills and resident blocks of one instantiation (see fused_rectilinear.cu).
 template <bool kStack>
 int rectilinear_info_entry(int method, int is_f64, int ndims, int route, int* out) {
-  InfoOp op{out};
-  return static_cast<int>(visit<RectFamily, kStack>(is_f64, route, method, ndims, op));
+  if constexpr (kStack) {
+    if (method != kCubic) {
+      return static_cast<int>(rect_stack_lerp_info(is_f64, route, method, ndims, out));
+    }
+    return static_cast<int>(rect_info<true, 1 << kCubic>(is_f64, route, method, ndims, out));
+  } else {
+    return static_cast<int>(rect_info<false, kAllMethods>(is_f64, route, method, ndims, out));
+  }
 }
 
 }  // namespace interp

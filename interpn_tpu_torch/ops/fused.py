@@ -16,12 +16,13 @@
   `pallas_v3.eval_rectilinear_stack` (K6). Cubic builds each axis's
   weights once a query and contracts every table's stencil with them,
   reading the layout `rectilinear_route` picks (K1's staged table and cubic
-  pack, K5's interleave, or the table itself).
+  pack, K5's interleave, or the table itself); a linear or nearest stack
+  reads K5's layouts (its interleave, or staged), one table the table.
 * `eval_bspline` / `eval_bspline_stack` launch `csrc/fused_bspline.cu` /
   `fused_bspline_stack.cu`, the counterpart of `pallas_v3.eval_bspline`
   (K4, and K2's spline use) and `pallas_v3.eval_bspline_stack` (K7), on
-  `bspline_route`'s layout: a table direct; a stack staged as K5 stages a
-  cubic one, channel-interleaved, or direct.
+  `bspline_route`'s layout: a table staged in shared memory or direct; a
+  stack staged as K5 stages a cubic one, channel-interleaved, or direct.
 * `launch_df64` / `launch_i8` launch `csrc/fused_df64.cu` (K8, the
   counterpart of `interpn_tpu/ops/pallas_df64.py::_pallas_df64` with the
   float64 weight build before it) and `csrc/fused_i8.cu` (K9,
@@ -99,10 +100,11 @@ TAP_ROUTES = ROUTES[4:6]  # the routes that read the cubic pack
 LAYOUTS = {"quads": PACK, "interleaved": INTERLEAVE, **dict.fromkeys(TAP_ROUTES, CUBIC_PACK)}
 RECT_LAYOUTS = {"interleaved": RECT_INTERLEAVE, **dict.fromkeys(TAP_ROUTES, RECT_CUBIC_PACK)}
 BSPLINE_LAYOUTS = {"interleaved": BSPLINE_INTERLEAVE}
-# An f32 linear table (a stack read table by table: all its tables) of at
-# most this many bytes is staged in shared memory (kStageBytes in
-# csrc/regular.cuh, which refuses a larger one). Nearest reads one entry a
-# query, too few to pay for the copies, and reads the table direct.
+# An f32 linear table (a stack read table by table, regular or
+# rectilinear: all its tables) of at most this many bytes is staged in
+# shared memory (kStageBytes in csrc/regular.cuh, which refuses a larger
+# one). Nearest reads one entry a query, too few to pay for the copies, and
+# reads the table direct.
 STAGE_BYTES = 112 * 1024
 # A single f32 linear table above STAGE_BYTES is read as packed quads while
 # the packed copy (about 4x the table) stays within this many bytes. The
@@ -119,8 +121,9 @@ TAP_BYTES = 32 * 2**20
 # scalar reads hit the SM's L1 (256 KB with shared memory), where the pack,
 # 4x larger, would not (25^3 and 30^3 f64 ran 5-36% slower through it).
 L1_BYTES = 256 * 1024
-# A linear or nearest stack with this many bytes of channels a table entry
-# or more (8 f32, 4 f64 tables) is read channel-interleaved (kRunBytes); so
+# A linear or nearest stack (regular or rectilinear) with this many bytes of
+# channels a table entry or more (8 f32, 4 f64 tables) is read
+# channel-interleaved while its interleave has int32 indices (kRunBytes); so
 # is a rectilinear cubic stack of tables above STAGE_BYTES, f32 always, f64
 # up to 3D or above L1_BYTES: on an H100 8 f32 channels a sector ran
 # 4.1-7.4x ahead of direct at 3-5D, 4 f64 1.1-3.6x at 30^3-100^3, 20^4 and
@@ -133,7 +136,7 @@ RUN_BYTES = 32
 # stages its group in shared memory ('staged_groups'; kGroupBytes in
 # csrc/regular.cuh, whose entries count the groups and refuse a larger
 # table): about all the shared memory a block may use, at one 1024-thread
-# block an SM.
+# block an SM. One B-spline table (K4) within it is staged the same way.
 GROUP_BYTES = 224 * 1024
 
 _THREADS = 256  # kThreads in the sources
@@ -177,7 +180,7 @@ def reset_launches() -> None:
 # route, out[4] (`interpn_{regular,rectilinear}[_stack]_info`); is_f64,
 # ndims, dims, vals, out, stream
 # (`interpn_regular_pack`, `interpn_regular_cubic_pack`); is_f64, table,
-# nch, vals, out, stream (`interpn_regular_stack_interleave`)
+# nch, vals, out, stream (`interpn_{regular,rectilinear}_stack_interleave`)
 _ENTRY_ARGTYPES = {
     "_info": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
     # footprint, ndims, out[4] (`interpn_df64_info`); footprint, ndims,
@@ -334,25 +337,22 @@ def eval_regular_stack(dims, starts, steps, vals_stack, obs, method="linear", li
 def regular_route(dims, dtype, method, nch=None) -> str:
     """The layout the regular kernel reads for a table of `dims` (a stack
     of `nch` tables; None for one table) in `dtype` by `method`, one of
-    ROUTES: 'interleaved' (a linear or nearest stack of RUN_BYTES of
-    channels or more, read as (prod(dims), nch)), 'staged' (f32
-    linear, one table or a stack read table by table, all of it within
-    STAGE_BYTES, copied into shared memory by each block), 'quads' (f32
-    linear, one table above that, packed copy within QUAD_BYTES), for one
-    cubic table `_cubic_route`'s, for a cubic stack `_stack_route`'s, or
-    'direct' (the rest; linear f64 is never staged nor packed). A function
-    of these arguments alone, and the only place the choice is made."""
+    ROUTES: for a linear or nearest stack `_channel_route`'s; for one f32
+    linear table 'staged' (within STAGE_BYTES, copied into shared memory by
+    each block) or 'quads' (above that, packed copy within QUAD_BYTES); for
+    one cubic table `_cubic_route`'s, for a cubic stack `_stack_route`'s;
+    else 'direct' (linear f64 is never staged nor packed). A function of
+    these arguments alone, and the only place the choice is made."""
     if method == "cubic":
         return _cubic_route(dims, dtype) if nch is None else _stack_route(dims, dtype, nch, False)
-    if nch is not None and nch * dtype.itemsize >= RUN_BYTES:
-        return "interleaved"
-    if method != "linear" or dtype != torch.float32:
+    if nch is None:
+        if method == "linear" and dtype == torch.float32:
+            if math.prod(dims) * dtype.itemsize <= STAGE_BYTES:
+                return "staged"
+            if _packed_size(dims) * dtype.itemsize <= QUAD_BYTES:
+                return "quads"
         return "direct"
-    if math.prod(dims) * (nch or 1) * dtype.itemsize <= STAGE_BYTES:
-        return "staged"
-    if nch is None and _packed_size(dims) * dtype.itemsize <= QUAD_BYTES:
-        return "quads"
-    return "direct"
+    return _channel_route(dims, dtype, method, nch)
 
 
 def rectilinear_route(dims, dtype, method, nch=None) -> str:
@@ -361,12 +361,13 @@ def rectilinear_route(dims, dtype, method, nch=None) -> str:
     lane a query on the cubic pack from 2D ('taps'; four lanes ran 100^3 f32
     1.6x slower); for a cubic stack 'staged' where all its tables fit
     STAGE_BYTES, 'staged_tables' where each does (one table at a time in a
-    double buffer), else 'interleaved' at RUN_BYTES of channels or more (f64
-    from 4D only above L1_BYTES), else 'direct'; linear and nearest
-    'direct'. A function of these arguments alone, and the only place the
-    choice is made."""
+    double buffer), else 'interleaved' where `_interleaves` (f64 from 4D
+    only above L1_BYTES), else 'direct'; for a linear or nearest stack
+    `_channel_route`'s, K5's rule; one linear or nearest table 'direct'. A
+    function of these arguments alone, and the only place the choice is
+    made."""
     if method != "cubic":
-        return "direct"
+        return "direct" if nch is None else _channel_route(dims, dtype, method, nch)
     if nch is None:
         route = _cubic_route(dims, dtype)
         return "taps" if route == "tap_lanes" else route
@@ -375,19 +376,44 @@ def rectilinear_route(dims, dtype, method, nch=None) -> str:
         return "staged"
     if table <= STAGE_BYTES:
         return "staged_tables"
-    wide = nch * dtype.itemsize >= RUN_BYTES and (
+    wide = _interleaves(dims, dtype, nch) and (
         dtype == torch.float32 or len(dims) <= 3 or table > L1_BYTES)
     return "interleaved" if wide else "direct"
 
 
 def bspline_route(dims, dtype, k, nch=None) -> str:
     """The layout the B-spline kernel of degree `k` reads for coefficient
-    tables of `dims` in `dtype`: 'direct' for one table; for a stack of
-    `nch` `_stack_route`'s. A function of these arguments alone, and the
-    only place the choice is made."""
+    tables of `dims` in `dtype`: for one table 'staged_groups' (the one
+    group of a table within GROUP_BYTES, staged in shared memory by each
+    1024-thread block), else 'direct'; for a stack of `nch`
+    `_stack_route`'s. A function of these arguments alone, and the only
+    place the choice is made."""
     if k not in DEGREES:
         raise ValueError(f"spline degree must be one of {DEGREES}, got {k!r}")
-    return "direct" if nch is None else _stack_route(dims, dtype, nch, True)
+    if nch is None:
+        return "staged_groups" if math.prod(dims) * dtype.itemsize <= GROUP_BYTES else "direct"
+    return _stack_route(dims, dtype, nch, True)
+
+
+def _interleaves(dims, dtype, nch) -> bool:
+    """Whether a stack of nch tables of `dims` is wide enough to read
+    channel-interleaved (RUN_BYTES of channels an entry or more) and its
+    interleave small enough for int32 indices (below 2^31 entries; each
+    table alone always is)."""
+    return nch * dtype.itemsize >= RUN_BYTES and nch * math.prod(dims) < _INT32_LIMIT
+
+
+def _channel_route(dims, dtype, method, nch) -> str:
+    """The route of a linear or nearest stack of nch tables (K5, K6):
+    'interleaved' where `_interleaves`; else 'staged' for an f32 linear
+    stack of at most STAGE_BYTES in all (read table by table); else
+    'direct'."""
+    if _interleaves(dims, dtype, nch):
+        return "interleaved"
+    if (method == "linear" and dtype == torch.float32
+            and math.prod(dims) * nch * dtype.itemsize <= STAGE_BYTES):
+        return "staged"
+    return "direct"
 
 
 def _stack_route(dims, dtype, nch, interleave) -> str:
@@ -395,13 +421,10 @@ def _stack_route(dims, dtype, nch, interleave) -> str:
     'staged_groups' where each table fits GROUP_BYTES; else, where
     `interleave` (K7, whose tree keeps one running sum a channel a level;
     eight Hermite trees at once would not fit the registers),
-    'interleaved' at RUN_BYTES of channels or more while the interleave
-    has int32 indices; else 'direct'."""
-    size = math.prod(dims)
-    if size * dtype.itemsize <= GROUP_BYTES:
+    'interleaved' where `_interleaves`; else 'direct'."""
+    if math.prod(dims) * dtype.itemsize <= GROUP_BYTES:
         return "staged_groups"
-    wide = interleave and nch * dtype.itemsize >= RUN_BYTES and nch * size < _INT32_LIMIT
-    return "interleaved" if wide else "direct"
+    return "interleaved" if interleave and _interleaves(dims, dtype, nch) else "direct"
 
 
 def _cubic_route(dims, dtype) -> str:
@@ -494,12 +517,17 @@ def _launch_pack(name, dims, vals, shape):
     return out
 
 
-def interleave(vals_stack):
+def interleave(vals_stack, family="regular"):
     """The interleaved route's copy of the (nch, prod(dims)) stack
     `vals_stack` (f32 or f64), shaped as `plain_interleave`'s: its kernel
-    alone (`interpn_regular_stack_interleave`; `eval_regular_stack` launches
-    it with the kernel that reads it) on a CUDA tensor, `plain_interleave`
-    on a CPU one."""
+    alone (`interpn_regular_stack_interleave`, or the rectilinear source's
+    `interpn_rectilinear_stack_interleave` for `family` "rectilinear";
+    `eval_regular_stack` / `eval_rectilinear_stack` launch it with the
+    kernel that reads it) on a CUDA tensor, `plain_interleave` on a CPU
+    one."""
+    names = {"regular": INTERLEAVE, "rectilinear": RECT_INTERLEAVE}
+    if family not in names:
+        raise ValueError(f"family must be one of {tuple(names)}, got {family!r}")
     if _device((vals_stack,)).type == "cpu":
         return plain_interleave(vals_stack)
     if vals_stack.dim() != 2 or not vals_stack.is_contiguous() or vals_stack.numel() == 0:
@@ -510,13 +538,14 @@ def interleave(vals_stack):
         raise TypeError(f"kernel takes float32 or float64, got {vals_stack.dtype}")
     nch, table = vals_stack.shape
     out = torch.empty((table, nch), dtype=vals_stack.dtype, device=vals_stack.device)
+    source = f"fused_{family}_stack"
     with torch.cuda.device(vals_stack.device):
-        rc = _fn("fused_regular_stack", "_interleave")(
+        rc = _fn(source, "_interleave")(
             _is_f64(vals_stack), table, nch, vals_stack.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_regular_stack interleave launch failed: CUDA error {rc}")
-    launches[INTERLEAVE] += 1
+        raise RuntimeError(f"{source} interleave launch failed: CUDA error {rc}")
+    launches[names[family]] += 1
     return out
 
 

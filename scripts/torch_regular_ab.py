@@ -53,10 +53,13 @@ same and printed with both checkouts' largest errors against the float64
 plain version on the same inputs, and the script then exits non-zero);
 registers, local bytes and blocks an SM of each
 route timed (`fused.regular_info(..., family="rectilinear")`) and the
-earlier checkout's (the same, or its ptxas log). Each case of
-BSPLINE_CASES (`chip_smoke.py`'s spline paths, and K7 stacks around the
-group cap) times both checkouts' `eval_bspline[_stack]` and this
-checkout's entry on each other route listed so, bitwise equal.
+earlier checkout's (the same, or its ptxas log); the linear and nearest
+stacks (K6 on K5's routes) likewise against direct. Each case of
+BSPLINE_CASES (`chip_smoke.py`'s spline paths, one table on each of K4's
+routes, and K7 stacks around the group cap) times both checkouts'
+`eval_bspline[_stack]` and this checkout's entry on each other route
+listed so, bitwise equal, with the registers, shared and local bytes and
+blocks an SM of each route timed.
 `--paths REGEX` keeps the cases whose label it finds, and the build only
 their sources; `--unchecked` compares no rectilinear or B-spline result of
 the earlier checkout (a copy whose kernel skips part of the work, timed to
@@ -188,15 +191,24 @@ RECT_CASES = [
     ("cubic", 6, 6, "f64", 4, ("interleaved", "direct")),
     ("linear", 20, 3, "f32", None, ()),
     ("nearest", 20, 3, "f32", None, ()),
-    ("linear", 20, 3, "f32", 8, ()),
-    ("nearest", 20, 3, "f32", 8, ()),
+    # linear and nearest stacks: K5's routes against direct
+    ("linear", 20, 3, "f32", 8, ("direct",)),
+    ("nearest", 20, 3, "f32", 8, ("direct",)),
+    ("linear", 20, 3, "f32", 3, ("interleaved", "direct")),
+    ("nearest", 20, 3, "f32", 3, ("interleaved",)),
+    ("linear", 20, 3, "f64", 4, ("direct",)),
+    ("nearest", 20, 3, "f64", 4, ("direct",)),
+    ("linear", 12, 4, "f32", 8, ("direct",)),
+    ("linear", 8, 5, "f32", 8, ("direct",)),
+    ("linear", 40, 3, "f32", 16, ("direct",)),
 ]
 # K4 and K7: (spline degree, points an axis, ndims, dtype, tables of a stack
 # or None, the other routes timed), `chip_smoke.py`'s spline paths and K7
 # stacks around the group cap
 BSPLINE_CASES = [
-    (3, 20, 3, "f32", None, ()), (3, 20, 3, "f64", None, ()), (3, 100, 2, "f64", None, ()),
-    (5, 20, 3, "f32", None, ()),
+    (3, 20, 3, "f32", None, ("direct",)), (3, 20, 3, "f64", None, ("direct",)),
+    (3, 100, 2, "f64", None, ("direct",)), (5, 20, 3, "f32", None, ("direct",)),
+    (5, 20, 3, "f64", None, ("direct",)), (3, 35, 3, "f32", None, ("direct",)),
     (3, 20, 3, "f32", 8, ("interleaved", "direct")),
     (3, 20, 3, "f32", 3, ("direct",)),
     (3, 20, 3, "f32", 9, ("interleaved", "direct")),
@@ -447,12 +459,13 @@ def bspline_times(case, earlier, cuda) -> dict:
     def on_route(route):
         size = fused._layout_size(dims, route, coeffs)
         cols = (fused._VOIDP * nd)(*(t.data_ptr() for t in knots))
+        stack = "_stack" if nch else ""
 
         def call(ob):
             work = None if size is None else torch.empty(size, dtype=dtype, device=cuda)
-            return fused._launch("fused_bspline_stack", f"bspline_k{k}_stack",
+            return fused._launch(f"fused_bspline{stack}", f"bspline_k{k}{stack}",
                                  (k, int(dtype == torch.float64)), dims, coeffs, ob,
-                                 ob[0].shape[0], True, cols,
+                                 ob[0].shape[0], bool(nch), cols,
                                  None if work is None else work.data_ptr(), route=route)
         return call
 
@@ -471,9 +484,8 @@ def bspline_times(case, earlier, cuda) -> dict:
         loop, issue = back_to_back(fns["earlier" if side == "earlier" else picked], main)
         entry["loop_ms"].setdefault(side, []).extend(loop)
         entry["issue_ms"].setdefault(side, []).extend(issue)
-    if nch:
-        entry["info"] = {r: fused.regular_info(k, dtype, nd, r, True, "bspline")
-                         for r in fns if r != "earlier"}
+    entry["info"] = {r: fused.regular_info(k, dtype, nd, r, bool(nch), "bspline")
+                     for r in fns if r != "earlier"}
     return entry
 
 

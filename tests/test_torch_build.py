@@ -45,6 +45,51 @@ def test_failed_compile_raises_and_leaves_nothing(monkeypatch, tmp_path):
     assert list(_build.BUILD_DIR.iterdir()) == []
 
 
+def test_parts_compile_apart_and_link_once(monkeypatch, tmp_path):
+    """A source with PARTS: one nvcc -c per unit (without -shared), then one
+    link of the objects into the library; the log holds every step's
+    output, and no object is left behind. A library's name hashes every
+    unit."""
+    fake = tmp_path / "nvcc"
+    calls = tmp_path / "calls"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$@\" >> {calls}\n"
+                    "while [ \"$1\" != -o ]; do shift; done; touch \"$2\"; echo ptxas ok\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    src = _build.CSRC / "fused_rectilinear_stack.cu"
+    assert [u.name for u in _build._units(src)] == ["fused_rectilinear_stack.cu",
+                                                     "fused_rectilinear_stack_lerp.cu"]
+    so = _build.BUILD_DIR / "libx_0.so"
+    _build._compile(src, so)
+    lines = calls.read_text().splitlines()
+    assert len(lines) == 3
+    compiles = sorted(lines[:2], key=lambda line: line.endswith("_lerp.cu"))  # run at once
+    for line, unit in zip(compiles, _build._units(src)):
+        assert " -c " in f" {line} " and "-shared" not in line and line.endswith(str(unit))
+    assert "-shared" in lines[2] and lines[2].count(".o") == 2
+    assert so.exists() and so.with_suffix(".log").read_text() == "ptxas ok\n" * 3
+    assert sorted(p.name for p in _build.BUILD_DIR.iterdir()) == ["libx_0.log", "libx_0.so"]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for unit in _build._units(src):
+        (csrc / unit.name).write_text(unit.read_text())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    path = _build.library_path("fused_rectilinear_stack")
+    (csrc / "fused_rectilinear_stack_lerp.cu").write_text("// changed\n")
+    assert _build.library_path("fused_rectilinear_stack") != path
+
+
+def test_failed_part_raises_and_leaves_nothing(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")  # exits 1
+    so = _build.BUILD_DIR / "libx_0.so"
+    with pytest.raises(RuntimeError, match="nvcc failed with exit code 1"):
+        _build._compile(_build.CSRC / "fused_rectilinear_stack.cu", so)
+    assert list(_build.BUILD_DIR.iterdir()) == []
+
+
 def test_require_ieee_fp32():
     config.require_ieee_fp32()  # PyTorch's defaults
     old_tf32 = torch.backends.cuda.matmul.allow_tf32

@@ -844,6 +844,111 @@ def test_bspline_stack_routes(cuda, nch, k, offset, dtype):
             _equal(got[c], rows[c])
 
 
+def _spoil_flat(vals, rng):
+    """A NaN, +inf and -inf at random entries of each table of `vals`."""
+    flat = vals.reshape(-1)
+    spots = rng.choice(flat.numel(), 3 * max(1, flat.numel() // vals.shape[-1]), replace=False)
+    flat[torch.as_tensor(spots, device=vals.device)] = torch.tensor(
+        BAD * (len(spots) // 3), dtype=vals.dtype, device=vals.device)
+    return vals
+
+
+def _over_cap_raises(launch):
+    """A staged launch over its cap raises (the C entry's
+    cudaErrorInvalidValue) and gives way to no other route."""
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        launch()
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_bspline_table_routes(cuda, k, offset, dtype):
+    """K4 on every route that takes one table (staged groups, direct), at
+    and one row over the staging cap and at 20^3, aligned and at an odd
+    offset, with a NaN, +inf and -inf in the table: the wrapper's route one
+    launch, every route bitwise against the plain version; a staged launch
+    over the cap raises."""
+    rng = np.random.default_rng(k + offset)
+    item = torch.empty((), dtype=dtype).element_size()
+    at = fused.GROUP_BYTES // (36 * item)
+    shapes = [(20,) * 3, (at, 6, 6), (at + 1, 6, 6)]
+    for dims in shapes:
+        kt, ct, obs = _spline_case(dims, k, dtype, cuda, 5_000, seed=dims[0])
+        ct = _spoil_flat(ct.clone()[None], rng)[0]
+        ct = _at_offset(ct, offset) if offset else ct
+        want = fused.plain_bspline(kt, ct, obs, k)
+        fused.reset_launches()
+        _equal(fused.eval_bspline(kt, ct, obs, k), want)
+        assert fused.launches == {name: int(name == f"bspline_k{k}") for name in fused.launches}
+        cols = (fused._VOIDP * 3)(*(t.data_ptr() for t in kt))
+
+        def on(route):
+            return fused._launch("fused_bspline", f"bspline_k{k}", (k, fused._is_f64(ct)), dims,
+                                 ct, obs, obs[0].shape[0], False, cols, None, route=route)
+        _equal(on("direct"), want)
+        if math.prod(dims) * item > fused.GROUP_BYTES:
+            _over_cap_raises(lambda: on("staged_groups"))
+        else:
+            _equal(on("staged_groups"), want)
+
+
+@pytest.mark.parametrize("nch", [1, 3, 8, 17])
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_rectilinear_linear_stack_routes(cuda, nch, method, offset, dtype):
+    """K6 linear and nearest on every route that takes the stack (direct,
+    interleaved, staged for linear within its cap) on 20^3 tables and on an
+    f32 stack at and one row over STAGE_BYTES, aligned and at an odd offset,
+    with a NaN, +inf and -inf in every table: the wrapper's route one launch
+    (and the interleave where it interleaves), every route bitwise against
+    the plain version, each row against K2 / K3 on its table; a staged
+    launch over the cap raises."""
+    rng = np.random.default_rng(nch + offset)
+    at = fused.STAGE_BYTES // (nch * 16 * 16 * 4)
+    for dims in ((20,) * 3, (at, 16, 16), (at + 1, 16, 16)):
+        grids, _, ob = _rect_case(dims, dtype, cuda, n=10_000, seed=nch + dims[0])
+        vals = torch.as_tensor(rng.standard_normal((nch, math.prod(dims))), dtype=dtype,
+                               device=cuda)
+        vals = _spoil_flat(vals, rng)
+        vals = _at_offset(vals, offset) if offset else vals
+        want = fused.plain_rectilinear_stack(grids, vals, ob, method)
+        rows = [fused.eval_rectilinear(grids, vals[c], ob, method) for c in range(nch)]
+        route = fused.rectilinear_route(dims, dtype, method, nch)
+        fused.reset_launches()
+        _equal(fused.eval_rectilinear_stack(grids, vals, ob, method), want)
+        layout = fused.RECT_LAYOUTS.get(route)
+        assert fused.launches == {k: int(k in (f"rectilinear_{method}_stack", layout))
+                                  for k in fused.launches}
+        cols = (fused._VOIDP * 3)(*(g.data_ptr() for g in grids))
+
+        def on(r):
+            return fused._relaid_launch("rectilinear", r, fused.RECT_LAYOUTS, dims, vals, ob,
+                                        method, True, ob[0].shape[0], True, cols)
+        for r in ("direct", "interleaved", *(("staged",) if method == "linear" else ())):
+            if r == "staged" and vals.numel() * vals.element_size() > fused.STAGE_BYTES:
+                _over_cap_raises(lambda: on(r))
+                continue
+            got = on(r)
+            _equal(got, want)
+            for c in range(nch):
+                _equal(got[c], rows[c])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_rectilinear_interleave_equals_plain(cuda, dtype):
+    """The rectilinear source's interleave alone: equal to plain_interleave,
+    one launch of its own count."""
+    rng = np.random.default_rng(5)
+    for nch, entries in ((1, 50), (3, 8000), (8, 8000), (17, 4096)):
+        vals = torch.as_tensor(rng.standard_normal((nch, entries)), dtype=dtype, device=cuda)
+        fused.reset_launches()
+        got = fused.interleave(vals, "rectilinear")
+        assert fused.launches == {k: int(k == fused.RECT_INTERLEAVE) for k in fused.launches}
+        _equal(got, fused.plain_interleave(vals))
+
+
 def test_new_routes_launch_their_kernels(cuda):
     """The spline and stack evaluators on CUDA tensors launch their own
     kernel once and no other, and keep the query shape."""

@@ -9,7 +9,13 @@ gather tree where a result is not finite, bit for bit equal to the plain
 version (`fused.plain_rectilinear[_stack]`) at 1-8D; the plain version
 against the gather tree at the JAX package's bars (f32 rtol 1e-4, f64 rtol
 1e-13), exact at nodes and bit for bit wherever a stencil holds a NaN or an
-infinity; and `rectilinear_route` at and across each cap.
+infinity; in the extrapolated corners of the jittered 100^3 grid, where
+the f32 weights cancel, the plain version and the JAX package's K2 against
+float64 and each other within 2u sum |W v| (a known difference: each
+leaves the gather tree's f32 bar there); a linear or nearest stack read
+through the interleave as K6 reads it, bit for bit equal to the plain
+version; and `rectilinear_route` at and across each cap, for cubic and for
+linear and nearest stacks.
 
 The kernels themselves run only on a card (`tests/test_torch_gpu.py`,
 `chip_smoke.py`); what is held here is what they assume of the weights and
@@ -30,8 +36,11 @@ from interpn_tpu.ops import cubic as jcubic
 from interpn_tpu.ops import pallas_v3 as jv3
 from interpn_tpu_torch import config
 from interpn_tpu_torch.ops import cubic, fused
+from interpn_tpu_torch.ops._gather import gather_corners_matrix
+from interpn_tpu_torch.ops.locate import locate_rectilinear_linear
 
-from .test_torch_regular_layout import _bitwise, _c_strides
+from .test_torch_ops import _interpret_mode  # noqa: F401  (fixture)
+from .test_torch_regular_layout import _bitwise, _c_strides, _read_interleaved
 
 F32, F64 = torch.float32, torch.float64
 DIMS = [(9,), (6, 7), (5, 4, 6), (4, 5, 4, 4), (4, 4, 5, 4, 4), (4,) * 6, (4,) * 7, (4,) * 8]
@@ -258,6 +267,93 @@ def test_plain_is_the_gather_tree_where_a_stencil_is_not_finite(dims, dtype):
     assert torch.equal(torch.isfinite(got[fine]), torch.isfinite(tree[fine]))
 
 
+def _linear_through_interleaved(grids, stack, obs, method):
+    """Linear or nearest evaluation of a stack read as K6 reads a wide one:
+    K5's interleaved read (`_read_interleaved`) on cells and coordinates
+    located by bisection."""
+    dims = tuple(int(g.shape[0]) for g in grids)
+    locs, ts = [], []
+    for g, x in zip(grids, obs):
+        loc, x0, x1 = locate_rectilinear_linear(x, g)
+        locs.append(loc)
+        ts.append((x - x0) / (x1 - x0))
+    return _read_interleaved(dims, stack, locs, ts, method)
+
+
+@pytest.mark.parametrize("dims", DIMS, ids=lambda d: f"{len(d)}d")
+@pytest.mark.parametrize("nch", [8, 9])
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+def test_linear_interleaved_read_equals_plain(dims, nch, method, dtype):
+    """A linear or nearest stack read through the interleave as K6 reads it
+    is the plain version bit for bit (the gather tree on each table), with
+    NaN and +-inf in the tables and the queries."""
+    grids, stack, obs = _case(dims, dtype, _n(dims), seed=nch + len(dims), nch=nch, spoil=True)
+    _bitwise(_linear_through_interleaved(grids, stack, obs, method),
+             fused.plain_rectilinear_stack(grids, stack, obs, method))
+
+
+# --- f32 in the extrapolated corners of a 100^3 grid ----------------------------------
+
+# Queries on `chip_smoke.bench_rect_axes(100, 3)` (the A/B script's jittered
+# 100^3 grid) with table c of rng(1003).standard_normal((8, 10**6)) in f32,
+# every axis extrapolated (the corners of [-0.5, 10.5]^3): where the weight
+# contraction, the JAX K2 or both leave the gather tree's f32 bar (rtol =
+# atol 1e-4). The first came from 1.04e8 results on uniform queries, the
+# only one of them; the rest from the corners.
+PINNED = [
+    (5, (10.472643852233887, -0.3851606249809265, -0.4485081434249878)),
+    (5, (10.340730667114258, -0.32613468170166016, -0.4479012191295624)),
+    (5, (10.487374305725098, -0.383258581161499, -0.44084516167640686)),
+    (1, (-0.47447288036346436, 10.494485855102539, 10.496223449707031)),
+    (7, (-0.3632621467113495, -0.4880358576774597, -0.34629327058792114)),
+]
+
+
+def test_f32_corners_of_the_100_cubed_grid_match_the_jax_k2(_interpret_mode):  # noqa: F811
+    """A known difference, held on PINNED: there the f32 weight contraction
+    (the kernels' plain version) and the JAX package's K2 (interpret mode)
+    both leave the gather tree's f32 bar, each somewhere, as the stencil's
+    weights reach 1e3 and cancel (sum |W_j v_j| near 9e3 for a result of
+    1.5). Each is within 2u sum |W_j v_j| (u = 2^-24, two roundings of the
+    absolute stencil sum) of the float64 plain version on the same f32
+    inputs, and of the other."""
+    import chip_smoke as cs
+
+    dims = (100,) * 3
+    axes = tuple(torch.as_tensor(a, dtype=F32) for a in cs.bench_rect_axes(100, 3))
+    tables = np.random.default_rng(1003).standard_normal((8, 10**6)).astype(np.float32)
+    beyond = {"port": 0, "jax": 0}
+    for c in sorted({c for c, _ in PINNED}):
+        qs = [q for t, q in PINNED if t == c]
+        obs = tuple(torch.tensor(col, dtype=F32) for col in zip(*qs))
+        vals = torch.from_numpy(tables[c])
+        port = fused.eval_rectilinear(axes, vals, obs, "cubic", True)
+        jax_k2 = torch.from_numpy(np.array(jv3.eval_rectilinear_pre(
+            tuple(jnp.asarray(a.numpy()) for a in axes), jnp.asarray(tables[c]),
+            tuple(jnp.asarray(o.numpy()) for o in obs), "cubic", True, 6)))
+        tree = cubic.cubic_rectilinear(axes, vals, obs, True)
+        ax64, ob64, v64 = (tuple(a.double() for a in axes), tuple(o.double() for o in obs),
+                           vals.double())
+        ref = fused.plain_rectilinear(ax64, v64, ob64, "cubic", True)
+        base, ws = 0, []
+        for k in range(3):
+            loc, w = cubic.rectilinear_cubic_weights(ob64[k], ax64[k], True)
+            base = base + loc * _c_strides(dims)[k]
+            ws.append(torch.stack(w))
+        weights = torch.einsum("in,jn,kn->kjin", *ws).reshape(64, -1)
+        stencil = gather_corners_matrix(v64, base.to(torch.int32), dims, 4)
+        tol = 2.0**-23 * (weights.abs() * stencil.abs()).sum(0)
+        assert (tol > 1e-4).all() and (tol < 2e-3).all()
+        for got in (port, jax_k2):
+            assert ((got.double() - ref).abs() <= tol).all(), (c, got - ref, tol)
+        assert ((port.double() - jax_k2.double()).abs() <= tol).all(), (c, port - jax_k2, tol)
+        bar = 1e-4 + 1e-4 * tree.abs()
+        beyond["port"] += int(((port - tree).abs() > bar).sum())
+        beyond["jax"] += int(((jax_k2 - tree).abs() > bar).sum())
+    assert beyond["port"] >= 2 and beyond["jax"] >= 2, beyond
+
+
 # --- the route ------------------------------------------------------------------------
 
 
@@ -268,7 +364,8 @@ def test_rectilinear_route_at_each_cap(ndims, dtype):
     (`_cubic_route`), but one lane a query on the cubic pack; a cubic stack
     is staged while it fits STAGE_BYTES, staged a table at a time while a
     table does, else interleaved from RUN_BYTES of channels (f64 from 4D
-    only above L1_BYTES), else direct; linear and nearest read direct."""
+    only above L1_BYTES), else direct; one linear or nearest table reads
+    direct, a stack of them as `_linear_stack_route` says."""
     item = torch.empty((), dtype=dtype).element_size()
     rest = 4 ** (ndims - 1)
     for d0 in (4, fused.STAGE_BYTES // (rest * item), fused.STAGE_BYTES // (rest * item) + 1,
@@ -280,7 +377,8 @@ def test_rectilinear_route_at_each_cap(ndims, dtype):
             "taps" if one == "tap_lanes" else one)
         for method in ("linear", "nearest"):
             assert fused.rectilinear_route(dims, dtype, method) == "direct"
-            assert fused.rectilinear_route(dims, dtype, method, 8) == "direct"
+            assert fused.rectilinear_route(dims, dtype, method, 8) == _linear_stack_route(
+                dims, dtype, method, 8)
         size = math.prod(dims) * item
         run = fused.RUN_BYTES // item
         for nch in (1, run - 1, run, 2 * run):
@@ -294,8 +392,46 @@ def test_rectilinear_route_at_each_cap(ndims, dtype):
             assert fused.rectilinear_route(dims, dtype, "cubic", nch) == want, (dims, nch)
 
 
+def _linear_stack_route(dims, dtype, method, nch):
+    """K5's rule for a linear or nearest stack: interleaved from RUN_BYTES of
+    channels (while the interleave has int32 indices), else staged for f32
+    linear within STAGE_BYTES in all, else direct."""
+    item = torch.empty((), dtype=dtype).element_size()
+    size = math.prod(dims)
+    if nch * item >= fused.RUN_BYTES and nch * size < 2**31:
+        return "interleaved"
+    if method == "linear" and dtype == F32 and nch * size * item <= fused.STAGE_BYTES:
+        return "staged"
+    return "direct"
+
+
+@pytest.mark.parametrize("ndims", [1, 3, 5, 8])
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+@pytest.mark.parametrize("method", ["linear", "nearest"])
+def test_rectilinear_linear_stack_routes_at_each_cap(ndims, dtype, method):
+    """A linear or nearest stack (K6) takes K5's route, `regular_route`'s:
+    interleaved from RUN_BYTES of channels (one table fewer does not), an
+    f32 linear stack of at most STAGE_BYTES staged (one row more not), else
+    direct; one table direct whatever its size."""
+    item = torch.empty((), dtype=dtype).element_size()
+    run = fused.RUN_BYTES // item
+    rest = 2 ** (ndims - 1)
+    for nch in (1, 3, run - 1, run, run + 1, 2 * run + 1):
+        at = fused.STAGE_BYTES // (nch * rest * item)
+        for d0 in (2, max(at, 2), at + 1, 4 * at):
+            dims = (d0, *(2,) * (ndims - 1))
+            want = _linear_stack_route(dims, dtype, method, nch)
+            got = fused.rectilinear_route(dims, dtype, method, nch)
+            assert got == want == fused.regular_route(dims, dtype, method, nch), (dims, nch)
+            assert fused.rectilinear_route(dims, dtype, method) == "direct"
+    assert fused.rectilinear_route((2,) * ndims, dtype, method, run) == "interleaved"
+    assert fused.rectilinear_route((2,) * ndims, dtype, method, run - 1) == (
+        "staged" if method == "linear" and dtype == F32 else "direct")
+
+
 def test_rectilinear_route_of_the_bench_tables():
-    """The rectilinear cubic paths of `chip_smoke.py`."""
+    """The rectilinear paths of `chip_smoke.py`: cubic, and linear and
+    nearest stacks of 8 (interleaved) and their tables (direct)."""
     want = {((20,) * 3, F32, None): "staged", ((20,) * 3, F64, None): "staged",
             ((100,) * 3, F32, None): "taps", ((20,) * 3, F32, 8): "staged_tables",
             ((20,) * 3, F32, 3): "staged", ((20,) * 3, F64, 4): "staged_tables",
@@ -306,3 +442,10 @@ def test_rectilinear_route_of_the_bench_tables():
             ((14,) * 4, F32, 8): "interleaved", ((12,) * 4, F32, None): "staged"}
     for (dims, dtype, nch), route in want.items():
         assert fused.rectilinear_route(dims, dtype, "cubic", nch) == route, (dims, dtype, nch)
+    lin = {((20,) * 3, F32, None): "direct", ((20,) * 3, F32, 8): "interleaved",
+           ((20,) * 3, F32, 3): "staged", ((20,) * 3, F64, 4): "interleaved",
+           ((40,) * 3, F32, 3): "direct"}
+    for (dims, dtype, nch), route in lin.items():
+        assert fused.rectilinear_route(dims, dtype, "linear", nch) == route, (dims, dtype, nch)
+        nearest = "direct" if route == "staged" else route
+        assert fused.rectilinear_route(dims, dtype, "nearest", nch) == nearest, (dims, nch)

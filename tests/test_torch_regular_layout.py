@@ -199,8 +199,13 @@ def _through_interleaved(dims, starts, steps, stack, obs, method):
     """Linear or nearest evaluation of a stack read as the kernel reads a
     wide one: the (prod(dims), nch) interleaved copy, each corner's channels
     as one row, the per-channel trees on the rows."""
+    return _read_interleaved(dims, stack, *_locate(dims, starts, steps, obs), method)
+
+
+def _read_interleaved(dims, stack, locs, ts, method):
+    """`_through_interleaved` on each axis's cells and coordinates (`locs`,
+    `ts`), however located (K5's and K6's reads differ only there)."""
     inter = fused.interleave(stack)
-    locs, ts = _locate(dims, starts, steps, obs)
     strides = _c_strides(dims)
     if method == "nearest":
         flat = sum((loc + torch.where(t <= 0.5, 0, 1)) * s for loc, t, s in zip(locs, ts, strides))
@@ -243,15 +248,19 @@ def test_which_stacks_interleave(dtype):
 
 def test_interleave_index_contract():
     """Row e of the interleaved copy holds entry e of every table, table c
-    in column c; the interleave's CPU route is its plain version."""
+    in column c; the interleave's CPU route is its plain version, for the
+    regular and the rectilinear source alike."""
     rng = np.random.default_rng(1)
     for nch, entries in ((1, 7), (3, 5), (8, 60), (9, 24)):
         stack = torch.from_numpy(rng.standard_normal((nch, entries)))
         inter = fused.interleave(stack)
         assert torch.equal(inter, fused.plain_interleave(stack))
+        assert torch.equal(fused.interleave(stack, "rectilinear"), inter)
         assert inter.shape == (entries, nch) and inter.is_contiguous()
         for e, c in itertools.product(range(entries), range(nch)):
             assert inter[e, c].item() == stack[c, e].item()
+    with pytest.raises(ValueError, match="family"):
+        fused.interleave(stack, "bspline")
 
 
 @pytest.mark.parametrize("dims", DIMS, ids=lambda d: f"{len(d)}d")

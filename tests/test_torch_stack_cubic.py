@@ -188,7 +188,8 @@ def test_stack_routes_at_the_caps(dtype, nch, ndims):
     """K5 cubic and K7 stacks at and one row over each cap: tables within
     GROUP_BYTES in groups (the whole stack one group where it fits), larger
     ones direct, but interleaved for K7 from RUN_BYTES of channels; a
-    single spline table direct."""
+    single spline table within GROUP_BYTES staged as its one group, a larger
+    one direct."""
     item = dtype.itemsize
     cases = [_stack_dims(fused.STAGE_BYTES // nch, dtype, ndims),
              _stack_dims(fused.GROUP_BYTES, dtype, ndims)]
@@ -202,7 +203,8 @@ def test_stack_routes_at_the_caps(dtype, nch, ndims):
         assert fused.regular_route(dims, dtype, "cubic", nch) == want, dims
         for k in fused.DEGREES:
             assert fused.bspline_route(dims, dtype, k, nch) == spline, (dims, k)
-            assert fused.bspline_route(dims, dtype, k) == "direct"
+            one = "staged_groups" if math.prod(dims) * item <= fused.GROUP_BYTES else "direct"
+            assert fused.bspline_route(dims, dtype, k) == one
 
 
 @pytest.mark.parametrize("dtype", [F32, F64], ids=str)
@@ -214,6 +216,36 @@ def test_stacks_past_int32_indices_read_direct(dtype):
     assert fused.bspline_route(dims, dtype, 3, 16) == "direct"
     assert fused.bspline_route((2**9, 2**9, 2**9 - 1), dtype, 3, 16) == "interleaved"
     assert fused.regular_route(dims, dtype, "cubic", 16) == "direct"
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+@pytest.mark.parametrize("family,method", [("regular", "linear"), ("regular", "nearest"),
+                                           ("rectilinear", "cubic"), ("rectilinear", "linear"),
+                                           ("rectilinear", "nearest")])
+def test_wide_stacks_past_int32_indices_read_direct(family, method, dtype):
+    """A K5 linear or nearest stack, and a K6 cubic, linear or nearest one,
+    of RUN_BYTES of channels or more interleaves only while the interleave
+    holds fewer than 2^31 entries: 16 tables of 512^3 read direct, 16 of
+    512 x 512 x 511 interleaved (each table alone has int32 indices)."""
+    choose = fused.regular_route if family == "regular" else fused.rectilinear_route
+    assert 16 * 2**27 == 2**31 and 16 * 2**18 * 511 < 2**31
+    assert choose((2**9, 2**9, 2**9), dtype, method, 16) == "direct"
+    assert choose((2**9, 2**9, 2**9 - 1), dtype, method, 16) == "interleaved"
+
+
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+@pytest.mark.parametrize("ndims", [1, 2, 3, 5])
+def test_bspline_route_of_one_table_at_the_cap(k, dtype, ndims):
+    """One coefficient table (K4) is staged in shared memory while it fits
+    GROUP_BYTES, as one group of `staged_groups`, and read direct one row
+    over; every bench table fits."""
+    at = _stack_dims(fused.GROUP_BYTES, dtype, ndims)
+    assert math.prod(at) * dtype.itemsize <= fused.GROUP_BYTES
+    assert fused.bspline_route(at, dtype, k) == "staged_groups"
+    assert fused.bspline_route((at[0] + 1, *at[1:]), dtype, k) == "direct"
+    for dims in ((20,) * 3, (100,) * 2):
+        assert fused.bspline_route(dims, dtype, k) == "staged_groups"
 
 
 def test_stack_routes_of_the_bench_stacks():
