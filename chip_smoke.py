@@ -22,7 +22,11 @@ on the taps from 3D, direct) under and over each cap, 100^3 and tables at
 odd offsets; the two packs and the interleave; K2/K6's cubic routes
 (staged, staged tables, taps, interleaved, direct) at and over each cap,
 on tables holding a NaN and infinities, at every node, and at the bench
-paths in both modes and dtypes; K6 linear's and nearest's stack routes
+paths in both modes and dtypes; K2 linear's and K3's routes (staged,
+guided, direct) on one table at 1-8D at and over each cap, on jittered,
+geometric, two-point and 1000-point axes, at every knot, one ulp either
+side, every midpoint, NaN, +-inf, +-0 and far outside, nearest exact at
+the nodes; K6 linear's and nearest's stack routes
 (interleaved, staged, direct) on stacks of 1-17 tables at 1-8D and at and
 over the staging cap, each row against K2 / K3; K4's routes (staged
 groups, direct) at and over the cap and on the bench tables; K5 cubic's and K7's
@@ -182,6 +186,10 @@ PATHS = [
     Path("rectilinear_cubic", F64, 20, 3),
     Path("rectilinear_cubic", F32, 100, 3),
     Path("rectilinear_nearest", F32, 20, 3),
+    # K2 linear and K3 on their other routes and on a long axis
+    Path("rectilinear_linear", F64, 20, 3),
+    Path("rectilinear_linear", F32, 100, 3),
+    Path("rectilinear_nearest", F32, 1000, 2),
     Path("bspline_k3", F32, 20, 3),
     Path("bspline_k3", F64, 20, 3),
     Path("bspline_k3", F64, 100, 2),
@@ -242,7 +250,8 @@ def served(method: str, route: str, stacked: bool, ndims: int, family="regular")
     For the rectilinear `family`, K2 (K6) (csrc/rectilinear.cuh::rect_serves):
     direct every method; staged cubic; staged tables and interleaved the
     cubic stacks; taps single-table cubic from 2D; interleaved the linear
-    and nearest stacks, staged the linear ones. For the B-spline `family`,
+    and nearest stacks, staged the linear ones; guided one linear or
+    nearest table, staged one linear table. For the B-spline `family`,
     K4 (K7) (csrc/bspline.cuh::spline_serves): direct and staged groups;
     interleaved the stacks."""
     from interpn_tpu_torch.ops import fused
@@ -253,8 +262,9 @@ def served(method: str, route: str, stacked: bool, ndims: int, family="regular")
         if route == "direct":
             return True
         if method != "cubic":
-            return stacked and (route == "interleaved" or
-                                (route == "staged" and method == "linear"))
+            if not stacked:
+                return route == "guided" or (route == "staged" and method == "linear")
+            return route == "interleaved" or (route == "staged" and method == "linear")
         if route == "taps":
             return not stacked and ndims >= 2
         return route == "staged" or (stacked and route in ("staged_tables", "interleaved"))
@@ -271,7 +281,7 @@ def served(method: str, route: str, stacked: bool, ndims: int, family="regular")
     if route in fused.TAP_ROUTES:
         return method == "cubic" and not stacked and (ndims == 2 if route == "taps"
                                                       else ndims >= 3)
-    return True
+    return route == "direct"
 
 
 @contextlib.contextmanager
@@ -1201,6 +1211,135 @@ def over_cap(launch, what):
     raise AssertionError(f"{what}: a staged launch over its cap ran")
 
 
+def lerp_cap_dims(ndims, dtype):
+    """Tables (d0, 4, ..., 4) of `ndims` axes at and one row over each cap of
+    one linear or nearest table's route (`fused.rectilinear_route`): table
+    and guide within STAGE_BYTES (staged, f32 linear), the table within
+    L1_BYTES (guided f32 linear from 3D), the guide within COLUMN_BYTES
+    (guided); a cap that even a 2-row table exceeds gives only its row
+    over."""
+    from interpn_tpu_torch.ops import fused
+
+    item = torch.empty((), dtype=dtype).element_size()
+    rest = (4,) * (ndims - 1)
+
+    def in_l1(dims):
+        return math.prod(dims) * item <= fused.L1_BYTES
+
+    out = set()
+    for fits in (lambda dims: fused.guide_fits("staged", dims, dtype), in_l1,
+                 lambda dims: fused.guide_fits("guided", dims, dtype)):
+        d0 = 2
+        while fits((d0, *rest)):
+            d0 += 1
+        out |= {(d, *rest) for d in (d0 - 1, d0) if d >= 2}
+    return sorted(out)
+
+
+def adversarial_obs(grids, n, rng):
+    """n queries an axis drawn from: every knot, one ulp either side of it,
+    every cell's midpoint, NaN, +-inf, +-0, points far outside the grid
+    (+-1e30, +-the dtype's largest) and points spread over the grid and a
+    span past each side."""
+    obs = []
+    for g in grids:
+        a = g.cpu().numpy()
+        npd = a.dtype.type
+        big = np.finfo(npd).max
+        span = a[-1] - a[0]
+        pool = np.concatenate([
+            a, np.nextafter(a, npd(np.inf)), np.nextafter(a, npd(-np.inf)),
+            (a[:-1] + (a[1:] - a[:-1]) * npd(0.5)).astype(npd),
+            np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, big, -big], dtype=npd),
+            rng.uniform(a[0] - span, a[-1] + span, 64).astype(npd)])
+        obs.append(torch.as_tensor(rng.choice(pool, n), device=g.device))
+    return tuple(obs)
+
+
+def rect_axes(kind, d, rng):
+    """A sorted rectilinear axis of d points: jittered (`random_case`'s, from
+    `rng`) or geometric over [0, 10] (cells growing by 1.3 from one to the
+    next at 20 points: the finest buckets of the guided locate hold several
+    knots)."""
+    if kind == "geometric":
+        a = np.cumsum(1.3 ** np.linspace(0.0, 19.0, d))
+        return 10.0 * (a - a[0]) / (a[-1] - a[0])
+    return np.cumsum(0.2 + rng.random(d))
+
+
+def rectilinear_table_routes_phase(cuda):
+    """Phase 2 for K2 linear and K3 (one linear or nearest table): tables at
+    1-8D at and one row over each cap of their route (`lerp_cap_dims`:
+    staged, guided, direct), a two-point axis, a 1000-point axis (1000^2)
+    and axes above the column cap, on jittered and geometric axes, in f32
+    and f64, with `adversarial_obs` queries: through the wrapper (one
+    launch) and on every route that takes the table, each bitwise against
+    the plain version; a guided or staged launch over its cap raises; every
+    node exact through nearest. Fails unless every route ran."""
+    from interpn_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(31)
+    cases = [(dims, dtype, kind) for nd in range(1, 9) for dtype in (F32, F64)
+             for i, dims in enumerate(lerp_cap_dims(nd, dtype))
+             for kind in (("jittered", "geometric")[i % 2],)]
+    cases += [(dims, dtype, kind) for dims in ((2,), (2, 20, 2), (20,) * 3, (1000, 1000),
+                                               (3000, 2), (20, 20, 1400))
+              for dtype in (F32, F64) for kind in ("jittered", "geometric")]
+    ran, results, nodes = {}, 0, 0
+    for dims, dtype, kind in cases:
+        n = N_CHECK // 10
+        grids = tuple(torch.as_tensor(rect_axes(kind, d, rng), dtype=dtype, device=cuda)
+                      for d in dims)
+        vals = torch.as_tensor(rng.standard_normal(math.prod(dims)), dtype=dtype, device=cuda)
+        obs = adversarial_obs(grids, n, rng)
+        cols = (fused._VOIDP * len(dims))(*(g.data_ptr() for g in grids))
+        for method in ("linear", "nearest"):
+            what = f"{'K3' if method == 'nearest' else 'K2'} {method} {dims} {SHORT[dtype]} {kind}"
+            want = fused.plain_rectilinear(grids, vals, obs, method)
+            route = fused.rectilinear_route(dims, dtype, method)
+            fused.reset_launches()
+            results += bitwise(fused.eval_rectilinear(grids, vals, obs, method), want,
+                               f"{what} ({route})")
+            if fused.launches != {k: int(k == f"rectilinear_{method}") for k in fused.launches}:
+                raise AssertionError(f"{what}: launches {fused.launches}")
+            ran[method, route, "picked"] = ran.get((method, route, "picked"), 0) + 1
+
+            def on(r):
+                return fused._relaid_launch("rectilinear", r, fused.RECT_LAYOUTS, dims, vals,
+                                            obs, method, True, n, False, cols)
+            for r in fused.ROUTES:
+                if not served(method, r, False, len(dims), "rectilinear"):
+                    continue
+                if r != "direct" and not fused.guide_fits(r, dims, dtype):
+                    over_cap(lambda: on(r), f"{what} {r}")
+                    ran[method, r, "over the cap"] = ran.get((method, r, "over the cap"), 0) + 1
+                    continue
+                results += bitwise(on(r), want, f"{what} {r}")
+            if method == "nearest" and math.prod(dims) <= 10 * N_NODES:
+                idx = np.stack(np.meshgrid(*(np.arange(d) for d in dims), indexing="ij")).reshape(
+                    len(dims), -1)[:, :: 1 + math.prod(dims) // N_NODES]
+                at = tuple(g[torch.as_tensor(i, device=cuda)] for g, i in zip(grids, idx))
+                flat = torch.as_tensor(np.ravel_multi_index(idx, dims), device=cuda)
+                nodes += bitwise(fused.eval_rectilinear(grids, vals, at, "nearest"), vals[flat],
+                                 f"{what} at the nodes")
+    want = {(m, r, "picked") for m in ("linear", "nearest") for r in fused.ROUTES
+            if served(m, r, False, 3, "rectilinear") and (r != "staged" or m == "linear")}
+    want |= {(m, r, "over the cap") for m in ("linear", "nearest") for r in ("guided", "staged")
+             if served(m, r, False, 3, "rectilinear")}
+    if set(ran) != want:
+        raise AssertionError(f"phase 2 ran K2 linear / K3 on {sorted(ran)} only, want "
+                             f"{sorted(want)}")
+    log(f"phase 2 kernel vs plain K2 linear and K3 routes: one table at 1-8D at and one row "
+        f"over each cap of its route (STAGE_BYTES for table and guide, COLUMN_BYTES "
+        f"{fused.COLUMN_BYTES} for the guide), a two-point axis, 1000^2 and axes above the "
+        f"column cap, jittered and geometric axes (f32, f64; "
+        f"{', '.join(f'{m} {r} {w} {c}' for (m, r, w), c in sorted(ran.items()))} cases), "
+        f"queries at every knot, one ulp either side, every midpoint, NaN, +-inf, +-0 and far "
+        f"outside: all {results} results bitwise equal to the plain version through the "
+        f"wrapper (one launch) and on every route; every guided or staged launch over its cap "
+        f"raised; all {nodes} nearest node values exact")
+
+
 def rectilinear_stack_routes_phase(cuda):
     """Phase 2 for K6 linear and nearest (K5's layouts on rectilinear
     stacks): stacks of 1, 3, 4, 7, 8, 9 and 17 tables at 1, 3, 4 and 8D and
@@ -2076,29 +2215,44 @@ def layout_phase(name, cuda, smi, driven) -> dict:
 
 
 def kernels_record(driven, timed) -> list[dict]:
-    """One entry per kernel, from its headline path (its first in PATHS);
+    """One entry per kernel, from its headline path (its first in PATHS),
     a grid kernel's also with `layouts`: for each of its paths, the layout
     that path's kernel read and the launches of that layout's kernel
-    beside it."""
+    beside it; then one entry per other route that a grid kernel's paths
+    read, from the first path on that route (each path is driven with the
+    counts set to 0 just before it, so its launches are its route's)."""
     kernels = []
     for counter in dict.fromkeys(p.counter for p in PATHS):
-        p = next(q for q in PATHS if q.counter == counter)
-        launches, err, _ = driven[p]
+        paths = [q for q in PATHS if q.counter == counter]
+        p = paths[0]
         layout = {"layouts": {q.label: {"route": q.route, "layout_launches": driven[q][2]}
-                              for q in PATHS if q.counter == counter}} if p.route else {}
-        source = p.engine or f"{p.kind}{'_stack' if p.stacked else ''}"
-        kernels.append({
-            "name": f"fused_{counter}",
-            "route": "cuda",
-            "source": f"interpn_tpu_torch/csrc/fused_{source}.cu",
-            "replaces": replaces(p),
-            "config": p.label,
-            "launches": launches,
-            "max_abs_err": err,
-            **layout,
-            **timed[p],
-        })
+                              for q in paths}} if p.route else {}
+        kernels.append({**kernel_entry(p, f"fused_{counter}", driven, timed), **layout})
+    for counter in dict.fromkeys(p.counter for p in PATHS):
+        paths = [q for q in PATHS if q.counter == counter and q.route]
+        for route in dict.fromkeys(q.route for q in paths[1:]):
+            if route != paths[0].route:
+                p = next(q for q in paths if q.route == route)
+                kernels.append(kernel_entry(p, f"fused_{counter} ({route} route)", driven,
+                                            timed))
     return kernels
+
+
+def kernel_entry(p: Path, name: str, driven, timed) -> dict:
+    """A kernels-record entry for path p: its launches and error from the
+    phase-4 drive, its times and bound from phase 5."""
+    launches, err, _ = driven[p]
+    source = p.engine or f"{p.kind}{'_stack' if p.stacked else ''}"
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"interpn_tpu_torch/csrc/fused_{source}.cu",
+        "replaces": replaces(p),
+        "config": p.label,
+        "launches": launches,
+        "max_abs_err": err,
+        **timed[p],
+    }
 
 
 def main() -> None:
@@ -2117,6 +2271,7 @@ def main() -> None:
     kernel_vs_plain_phase(cuda)
     regular_routes_phase(cuda)
     rectilinear_routes_phase(cuda)
+    rectilinear_table_routes_phase(cuda)
     rectilinear_stack_routes_phase(cuda)
     bspline_table_routes_phase(cuda)
     stack_routes_phase(cuda)

@@ -9,7 +9,10 @@
 //   the same weights in the kernel and contracts the stencil with them.
 // - K3, `_pallas_v3_rect` (`_build_kernel(rect=True)`), which locates by a
 //   compare-count inside the kernel and selects one-hot; it serves
-//   rectilinear nearest (`eval_rectilinear`). Here method = nearest.
+//   rectilinear nearest (`eval_rectilinear`). Here method = nearest, and
+//   a query's cell comes from its bucket of the block's guide and a
+//   bisection of that bucket, one table read: the dense compare-count and
+//   one-hot planes answer Mosaic's lack of a per-lane gather.
 // On the TPU both serve f32 only; the double instantiation serves f64. The
 // kernel, what it computes, its design, its routes and what bounds it on
 // this card are in rectilinear.cuh; `fused_rectilinear_stack.cu`
@@ -26,8 +29,10 @@
 // (rectilinear.cuh): 0 direct (every method), and for cubic 1 staged (the
 // table within kStageBytes) and 4 taps (from 2D, one lane a query), on
 // which the cubic pack of `vals` into `work`, (d0-3) prod(d1..) cells of 4
-// values, is launched first and the kernel reads it. `work` is unused on
-// the other routes. `dims`, `grids` and `obs` are host
+// values, is launched first and the kernel reads it; for linear and
+// nearest 8 guided (the columns and their bucket starts within
+// kColumnBytes in shared memory), and for linear 1 staged (the table and
+// that guide within kStageBytes). `work` is unused on the other routes. `dims`, `grids` and `obs` are host
 // arrays of `ndims` entries; `grids` (one sorted column per axis), `obs`,
 // `work`, `vals` and `out` hold device pointers of the type selected by
 // `is_f64`. The caller guarantees 1 <= ndims <= 8, every dim >= 2 (>= 4 for

@@ -29,9 +29,16 @@
 // tables share them and no per-table node arithmetic remains: about 2N
 // divisions and 4N nodes on unit bases a query, then 2 * 4^N - 1 operations
 // a table (the Hermite tree took 4 divisions and ~27 operations a node, 21
-// nodes a 3D table). One linear or nearest table reads direct; a linear or
-// nearest stack reads K5's layouts (regular.cuh), its trees unchanged, so
-// every row is the single-table kernel's bits:
+// nodes a 3D table). One linear or nearest table (K2 linear, K3) locates
+// by the guided locate below, where its columns fit (kGuided, kStaged):
+// each block copies the grid columns into shared memory with 2 dim bucket
+// starts an axis, and a query bisects only its own bucket there, a knot or
+// two on a jittered axis, in place of about log2(dim) dependent column
+// reads from device memory (the bisection stays for K2 cubic, K6 and the
+// f64 engines, `partition_point`). An f32 linear table within kStageBytes
+// with its guide is staged beside it, as K1 stages its table (kStaged).
+// A linear or nearest stack reads K5's layouts (regular.cuh), its trees
+// unchanged, so every row is the single-table kernel's bits:
 // - kInterleaved (kRunBytes of channels or more, the interleave within
 //   int32 indices): the interleave, a corner's channels in one sector, read
 //   as two 16-byte loads, the lerp tree over the channels together
@@ -75,11 +82,23 @@
 // - kDirect (the rest): the stencil straight from each table through the
 //   read-only cache.
 //
+// The routes of one linear or nearest table (`_lerp_table_route`):
+// - kStaged (f32 linear, table and guide within kStageBytes): the table
+//   staged by `stage_table`'s bulk copy, in flight while the guide is built;
+//   the locate and the 2^N corner reads in shared memory.
+// - kGuided (the guide within kColumnBytes; not an f32 linear table above
+//   256 KiB from 3D, whose corner reads from L2 set its pace and which ran
+//   behind direct there): the guide in shared memory, the table direct.
+// - kDirect (the rest): the bisection of each column from device memory.
+// Each block builds its own guide, 1024 threads a block sharing it: with
+// 256, four times the builds cost 14-24% more time at 1000^2 (PERF.md).
+//
 // What bounds it on this card: the query stream (sizeof(T)*(ndims+nch)
-// bytes per query) for linear and nearest, plus about log2(dim) dependent
-// column reads per axis for the bisection and the corners' scattered reads
-// (a sector of channels each, interleaved); for cubic the weight build and
-// the stencil's 4^N reads a table, from shared memory or L2 (PERF.md).
+// bytes per query) for linear and nearest, plus the locate (a few
+// dependent shared-memory reads an axis guided, about log2(dim) column
+// reads bisecting) and the corners' scattered reads (a sector of channels
+// each, interleaved); for cubic the weight build and the stencil's 4^N
+// reads a table, from shared memory or L2 (PERF.md).
 
 #pragma once
 
@@ -97,14 +116,218 @@ struct RectGrid {
 
 // Whether the rectilinear family has an instantiation for the route: direct
 // for every method; the cubic routes as the header says (taps from 2D);
-// for a linear or nearest stack K5's, interleaved, and staged for linear.
+// for a linear or nearest stack K5's, interleaved, and staged for linear;
+// for one linear or nearest table the guided locate, on kGuided, and for
+// linear on kStaged too.
 constexpr bool rect_serves(int route, int method, bool stack, int ndims) {
   return route == kDirect ||
          (method == kCubic &&
           (route == kStaged || (stack && (route == kInterleaved || route == kStagedTables)) ||
            (!stack && route == kTaps && ndims >= 2))) ||
          (method != kCubic && stack &&
-          (route == kInterleaved || (route == kStaged && method == kLinear)));
+          (route == kInterleaved || (route == kStaged && method == kLinear))) ||
+         (method != kCubic && !stack &&
+          (route == kGuided || (route == kStaged && method == kLinear)));
+}
+
+// Whether the instantiation locates by the guided locate below: one linear or
+// nearest table on kGuided (the table direct) or kStaged (the table in
+// shared memory too). Every other instantiation keeps the bisection from
+// device memory (`partition_point`).
+template <int METHOD, bool kStack, int ROUTE>
+__host__ __device__ constexpr bool guided() {
+  return METHOD != kCubic && !kStack && (ROUTE == kGuided || ROUTE == kStaged);
+}
+
+// --- the guided locate ------------------------------------------------------------
+
+// Buckets of an axis of `dim` points: uniform over [g[0], g[dim-1]], twice
+// as many as the points, so that a jittered axis has a knot or none in most.
+__host__ __device__ constexpr int buckets_of(int dim) { return 2 * dim; }
+
+// Bytes of the guided locate's shared memory: each axis's column, then each
+// axis's bucket starts (buckets_of(dim) + 1 ints).
+template <typename T>
+int64_t guide_bytes(const int* dims, int ndims) {
+  int64_t bytes = 0;
+  for (int k = 0; k < ndims; ++k) {
+    bytes += dims[k] * static_cast<int64_t>(sizeof(T)) + (buckets_of(dims[k]) + 1) * 4;
+  }
+  return bytes;
+}
+
+// Where the guide starts on kStaged: after the staged table and its offset
+// from a 16-byte boundary, on a 16-byte boundary.
+__host__ __device__ constexpr int64_t guide_offset(int64_t table_bytes) {
+  return (table_bytes + 31) & ~int64_t(15);
+}
+
+// An axis's bucket parameters, in shared memory: x's bucket is
+// floor((x - lo) * scale), scale = buckets / (g[dim-1] - g[0]).
+template <typename T>
+struct AxisGuide {
+  T lo;
+  T scale;
+};
+
+// The bucket of x: floor((x - lo) * scale), clamped to [0, m - 1] in floating
+// point before the conversion (NaN gives 0, since fmax returns the other
+// operand; +-inf and huge |x| the edge buckets). Each step is monotone in x,
+// so x <= y gives bucket_of(x) <= bucket_of(y) however the steps round. The
+// bucket starts are built with this same function and scale, so every knot
+// in a lower bucket than x's is below x and none in a higher one is: the
+// count below needs no margin, whatever the grid's offset or spacing.
+template <typename T>
+__device__ __forceinline__ int bucket_of(T x, const AxisGuide<T>& a, int m) {
+  return static_cast<int>(clamp_(floor_(mul_rn(sub_rn(x, a.lo), a.scale)), static_cast<T>(m - 1)));
+}
+
+// Count of the staged column's entries < x, as `partition_point` (NaN
+// counting 0): the knots of the buckets below x's, first[b], and a bisection
+// of x's own bucket's, first[b] .. first[b+1] - 1, all in shared memory.
+template <typename T>
+__device__ __forceinline__ int guided_count(const T* g, const int* first, const AxisGuide<T>& a,
+                                            int m, T x) {
+  const int b = bucket_of(x, a, m);
+  int lo = first[b];
+  int count = first[b + 1] - lo;
+  while (count > 0) {
+    const int half = count >> 1;
+    if (g[lo + half] < x) {
+      lo += half + 1;
+      count -= half + 1;
+    } else {
+      count = half;
+    }
+  }
+  return lo;
+}
+
+// The guided locate's per-axis steps for axes K .. NDIMS - 1, each at its
+// index known when compiled (a loop over the axes, holding a loop per axis,
+// left the grid's parameters indexed at run time: copied to local memory,
+// 128 bytes a thread).
+template <typename T, int NDIMS, int K = 0>
+struct GuidedAxes {
+  using Next = GuidedAxes<T, NDIMS, K + 1>;
+
+  // Copies column K, then the next ones, into `cols` (axis after axis), and
+  // sets each axis's bucket parameters in `axes`.
+  static __device__ __forceinline__ void stage(const RectGrid<T>& grid, T* cols,
+                                               AxisGuide<T>* axes) {
+    if constexpr (K < NDIMS) {
+      const int dim = grid.dim[K];
+      const T* __restrict__ g = grid.col[K];
+      for (int j = threadIdx.x; j < dim; j += blockDim.x) cols[j] = __ldg(g + j);
+      if (threadIdx.x == K) {
+        const T lo = __ldg(g);
+        axes[K].lo = lo;
+        axes[K].scale = div_rn(static_cast<T>(buckets_of(dim)), sub_rn(__ldg(g + dim - 1), lo));
+      }
+      Next::stage(grid, cols + dim, axes);
+    }
+  }
+
+  // Axis K's bucket starts into `first` (first[c], c = 0..m: the knots whose
+  // bucket is below c), then the next axes' after them. A thread takes knot
+  // j and writes j into the starts of the buckets from the one after knot
+  // j - 1's to knot j's own (j = dim: to the last), so that each start is
+  // written once.
+  static __device__ __forceinline__ void build(const RectGrid<T>& grid, const T* cols, int* first,
+                                               const AxisGuide<T>* axes) {
+    if constexpr (K < NDIMS) {
+      const int dim = grid.dim[K];
+      const int m = buckets_of(dim);
+      const AxisGuide<T> a = axes[K];
+      for (int j = threadIdx.x; j <= dim; j += blockDim.x) {
+        const int from = j == 0 ? 0 : bucket_of(cols[j - 1], a, m) + 1;
+        const int to = j == dim ? m : bucket_of(cols[j], a, m);
+        for (int c = from; c <= to; ++c) first[c] = j;
+      }
+      Next::build(grid, cols + dim, first + m + 1, axes);
+    }
+  }
+
+  // Query i's cell on axes K and on (its node for nearest: the lower index
+  // at the tie; a NaN t fails <= and takes +1), as an offset into the table,
+  // and each axis's t.
+  template <int METHOD>
+  static __device__ __forceinline__ int locate(const RectGrid<T>& grid, const ObsPtrs<T>& obs,
+                                               int64_t i, const T* cols, const int* first,
+                                               const AxisGuide<T>* axes, T* t) {
+    if constexpr (K == NDIMS) {
+      return 0;
+    } else {
+      const int dim = grid.dim[K];
+      const int m = buckets_of(dim);
+      const T x = __ldg(obs.p[K] + i);
+      const int iloc = guided_count(cols, first, axes[K], m, x) - 1;
+      const int last = dim - 2 > 0 ? dim - 2 : 0;
+      const int loc = iloc < 0 ? 0 : (iloc > last ? last : iloc);
+      const T x0 = cols[loc];
+      t[K] = div_rn(sub_rn(x, x0), sub_rn(cols[loc + 1], x0));
+      const int at = METHOD == kNearest ? loc + (t[K] <= T(0.5) ? 0 : 1) : loc;
+      return at * grid.stride[K] +
+             Next::template locate<METHOD>(grid, obs, i, cols + dim, first + m + 1, axes, t);
+    }
+  }
+};
+
+// One linear or nearest table on kGuided (the table read direct) or kStaged
+// (the table in shared memory too, by `stage_table`'s bulk copy, in flight
+// while the guides are built): each axis located by `guided_count` from
+// the block's copy of its column, then the same t, nearest rule and lerp
+// tree as the bisecting instantiations, so the same bits.
+template <typename T, int NDIMS, int METHOD, int ROUTE>
+__device__ __forceinline__ void guided_table(const RectGrid<T>& grid, const ObsPtrs<T>& obs,
+                                             const T* __restrict__ vals, int64_t table,
+                                             T* __restrict__ out, int64_t n,
+                                             unsigned char* smem, uint64_t* bar) {
+  constexpr bool kShared = ROUTE == kStaged;
+  using Axes = GuidedAxes<T, NDIMS>;
+  __shared__ AxisGuide<T> axes[NDIMS];
+  const T* src = vals;
+  bool pending = false;  // a bulk copy into shared memory not yet awaited
+  unsigned char* region = smem;
+  if constexpr (kShared) {
+    src = stage_table(vals, table, smem, bar, &pending);
+    region = smem + guide_offset(table * static_cast<int64_t>(sizeof(T)));
+  }
+  int total = 0;
+#pragma unroll
+  for (int k = 0; k < NDIMS; ++k) total += grid.dim[k];
+  T* cols = reinterpret_cast<T*>(region);
+  int* first = reinterpret_cast<int*>(cols + total);
+  Axes::stage(grid, cols, axes);
+  __syncthreads();
+  Axes::build(grid, cols, first, axes);
+  __syncthreads();
+  int stride[NDIMS];
+#pragma unroll
+  for (int k = 0; k < NDIMS; ++k) stride[k] = grid.stride[k];
+  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += nthreads) {
+    T t[NDIMS];
+    const int base = Axes::template locate<METHOD>(grid, obs, i, cols, first, axes, t);
+    if constexpr (kShared) {
+      if (pending) {
+        await_bulk(bar);
+        pending = false;
+      }
+    }
+    const Channels<T, 1, kShared> at{src, 1, false};
+    if constexpr (METHOD == kNearest) {
+      out[i] = at(base).v[0];
+    } else {
+      out[i] = LerpTree<T, NDIMS>::eval(at, base, stride, t).v[0];
+    }
+  }
+  if constexpr (kShared) {
+    // a thread that read no table still lets the copy land before its
+    // block's shared memory is released
+    if (pending) await_bulk(bar);
+  }
 }
 
 // The leaf of the taps routes: axis 0's four taps at `cell` of the cubic
@@ -256,6 +479,10 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
     staged_tables<T, NDIMS, U>(grid, obs, vals, table, nch, out, n, lin, smem);
     return;
   }
+  if constexpr (guided<METHOD, kStack, ROUTE>()) {
+    guided_table<T, NDIMS, METHOD, ROUTE>(grid, obs, vals, table, out, n, smem, &bar);
+    return;
+  }
   int stride[NDIMS];  // of the layout read: the table's, times nch interleaved
 #pragma unroll
   for (int k = 0; k < NDIMS; ++k) stride[k] = grid.stride[k] * (ROUTE == kInterleaved ? nch : 1);
@@ -401,10 +628,14 @@ struct Rect {
     constexpr int threads = threads_of<ROUTE>();
     constexpr size_t reserve = reserve_of<ROUTE>();
     // the staged tables and their offset from a 16-byte boundary; for
-    // kStagedTables two tables' buffers
+    // kStagedTables two tables' buffers; for the guided locate its columns
+    // and bucket starts, after the table on kStaged
     const int64_t bytes = a.table * static_cast<int64_t>(sizeof(T));
-    const size_t smem = ROUTE == kStaged ? bytes * a.nch + 16
-                                         : (ROUTE == kStagedTables ? 2 * table_buffer(bytes) : 0);
+    size_t smem = ROUTE == kStaged ? bytes * a.nch + 16
+                                   : (ROUTE == kStagedTables ? 2 * table_buffer(bytes) : 0);
+    if constexpr (guided<METHOD, kStack, ROUTE>()) {
+      smem = (ROUTE == kStaged ? guide_offset(bytes) : 0) + guide_bytes<T>(a.dims, NDIMS);
+    }
     if (smem > reserve) return cudaErrorInvalidValue;  // above the staging cap
     // as many blocks as the card holds at once with the route's shared
     // memory; but linear and nearest read direct keep their 8 blocks an

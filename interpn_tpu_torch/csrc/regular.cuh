@@ -125,6 +125,9 @@ constexpr int kStagedTables = 6;
 // a stack split into groups of consecutive tables, each block staging its
 // group once (the cubic stacks, K5 and K7)
 constexpr int kStagedGroups = 7;
+// one linear or nearest rectilinear table read direct, its grid columns
+// and their bucket guides in shared memory (rectilinear.cuh)
+constexpr int kGuided = 8;
 
 // Threads a block of the staged route. A staged block copies the whole
 // table, so the route runs the largest blocks, one or two copies an SM
@@ -136,6 +139,9 @@ constexpr int kStageBytes = 112 * 1024;
 // The largest group of kStagedGroups in bytes (ops/fused.py::GROUP_BYTES):
 // about all that a block may use, one block an SM.
 constexpr int kGroupBytes = 224 * 1024;
+// The largest guide of kGuided in bytes (ops/fused.py::COLUMN_BYTES): the
+// grid columns and their bucket starts, each block's own copy.
+constexpr int kColumnBytes = 32 * 1024;
 // Bytes of channels an interleaved stack reads and runs together: one
 // 32-byte sector, by two 16-byte loads (8 f32, 4 f64 channels).
 constexpr int kRunBytes = 32;
@@ -156,18 +162,20 @@ __host__ __device__ constexpr bool staged(int route) {
 
 template <int ROUTE>
 constexpr int threads_of() {
-  return staged(ROUTE) ? kStagedThreads : kThreads;
+  return staged(ROUTE) || ROUTE == kGuided ? kStagedThreads : kThreads;
 }
 
 // Dynamic shared memory a block of the route reserves: the largest staged
 // table (group of tables) and its offset from a 16-byte boundary (two
-// tables, the double buffer of kStagedTables).
+// tables, the double buffer of kStagedTables; the guide of kGuided).
 template <int ROUTE>
 constexpr size_t reserve_of() {
   return ROUTE == kStaged ? kStageBytes + 16
                           : (ROUTE == kStagedTables
                                  ? 2 * (kStageBytes + 16)
-                                 : (ROUTE == kStagedGroups ? kGroupBytes + 16 : 0));
+                                 : (ROUTE == kStagedGroups
+                                        ? kGroupBytes + 16
+                                        : (ROUTE == kGuided ? kColumnBytes : 0)));
 }
 
 // The groups of consecutive tables that kStagedGroups splits nch tables of
@@ -1004,6 +1012,7 @@ cudaError_t visit_route(int route, int method, int ndims, Op& op) {
     case kTapLanes: return visit_method<F, kStack, kTapLanes, T>(method, ndims, op);
     case kStagedTables: return visit_method<F, kStack, kStagedTables, T>(method, ndims, op);
     case kStagedGroups: return visit_method<F, kStack, kStagedGroups, T>(method, ndims, op);
+    case kGuided: return visit_method<F, kStack, kGuided, T>(method, ndims, op);
     default: return cudaErrorInvalidValue;
   }
 }

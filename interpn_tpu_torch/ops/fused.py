@@ -17,7 +17,10 @@
   weights once a query and contracts every table's stencil with them,
   reading the layout `rectilinear_route` picks (K1's staged table and cubic
   pack, K5's interleave, or the table itself); a linear or nearest stack
-  reads K5's layouts (its interleave, or staged), one table the table.
+  reads K5's layouts (its interleave, or staged); one linear or nearest
+  table locates from its block's copy of the grid columns and their
+  bucket starts in shared memory, and an f32 linear one is staged there
+  too (`_lerp_table_route`).
 * `eval_bspline` / `eval_bspline_stack` launch `csrc/fused_bspline.cu` /
   `fused_bspline_stack.cu`, the counterpart of `pallas_v3.eval_bspline`
   (K4, and K2's spline use) and `pallas_v3.eval_bspline_stack` (K7), on
@@ -92,9 +95,9 @@ KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES, PACK,
 launches = dict.fromkeys(KERNELS, 0)
 
 # the route codes of csrc/regular.cuh: kDirect, kStaged, kQuads, kInterleaved,
-# kTaps, kTapLanes, kStagedTables, kStagedGroups
+# kTaps, kTapLanes, kStagedTables, kStagedGroups, kGuided
 ROUTES = ("direct", "staged", "quads", "interleaved", "taps", "tap_lanes", "staged_tables",
-          "staged_groups")
+          "staged_groups", "guided")
 TAP_ROUTES = ROUTES[4:6]  # the routes that read the cubic pack
 # the layout kernel that the entry launches before the kernel, by route
 LAYOUTS = {"quads": PACK, "interleaved": INTERLEAVE, **dict.fromkeys(TAP_ROUTES, CUBIC_PACK)}
@@ -138,6 +141,13 @@ RUN_BYTES = 32
 # table): about all the shared memory a block may use, at one 1024-thread
 # block an SM. One B-spline table (K4) within it is staged the same way.
 GROUP_BYTES = 224 * 1024
+# One linear or nearest rectilinear table (K2, K3) locates each query from
+# its block's copy of the grid columns and their bucket starts
+# (`guide_bytes`) while those fit this many bytes ('guided'; kColumnBytes
+# in csrc/regular.cuh, which refuses more), or, on the staged route, while
+# they fit STAGE_BYTES beside the table. Larger columns are bisected from
+# device memory ('direct').
+COLUMN_BYTES = 32 * 1024
 
 _THREADS = 256  # kThreads in the sources
 # 2048 resident threads per SM at 256 threads a block (the f64 engines); the
@@ -363,11 +373,13 @@ def rectilinear_route(dims, dtype, method, nch=None) -> str:
     STAGE_BYTES, 'staged_tables' where each does (one table at a time in a
     double buffer), else 'interleaved' where `_interleaves` (f64 from 4D
     only above L1_BYTES), else 'direct'; for a linear or nearest stack
-    `_channel_route`'s, K5's rule; one linear or nearest table 'direct'. A
-    function of these arguments alone, and the only place the choice is
-    made."""
+    `_channel_route`'s, K5's rule; for one linear or nearest table
+    `_lerp_table_route`'s. A function of these arguments alone, and the
+    only place the choice is made."""
     if method != "cubic":
-        return "direct" if nch is None else _channel_route(dims, dtype, method, nch)
+        if nch is None:
+            return _lerp_table_route(dims, dtype, method)
+        return _channel_route(dims, dtype, method, nch)
     if nch is None:
         route = _cubic_route(dims, dtype)
         return "taps" if route == "tap_lanes" else route
@@ -393,6 +405,45 @@ def bspline_route(dims, dtype, k, nch=None) -> str:
     if nch is None:
         return "staged_groups" if math.prod(dims) * dtype.itemsize <= GROUP_BYTES else "direct"
     return _stack_route(dims, dtype, nch, True)
+
+
+def _lerp_table_route(dims, dtype, method) -> str:
+    """The route of one linear or nearest rectilinear table (K2, K3). Each
+    block copies the grid columns into shared memory with their bucket
+    starts and locates a query by its bucket and a bisection of that bucket
+    alone (`csrc/rectilinear.cuh::guided_count`), in place of a bisection of
+    each column from device memory, about log2(dim) dependent loads an axis.
+    An f32 linear table is staged beside them ('staged') where table and
+    guide fit STAGE_BYTES together, as K1 stages it: its 2^N corner reads
+    then hit shared memory too. Else the guide alone ('guided', the table
+    direct) where it fits COLUMN_BYTES, but for an f32 linear table above
+    L1_BYTES at 3D or more, whose 8 or more corner reads a query from L2 set
+    its pace: there the guide lost 4-29% (60^3, 100^3, 20^4) where it won
+    7-40% on every other linear table timed, f64 100^3 and 8^5 and f32
+    300^2 and 1000^2 among them, and 15-59% on every nearest one (H100,
+    PERF.md). Else 'direct', bisecting each column from device memory."""
+    f32_linear = method == "linear" and dtype == torch.float32
+    if f32_linear and guide_fits("staged", dims, dtype):
+        return "staged"
+    big = f32_linear and len(dims) >= 3 and math.prod(dims) * dtype.itemsize > L1_BYTES
+    return "guided" if guide_fits("guided", dims, dtype) and not big else "direct"
+
+
+def guide_bytes(dims, dtype) -> int:
+    """Bytes of the guided locate's shared memory (csrc/rectilinear.cuh):
+    each axis's column and its 2 dim + 1 bucket starts (int32)."""
+    return sum(d * dtype.itemsize + (2 * d + 1) * 4 for d in dims)
+
+
+def guide_fits(route, dims, dtype) -> bool:
+    """Whether one linear or nearest table of `dims` fits the reservation of
+    `route` ('guided': the guide within COLUMN_BYTES; 'staged': the table,
+    on a 16-byte boundary after its offset from one, and the guide within
+    STAGE_BYTES), as the C side sums it and refuses more."""
+    guide = guide_bytes(dims, dtype)
+    if route == "staged":
+        return (math.prod(dims) * dtype.itemsize + 31) // 16 * 16 + guide <= STAGE_BYTES + 16
+    return guide <= COLUMN_BYTES
 
 
 def _interleaves(dims, dtype, nch) -> bool:

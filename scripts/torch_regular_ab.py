@@ -63,7 +63,9 @@ blocks an SM of each route timed.
 `--paths REGEX` keeps the cases whose label it finds, and the build only
 their sources; `--unchecked` compares no rectilinear or B-spline result of
 the earlier checkout (a copy whose kernel skips part of the work, timed to
-see what the rest costs). One line per
+see what the rest costs); `--registers` times nothing: it builds the six
+grid sources in both checkouts and compares, kernel by kernel, the
+registers, stack frame and spill stores that ptxas reports. One line per
 case, then the card's name and power limit and one JSON object of every
 time; exits non-zero without a CUDA device.
 
@@ -189,8 +191,18 @@ RECT_CASES = [
     ("cubic", 30, 3, "f64", 4, ("interleaved", "direct")),
     ("cubic", 9, 5, "f64", 4, ("interleaved", "direct")),
     ("cubic", 6, 6, "f64", 4, ("interleaved", "direct")),
-    ("linear", 20, 3, "f32", None, ()),
-    ("nearest", 20, 3, "f32", None, ()),
+    # one linear or nearest table (K2 linear, K3): the route picked against
+    # every other, on the jittered axes, a long axis (1000^2), a table above
+    # STAGE_BYTES (100^3) and geometric axes (ratio 1.3 a cell)
+    ("linear", 20, 3, "f32", None, ("guided", "direct")),
+    ("linear", 20, 3, "f64", None, ("staged", "guided", "direct")),
+    ("nearest", 20, 3, "f32", None, ("guided", "direct")),
+    ("nearest", 20, 3, "f64", None, ("guided", "direct")),
+    ("linear", 100, 3, "f32", None, ("guided", "direct")),
+    ("linear", 1000, 2, "f32", None, ("guided", "direct")),
+    ("nearest", 1000, 2, "f32", None, ("guided", "direct")),
+    ("linear", 20, 3, "f32", None, ("staged", "guided", "direct"), "geometric"),
+    ("nearest", 20, 3, "f32", None, ("guided", "direct"), "geometric"),
     # linear and nearest stacks: K5's routes against direct
     ("linear", 20, 3, "f32", 8, ("direct",)),
     ("nearest", 20, 3, "f32", 8, ("direct",)),
@@ -226,13 +238,26 @@ COMPARE_EARLIER = True
 
 
 def label(case, family="regular") -> str:
-    method, n, nd, dt, nch, _ = case
+    method, n, nd, dt, nch = case[:5]
     stack = f"stack of {nch} " if nch else ""
     if family == "regular":
         k = 5 if nch else 1
     else:
         k = 6 if nch else (3 if method == "nearest" else 2)
-    return f"K{k} {method} {stack}{n}^{nd} {dt}"
+    axes = f" {case[6]}" if len(case) > 6 else ""
+    return f"K{k} {method} {stack}{n}^{nd} {dt}{axes}"
+
+
+def rect_axes(case):
+    """A RECT_CASES case's axes: `chip_smoke.py`'s jittered ones on [0, 10],
+    or (a 7th entry "geometric") its geometric ones (`rect_axes`) over the
+    same span."""
+    import chip_smoke as cs
+
+    n, nd = case[1], case[2]
+    if len(case) > 6 and case[6] == "geometric":
+        return [cs.rect_axes("geometric", n, None)] * nd
+    return cs.bench_rect_axes(n, nd)
 
 
 def bspline_label(case) -> str:
@@ -352,10 +377,15 @@ def layout_fns(case, route, earlier, vals) -> dict:
 
 def earlier_rect_info(earlier, case) -> dict:
     """Registers (and, where the earlier checkout reports them, local bytes
-    and blocks an SM) of the earlier rectilinear instantiation for the case."""
-    method, n, nd, dt, nch, _ = case
+    and blocks an SM) of the earlier rectilinear instantiation for the case:
+    the earlier checkout's own route for it where it has that function
+    (a copy with a variant), else direct."""
+    method, n, nd, dt, nch = case[:5]
+    route = "direct"
+    if hasattr(earlier, "guide_bytes"):
+        route = earlier.rectilinear_route((n,) * nd, DTYPES[dt], method, nch)
     try:
-        return earlier.regular_info(method, DTYPES[dt], nd, "direct", bool(nch), "rectilinear")
+        return earlier.regular_info(method, DTYPES[dt], nd, route, bool(nch), "rectilinear")
     except TypeError:  # a checkout before the rectilinear routes: its ptxas log
         build = importlib.import_module("earlier_port._build")
         log = build.library_path(source_of("rectilinear", case)).with_suffix(".log").read_text()
@@ -370,10 +400,10 @@ def rect_times(case, earlier, cuda) -> dict:
     """Parts 1 and 2 of a RECT_CASES case (see the module's docstring)."""
     import chip_smoke as cs
 
-    method, n, nd, dt, nch, others = case
+    method, n, nd, dt, nch, others = case[:6]
     dtype = DTYPES[dt]
     rng = np.random.default_rng(n * 10 + nd)
-    axes = tuple(torch.as_tensor(a, dtype=dtype, device=cuda) for a in cs.bench_rect_axes(n, nd))
+    axes = tuple(torch.as_tensor(a, dtype=dtype, device=cuda) for a in rect_axes(case))
     vals = torch.as_tensor(rng.standard_normal((nch, n**nd) if nch else n**nd), dtype=dtype,
                            device=cuda)
     dims = (n,) * nd
@@ -704,6 +734,30 @@ def print_engine(entry, smi) -> None:
           f"stack bytes: {info}", flush=True)
 
 
+def ptxas_table(build, source) -> dict:
+    """Kernel symbol -> (registers, stack frame bytes, spill store bytes)
+    from the ptxas log of a checkout's build (`build`, its `_build`) of
+    `source`."""
+    log = build.library_path(source).with_suffix(".log").read_text()
+    found = re.findall(r"Compiling entry function '(\S+)' for \S+\n[^\n]*\n\s+(\d+) bytes stack "
+                       r"frame, (\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers", log)
+    return {name: (int(regs), int(stack), int(spill)) for name, stack, spill, regs in found}
+
+
+def compare_registers(earlier_build, smi) -> None:
+    """--registers: every kernel that both checkouts build, its ptxas
+    numbers side by side; the ones that differ printed."""
+    for source in SOURCES:
+        this, other = ptxas_table(_build, source), ptxas_table(earlier_build, source)
+        both = sorted(this.keys() & other.keys())
+        differ = [f"{name} {other[name]} -> {this[name]}" for name in both
+                  if this[name] != other[name]]
+        print(f"{source} [{smi}]: {len(both)} kernels in both checkouts, {len(differ)} with "
+              f"other registers / stack frame / spill stores; {len(this.keys() - other.keys())} "
+              f"only in this one, {len(other.keys() - this.keys())} only in the earlier one"
+              + "".join(f"\n  {d}" for d in differ), flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, required=True,
@@ -715,6 +769,9 @@ def main() -> None:
     parser.add_argument("--unchecked", action="store_true",
                         help="time the earlier checkout's rectilinear kernels without holding "
                         "their results against this one's (a copy whose kernel skips work)")
+    parser.add_argument("--registers", action="store_true",
+                        help="compare the ptxas numbers of every kernel both checkouts build "
+                        "and time nothing")
     args = parser.parse_args()
     global COMPARE_EARLIER
     COMPARE_EARLIER = not args.unchecked
@@ -731,9 +788,14 @@ def main() -> None:
               for c in BSPLINE_CASES]
     cases = [c for c in cases if args.paths is None or re.search(args.paths, c[2])]
     sources = ENGINE_SOURCES if args.engines else sorted({c[3] for c in cases})
+    if args.registers:
+        sources = SOURCES
     with ThreadPoolExecutor(2) as pool:
         for built in [pool.submit(b.build_all, sources) for b in (_build, earlier._build)]:
             built.result()
+    if args.registers:
+        compare_registers(earlier._build, smi)
+        return
     if args.engines:
         record = []
         for p in engine_paths(args.paths):

@@ -288,23 +288,84 @@ RECT_CASES = [
     (dims, method, lin)
     for method, lin in (("linear", True), ("cubic", True), ("cubic", False), ("nearest", True))
     for dims in (DIMS[:6] if method == "nearest" else DIMS)
-]
+] + [  # one linear or nearest table at and one row over each cap of its route
+    (f"caps-{nd}d", method, True) for method in ("linear", "nearest") for nd in (1, 2, 3, 8)
+] + [((2, 20, 2), m, True) for m in ("linear", "nearest")] + [
+    ((1000, 1000), m, True) for m in ("linear", "nearest")]
 
 
-@pytest.mark.parametrize("dims,method,lin", RECT_CASES,
-                         ids=[f"{m}-{lin}-{len(d)}d" for d, m, lin in RECT_CASES])
+def _lerp_cap_dims(ndims, dtype):
+    """Tables (d0, 4, ..., 4) at and one row over each cap of one linear or
+    nearest table's route: table and guide within STAGE_BYTES (staged), the
+    table within L1_BYTES (guided f32 linear from 3D), the guide within
+    COLUMN_BYTES (guided)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    rest = (4,) * (ndims - 1)
+    out = set()
+    for fits in (lambda dims: fused.guide_fits("staged", dims, dtype),
+                 lambda dims: math.prod(dims) * item <= fused.L1_BYTES,
+                 lambda dims: fused.guide_fits("guided", dims, dtype)):
+        d0 = 2
+        while fits((d0, *rest)):
+            d0 += 1
+        out |= {(d, *rest) for d in (d0 - 1, d0) if d >= 2}
+    return sorted(out)
+
+
+def _adversarial(grids, n, seed):
+    """n queries an axis from every knot, one ulp either side of it, every
+    midpoint, NaN, +-inf, +-0 and points far outside the grid."""
+    rng = np.random.default_rng(seed)
+    obs = []
+    for g in grids:
+        a = g.cpu().numpy()
+        npd = a.dtype.type
+        big = np.finfo(npd).max
+        pool = np.concatenate([
+            a, np.nextafter(a, npd(np.inf)), np.nextafter(a, npd(-np.inf)),
+            (a[:-1] + (a[1:] - a[:-1]) * npd(0.5)).astype(npd),
+            np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30, big, -big], dtype=npd)])
+        obs.append(torch.as_tensor(rng.choice(pool, n), device=g.device))
+    return tuple(obs)
+
+
+def _rect_id(dims, method, lin):
+    """caps-<n>d, <n>d for DIMS, the shape of any other table."""
+    shape = dims if isinstance(dims, str) or dims in DIMS else "x".join(map(str, dims))
+    return f"{method}-{lin}-{shape if isinstance(shape, str) else f'{len(dims)}d'}"
+
+
+@pytest.mark.parametrize("dims,method,lin", RECT_CASES, ids=[_rect_id(*c) for c in RECT_CASES])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 def test_rectilinear_kernel_equals_plain(cuda, dims, dtype, method, lin):
-    grids, vals, obs = _rect_case(dims, dtype, cuda, n=_n(dims, 20_000), seed=len(dims))
-    got = _launched(f"rectilinear_{method}",
-                    lambda: fused.eval_rectilinear(grids, vals, obs, method, lin))
-    if method == "cubic":  # the weights and their contraction
-        want = fused.plain_rectilinear(grids, vals, obs, method, lin)
-    elif method == "linear":
-        want = linear.linear_rectilinear(grids, vals, obs)
-    else:
-        want = nearest.nearest_rectilinear(grids, vals, obs)
-    _equal(got, want)
+    """Every kernel through the wrapper (one launch) bitwise equal to the
+    plain version; a linear or nearest table (K2 linear, K3) also on every
+    route that takes it (direct, guided, and staged for linear, within their
+    caps; over a cap the launch raises), on random and on adversarial
+    queries."""
+    tables = _lerp_cap_dims(int(dims[5:-1]), dtype) if isinstance(dims, str) else [dims]
+    for dims in tables:
+        grids, vals, obs = _rect_case(dims, dtype, cuda, n=_n(dims, 20_000), seed=len(dims))
+        for ob in (obs, _adversarial(grids, 20_000, len(dims))):
+            got = _launched(f"rectilinear_{method}",
+                            lambda: fused.eval_rectilinear(grids, vals, ob, method, lin))
+            if method == "cubic":  # the weights and their contraction
+                want = fused.plain_rectilinear(grids, vals, ob, method, lin)
+                _equal(got, want)
+                break
+            fn = linear.linear_rectilinear if method == "linear" else nearest.nearest_rectilinear
+            want = fn(grids, vals, ob)
+            _equal(got, want)
+            cols = (fused._VOIDP * len(dims))(*(g.data_ptr() for g in grids))
+            for route in ("direct", "guided", *(("staged",) if method == "linear" else ())):
+                def on():
+                    return fused._relaid_launch("rectilinear", route, fused.RECT_LAYOUTS, dims,
+                                                vals, ob, method, True, ob[0].shape[0], False,
+                                                cols)
+                if route == "direct" or fused.guide_fits(route, dims, dtype):
+                    _equal(on(), want)
+                else:
+                    _over_cap_raises(on)
 
 
 def _nodes(n=20):
@@ -341,6 +402,11 @@ def test_rectilinear_grid_nodes_exact(cuda, dtype):
     for method, lin in (("cubic", True), ("cubic", False), ("nearest", True)):
         got = fused.eval_rectilinear(grids, vals_t, obs, method, lin)
         assert torch.equal(got, vals_t), method
+    cols = (fused._VOIDP * 3)(*(g.data_ptr() for g in grids))
+    for route in ("direct", "guided"):  # nearest on each of its routes
+        got = fused._relaid_launch("rectilinear", route, fused.RECT_LAYOUTS, (20,) * 3, vals_t,
+                                   obs, "nearest", True, obs[0].shape[0], False, cols)
+        assert torch.equal(got, vals_t), route
 
 
 def _rect_grid(dims, dtype, device, seed):

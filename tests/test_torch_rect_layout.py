@@ -364,21 +364,35 @@ def test_rectilinear_route_at_each_cap(ndims, dtype):
     (`_cubic_route`), but one lane a query on the cubic pack; a cubic stack
     is staged while it fits STAGE_BYTES, staged a table at a time while a
     table does, else interleaved from RUN_BYTES of channels (f64 from 4D
-    only above L1_BYTES), else direct; one linear or nearest table reads
-    direct, a stack of them as `_linear_stack_route` says."""
+    only above L1_BYTES), else direct; one linear or nearest table as
+    `_lerp_table_route` says (staged, guided, direct), at and one row over
+    each of its caps too, a stack of them as `_linear_stack_route` says."""
     item = torch.empty((), dtype=dtype).element_size()
     rest = 4 ** (ndims - 1)
+    lerp_caps = [d for cap in _lerp_table_caps(ndims, dtype) for d in (cap - 1, cap)]
     for d0 in (4, fused.STAGE_BYTES // (rest * item), fused.STAGE_BYTES // (rest * item) + 1,
                fused.TAP_BYTES // (4 * rest * item) + 3,
-               fused.TAP_BYTES // (4 * rest * item) + 4):
+               fused.TAP_BYTES // (4 * rest * item) + 4, *lerp_caps):
         dims = (max(d0, 4), *(4,) * (ndims - 1))
         one = fused._cubic_route(dims, dtype)
         assert fused.rectilinear_route(dims, dtype, "cubic") == (
             "taps" if one == "tap_lanes" else one)
         for method in ("linear", "nearest"):
-            assert fused.rectilinear_route(dims, dtype, method) == "direct"
+            assert fused.rectilinear_route(dims, dtype, method) == _lerp_table_route(
+                dims, dtype, method), (dims, method)
             assert fused.rectilinear_route(dims, dtype, method, 8) == _linear_stack_route(
                 dims, dtype, method, 8)
+    caps = _lerp_table_caps(ndims, dtype)
+    for method in ("linear", "nearest"):  # a cap's route one row below it, the next at it
+        for cap, kind in zip(caps, ("staged", "guided")[-len(caps):]):
+            if cap <= 4:  # not even a 4-row table fits
+                continue
+            below, over = (fused.rectilinear_route((d0, *(4,) * (ndims - 1)), dtype, method)
+                           for d0 in (cap - 1, cap))
+            if kind == "staged" and method == "linear":
+                assert below == "staged" and over != "staged", (cap, below, over)
+            if kind == "guided" and below == "guided":
+                assert over == "direct", (cap, below, over)
         size = math.prod(dims) * item
         run = fused.RUN_BYTES // item
         for nch in (1, run - 1, run, 2 * run):
@@ -390,6 +404,45 @@ def test_rectilinear_route_at_each_cap(ndims, dtype):
                 wide = nch >= run and (dtype == F32 or ndims <= 3 or size > fused.L1_BYTES)
                 want = "interleaved" if wide else "direct"
             assert fused.rectilinear_route(dims, dtype, "cubic", nch) == want, (dims, nch)
+
+
+def _guide_bytes(dims, item):
+    """The guided locate's shared memory (csrc/rectilinear.cuh): each
+    column and its 2 dim + 1 int32 bucket starts."""
+    return sum(d * item + (2 * d + 1) * 4 for d in dims)
+
+
+def _lerp_table_route(dims, dtype, method):
+    """One linear or nearest table: staged (f32 linear) where the table, on
+    a 16-byte boundary after its offset, and the guide fit STAGE_BYTES; else
+    guided where the guide fits COLUMN_BYTES, but direct for an f32 linear
+    table above L1_BYTES from 3D; else direct."""
+    item = torch.empty((), dtype=dtype).element_size()
+    guide = _guide_bytes(dims, item)
+    table = math.prod(dims) * item
+    f32_linear = method == "linear" and dtype == F32
+    if f32_linear and (table + 31) // 16 * 16 + guide <= fused.STAGE_BYTES + 16:
+        return "staged"
+    if f32_linear and len(dims) >= 3 and table > fused.L1_BYTES:
+        return "direct"
+    return "guided" if guide <= fused.COLUMN_BYTES else "direct"
+
+
+def _lerp_table_caps(ndims, dtype):
+    """The first d0 of (d0, 4, ..., 4) over each cap of `_lerp_table_route`:
+    the f32 staged route's, then the guided route's."""
+    item = torch.empty((), dtype=dtype).element_size()
+    rest = (4,) * (ndims - 1)
+
+    def over(fits):
+        d0 = 4
+        while fits((d0, *rest)):
+            d0 += 1
+        return d0
+
+    table = [] if dtype == F64 else [over(
+        lambda dims: _lerp_table_route(dims, dtype, "linear") == "staged")]
+    return table + [over(lambda dims: _guide_bytes(dims, item) <= fused.COLUMN_BYTES)]
 
 
 def _linear_stack_route(dims, dtype, method, nch):
@@ -412,7 +465,7 @@ def test_rectilinear_linear_stack_routes_at_each_cap(ndims, dtype, method):
     """A linear or nearest stack (K6) takes K5's route, `regular_route`'s:
     interleaved from RUN_BYTES of channels (one table fewer does not), an
     f32 linear stack of at most STAGE_BYTES staged (one row more not), else
-    direct; one table direct whatever its size."""
+    direct; one table as `_lerp_table_route` says."""
     item = torch.empty((), dtype=dtype).element_size()
     run = fused.RUN_BYTES // item
     rest = 2 ** (ndims - 1)
@@ -423,7 +476,8 @@ def test_rectilinear_linear_stack_routes_at_each_cap(ndims, dtype, method):
             want = _linear_stack_route(dims, dtype, method, nch)
             got = fused.rectilinear_route(dims, dtype, method, nch)
             assert got == want == fused.regular_route(dims, dtype, method, nch), (dims, nch)
-            assert fused.rectilinear_route(dims, dtype, method) == "direct"
+            assert fused.rectilinear_route(dims, dtype, method) == _lerp_table_route(
+                dims, dtype, method)
     assert fused.rectilinear_route((2,) * ndims, dtype, method, run) == "interleaved"
     assert fused.rectilinear_route((2,) * ndims, dtype, method, run - 1) == (
         "staged" if method == "linear" and dtype == F32 else "direct")
@@ -431,7 +485,8 @@ def test_rectilinear_linear_stack_routes_at_each_cap(ndims, dtype, method):
 
 def test_rectilinear_route_of_the_bench_tables():
     """The rectilinear paths of `chip_smoke.py`: cubic, and linear and
-    nearest stacks of 8 (interleaved) and their tables (direct)."""
+    nearest stacks of 8 (interleaved) and their tables (linear staged,
+    nearest guided; linear 100^3 direct, 1000^2 guided)."""
     want = {((20,) * 3, F32, None): "staged", ((20,) * 3, F64, None): "staged",
             ((100,) * 3, F32, None): "taps", ((20,) * 3, F32, 8): "staged_tables",
             ((20,) * 3, F32, 3): "staged", ((20,) * 3, F64, 4): "staged_tables",
@@ -442,10 +497,11 @@ def test_rectilinear_route_of_the_bench_tables():
             ((14,) * 4, F32, 8): "interleaved", ((12,) * 4, F32, None): "staged"}
     for (dims, dtype, nch), route in want.items():
         assert fused.rectilinear_route(dims, dtype, "cubic", nch) == route, (dims, dtype, nch)
-    lin = {((20,) * 3, F32, None): "direct", ((20,) * 3, F32, 8): "interleaved",
+    lin = {((20,) * 3, F32, None): "staged", ((20,) * 3, F32, 8): "interleaved",
            ((20,) * 3, F32, 3): "staged", ((20,) * 3, F64, 4): "interleaved",
-           ((40,) * 3, F32, 3): "direct"}
+           ((40,) * 3, F32, 3): "direct", ((20,) * 3, F64, None): "guided",
+           ((100,) * 3, F32, None): "direct", ((1000,) * 2, F32, None): "guided"}
     for (dims, dtype, nch), route in lin.items():
         assert fused.rectilinear_route(dims, dtype, "linear", nch) == route, (dims, dtype, nch)
-        nearest = "direct" if route == "staged" else route
+        nearest = "guided" if nch is None else ("direct" if route == "staged" else route)
         assert fused.rectilinear_route(dims, dtype, "nearest", nch) == nearest, (dims, nch)
