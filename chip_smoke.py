@@ -45,7 +45,13 @@ the gather tree at f32 1e-4, f64 1e-13), 5 timing: each kernel from CUDA
 events behind a head start (`utils/profiling.py::cuda_time`), each plain
 version from the profiler's device events (`profiled_time`), for K8/K9
 also the whole call through the op a user calls, and the four layout
-kernels. A failed
+kernels, 6 the slice without kernels of its own: pchip (a torch gather
+tree; regular 20^3 f64 and f32, rectilinear 20^3 f64 against scipy's
+pchip, a stack of 8 through interpn_stack), the five 1D interpolants, and
+the eight model classes at 20^3 f32 (the spline classes under each
+method), each class's eval_torch bitwise its ops call with its kernel K1,
+K2, K3 or K4 launched once a call, its table put on the card once, eval
+from numpy against raw or interpn(), each timed. A failed
 check raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
 card's name and power limit, the kernels' JSON record and {"ok": true,
@@ -2214,6 +2220,385 @@ def layout_phase(name, cuda, smi, driven) -> dict:
     }
 
 
+# --- phase 6: pchip, the 1D interpolants and the model classes ----------------------
+
+N_SCIPY = 10_000  # pchip queries held against scipy's
+N_SLICE_BATCHES = 5  # distinct batches a timing of phase 6
+N_HOST = 5  # calls a host-clock timing of a class entry
+N_GRAD = 10_000  # queries of the gradient check
+
+
+def slice_batches(gen, ndims, dtype, cuda):
+    return [tuple(torch.rand(N_MAIN, generator=gen, device=cuda, dtype=dtype) * (HI - LO) + LO
+                  for _ in range(ndims)) for _ in range(N_SLICE_BATCHES)]
+
+
+def gather_tree_timing(fn, batches) -> dict:
+    """A gather tree's time per call: CUDA events around the calls (behind
+    a head start where the host gets ahead of the device, else the host's
+    queueing included) and the profiler's device events, whose sum is the
+    time the device was busy; `launches` is the device events a call."""
+    from interpn_tpu_torch.utils.profiling import cuda_time, profiled_time
+
+    t = cuda_time(fn, batches)
+    prof = profiled_time(fn, batches[:3])
+    return {"ms": t.device_ms, "ahead": t.ahead, "loop_ms": t.loop_ms,
+            "busy_ms": prof.device_ms, "launches": prof.per_call}
+
+
+def timing_note(t, b_ms=None) -> str:
+    busy = (f"device busy {t['busy_ms']:.4f} ms/call by the profiler "
+            f"({t['busy_ms'] / t['ms']:.1%} of the events' time)"
+            if t["busy_ms"] is not None else "device busy time: not recorded")
+    bound_s = f"; byte bound {b_ms:.4f} ms ({b_ms / t['ms']:.2%} of it)" if b_ms else ""
+    return (f"{t['ms']:.4f} ms/call by CUDA events "
+            f"({'behind a head start' if t['ahead'] else 'host queueing included'}), "
+            f"{t['loop_ms']:.4f} ms/call back to back, {busy}, {t['launches']} device "
+            f"launches a call{bound_s}")
+
+
+def pchip_phase(cuda, smi, gen) -> list[dict]:
+    """pchip on the card (a torch gather tree, no hand kernel): regular
+    20^3 f64 and f32 and rectilinear 20^3 f64 at 1e6 queries in [-0.5,
+    10.5], f64 against scipy's RegularGridInterpolator(method="pchip") on
+    N_SCIPY of them, f32 against the f64 result, each against the CPU tree;
+    interpn_stack pchip of 8 tables at 20^3 f32 from numpy, each row bitwise
+    the single-table call. Each timed; no kernel of ops.fused launches."""
+    import scipy.interpolate as si
+
+    import interpn_tpu_torch
+    from interpn_tpu_torch import convert
+    from interpn_tpu_torch.ops import fused, pchip
+
+    rows = []
+    x, vals = bench_grid(20, 3)
+    dims = (20,) * 3
+    rng = np.random.default_rng(6)
+    obs_np = [rng.uniform(LO, HI, N_MAIN) for _ in range(3)]
+    f64_results = {}
+    for kind, dtype in (("regular", F64), ("regular", F32), ("rectilinear", F64)):
+        npd = np.float32 if dtype == F32 else np.float64
+        axes = [x] * 3 if kind == "regular" else bench_rect_axes(20, 3)
+        axes = [a.astype(npd) for a in axes]
+        table = vals.ravel().astype(npd)
+        if kind == "regular":
+            grid = convert.obs_from_numpy((np.zeros(3, npd), np.full(3, axes[0][1] - axes[0][0])),
+                                          device=cuda, dtype=dtype)
+            args = (dims, *grid)
+            fn_name = "pchip_regular"
+        else:
+            args = (convert.obs_from_numpy(axes, device=cuda, dtype=dtype),)
+            fn_name = "pchip_rectilinear"
+        v = torch.from_numpy(table).to(cuda)
+
+        def fn(ob, args=args, v=v, fn_name=fn_name):
+            return getattr(pchip, fn_name)(*args, v, ob)
+
+        obs_t = convert.obs_from_numpy(obs_np, device=cuda, dtype=dtype)
+        fused.reset_launches()
+        got = fn(obs_t)
+        torch.cuda.synchronize()
+        kernels = {k: n for k, n in fused.launches.items() if n}
+        if kernels or got.shape != (N_MAIN,) or got.dtype != dtype or not got.isfinite().all():
+            raise AssertionError(f"pchip {kind} {SHORT[dtype]}: {got.shape} {got.dtype}, "
+                                 f"finite={bool(got.isfinite().all())}, kernels {kernels}")
+        label = f"pchip {kind} 20^3 {SHORT[dtype]}"
+        # the CPU tree on the same inputs
+        cpu_args = ((dims, *(t.cpu() for t in args[1:])) if kind == "regular"
+                    else (tuple(t.cpu() for t in args[0]),))
+        sub = tuple(torch.from_numpy(o[:N_REF].astype(npd)) for o in obs_np)
+        cpu = getattr(pchip, fn_name)(*cpu_args, v.cpu(), sub)
+        tol = TOL[dtype]
+        torch.testing.assert_close(got[:N_REF].cpu(), cpu, rtol=tol, atol=tol)
+        differ = not_bitwise(got[:N_REF].cpu(), cpu)
+        ref = si.RegularGridInterpolator(tuple(a.astype(np.float64) for a in axes),
+                                         table.astype(np.float64).reshape(dims), method="pchip",
+                                         bounds_error=False, fill_value=None)(
+            np.stack([o[:N_SCIPY].astype(npd).astype(np.float64) for o in obs_np], -1))
+        g = got[:N_SCIPY].double().cpu().numpy()
+        rel = float(np.max(np.abs(g - ref) / np.maximum(1.0, np.abs(ref))))
+        bar = 1e-12 if dtype == F64 else REF_TOL[F32]["rtol"]
+        if not rel < bar:
+            raise AssertionError(f"{label}: max relative error {rel:.3g} against scipy's pchip")
+        if dtype == F64:
+            f64_results[kind] = got
+        else:
+            rel32 = float(((got.double() - f64_results[kind]).abs()
+                           / f64_results[kind].abs().clamp(min=1.0)).max())
+            if not rel32 < bar:
+                raise AssertionError(f"{label}: {rel32:.3g} from the f64 result")
+        t = gather_tree_timing(fn, slice_batches(gen, 3, dtype, cuda))
+        item = 8 if dtype == F64 else 4
+        grid_params = 6 if kind == "regular" else 60
+        b_ms = (N_MAIN * 4 + 20**3 + grid_params) * item / PEAK_BYTES * 1e3
+        log(f"phase 6 {label} x {N_MAIN} queries through ops.{fn_name} from CUDA tensors: "
+            f"finite, no ops.fused kernel launched; within rtol=atol={tol:g} of the CPU tree on "
+            f"{N_REF} queries ({differ} not bitwise); max relative error {rel:.3g} against "
+            f"scipy's RegularGridInterpolator(method='pchip') on {N_SCIPY} (bar {bar:g}) "
+            f"[{smi}]: {timing_note(t, b_ms)}")
+        rows.append({"path": label, "entry": f"ops.{fn_name}", **t, "bound_ms": b_ms,
+                     "scipy_rel": rel})
+    del f64_results
+
+    # interpn_stack of 8 tables from numpy, and the stack function it calls
+    npd = np.float32
+    stack = np.stack([vals.ravel() + c for c in range(NCH)]).astype(npd)
+    obs32 = [o.astype(npd) for o in obs_np]
+    via_entry = interpn_tpu_torch.interpn_stack(obs32, [x.astype(npd)] * 3,
+                                                stack.reshape(NCH, *dims), method="pchip",
+                                                assume_regular=True)
+    st, sp = convert.obs_from_numpy((np.zeros(3, npd), np.full(3, npd(x[1]) - npd(x[0]))),
+                                    device=cuda, dtype=F32)
+    v8 = torch.from_numpy(stack).to(cuda)
+    obs_t = convert.obs_from_numpy(obs32, device=cuda, dtype=F32)
+    for c in range(NCH):
+        one = pchip.pchip_regular(dims, st, sp, v8[c], obs_t).cpu().numpy()
+        np.testing.assert_array_equal(via_entry[c], one, err_msg=f"pchip stack row {c}")
+
+    def fn8(ob):
+        return pchip.pchip_regular_stack(dims, st, sp, v8, ob)
+
+    t = gather_tree_timing(fn8, slice_batches(gen, 3, F32, cuda))
+    b_ms = (N_MAIN * (3 + NCH) + NCH * 20**3 + 6) * 4 / PEAK_BYTES * 1e3
+    label = f"pchip stack of {NCH} regular 20^3 f32"
+    log(f"phase 6 {label} x {N_MAIN} queries: interpn_stack() from numpy, each row bitwise "
+        f"equal to ops.pchip_regular on its table; pchip.pchip_regular_stack from CUDA tensors "
+        f"[{smi}]: {timing_note(t, b_ms)}")
+    rows.append({"path": label, "entry": "pchip.pchip_regular_stack", **t, "bound_ms": b_ms})
+    return rows
+
+
+def one_dim_reference(name, grid, vals, x, start=None, step=None):
+    """The 1D interpolant `name` in float64 numpy: (values, mask of the
+    queries it speaks for; Nearest1D leaves out near ties, where float32
+    distances may order the two nodes the other way)."""
+    n = len(vals)
+    if start is not None:
+        i = np.clip(np.floor((x - start) / step), 0, n - 2).astype(np.int64)
+        x0 = start + step * i
+        x1 = x0 + step
+    else:
+        i = np.clip(np.searchsorted(grid, x, side="left") - 1, 0, n - 2)
+        x0, x1 = grid[i], grid[i + 1]
+    y0, y1 = vals[i], vals[i + 1]
+    lo, hi = x < (grid[0] if start is None else start), x > (grid[-1] if start is None else
+                                                             start + step * (n - 1))
+    lin = y0 + (y1 - y0) / (x1 - x0) * (x - x0)
+    ok = np.ones(x.shape, bool)
+    if name == "Linear1D":
+        return lin, ok
+    if name == "LinearHoldLast1D":
+        return np.where(lo, y0, np.where(hi, y1, lin)), ok
+    if name == "Left1D":
+        return np.where(hi, y1, y0), ok
+    if name == "Right1D":
+        return np.where(lo, y0, y1), ok
+    d0, d1 = np.abs(x - x0), np.abs(x - x1)
+    ok = np.abs(d1 - d0) > 4 * np.spacing(np.float32(np.abs(x).max()))
+    return np.where(d1 >= d0, y0, y1), ok
+
+
+def one_dim_phase(cuda, smi, gen) -> list[dict]:
+    """The 1D interpolants on the card: Linear1D on bench.py's regular
+    1000-point f32 grid (vals = sin(x)) and the other four on a jittered
+    1000-point grid, at 1e6 queries in [-0.5, 10.5], each against a float64
+    numpy version of its rule, and timed."""
+    from interpn_tpu_torch.ops import one_dim
+
+    rows = []
+    x = np.linspace(0.0, 10.0, 1000)
+    vals = np.sin(x).astype(np.float32)
+    start, step = np.float32(0.0), np.float32(x[1] - x[0])
+    rect_x = bench_rect_axes(1000, 1)[0].astype(np.float32)
+    v = torch.from_numpy(vals).to(cuda)
+    reg = one_dim.RegularGrid1D(start, step, v)
+    rect = one_dim.RectilinearGrid1D(torch.from_numpy(rect_x).to(cuda), v)
+    batches = slice_batches(gen, 1, F32, cuda)
+    for name in ("Linear1D", "LinearHoldLast1D", "Left1D", "Right1D", "Nearest1D"):
+        regular = name == "Linear1D"
+        interp = getattr(one_dim, name)(reg if regular else rect)
+        locs = batches[0][0]
+        got = interp.eval(locs)
+        if got.shape != (N_MAIN,) or got.dtype != F32 or got.device != locs.device:
+            raise AssertionError(f"{name}: {got.shape} {got.dtype} {got.device}")
+        xs = locs.double().cpu().numpy()
+        grid64 = (np.float64(start) + np.float64(step) * np.arange(1000) if regular
+                  else rect_x.astype(np.float64))
+        ref, ok = one_dim_reference(name, grid64, vals.astype(np.float64), xs,
+                                    *((np.float64(start), np.float64(step)) if regular else ()))
+        g = got.double().cpu().numpy()
+        if name in ("Left1D", "Right1D", "Nearest1D"):
+            np.testing.assert_array_equal(g[ok], ref[ok], err_msg=name)
+            how = "equal to"
+        else:
+            np.testing.assert_allclose(g, ref, rtol=1e-5, atol=1e-5, err_msg=name)
+            how = "within rtol=atol=1e-5 of"
+        t = gather_tree_timing(lambda ob, interp=interp: interp.eval(ob[0]), batches)
+        b_ms = (2 * N_MAIN + 1000 * (1 if regular else 2)) * 4 / PEAK_BYTES * 1e3
+        kind = "regular" if regular else "rectilinear"
+        label = f"{name} {kind} 1000 f32"
+        log(f"phase 6 {label} x {N_MAIN} queries from CUDA tensors: {how} a float64 numpy "
+            f"version of its rule on the {int(ok.sum())} queries it speaks for [{smi}]: "
+            f"{timing_note(t, b_ms)}")
+        rows.append({"path": label, "entry": f"{name}.eval", **t, "bound_ms": b_ms})
+    return rows
+
+
+def host_ms(fn) -> float:
+    """Host-clock ms a call of fn(), synchronised, the mean of N_HOST calls
+    after one more."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_HOST):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / N_HOST
+
+
+def classes_phase(cuda, smi) -> list[dict]:
+    """The eight model classes (the spline classes under each method) at
+    20^3 f32 on the bench grid and table, 1e6 queries: warmup; eval_torch
+    from CUDA tensors twice, bitwise equal to the ops call on tensors made
+    apart from the class and to each other, its kernel (K1, K2, K3, K4)
+    launched once a call and the cached table not uploaded again; eval from
+    numpy equal to raw's (or interpn()'s) result; gradient_torch against
+    the CPU gather tree's gradient; each entry on the host clock."""
+    import pydantic
+
+    import interpn_tpu_torch as itt
+    from interpn_tpu_torch import convert, ops, raw
+    from interpn_tpu_torch.ops import fused
+
+    rows = []
+    x, vals = bench_grid(20, 3)
+    dims = [20] * 3
+    npd = np.float32
+    x32 = x.astype(npd)
+    table = vals.ravel().astype(npd)
+    starts, steps = np.zeros(3, npd), np.full(3, x32[1] - x32[0], npd)
+    axes = [a.astype(npd) for a in bench_rect_axes(20, 3)]
+    rng = np.random.default_rng(7)
+    obs_np = [rng.uniform(LO, HI, N_MAIN).astype(npd) for _ in range(3)]
+    obs_t = convert.obs_from_numpy(obs_np, device=cuda, dtype=F32)
+    reference = {"Multilinear": "linear", "Multicubic": "cubic", "Nearest": "nearest"}
+    cases = [(f"{family}{kind}", {}) for kind in ("Regular", "Rectilinear")
+             for family in reference]
+    cases += [(f"TensorSpline{kind}", {"method": m}) for kind in ("Regular", "Rectilinear")
+              for m in ("pchip", "cubic_spline", "quintic")]
+    for name, kw in cases:
+        regular = name.endswith("Regular")
+        args = (dims, starts, steps, table) if regular else (axes, table)
+        grid_axes = [x32] * 3 if regular else axes
+        method = kw.get("method") or reference[name.removesuffix("Regular")
+                                               .removesuffix("Rectilinear")]
+        kind = "regular" if regular else "rectilinear"
+        k = SPLINE.get(method)
+        counter = f"bspline_k{k}" if k else (None if method == "pchip" else f"{kind}_{method}")
+        model = getattr(itt, name).new(*args, **kw)
+        model.warmup(1024)
+        cached = model._dev.tensors(cuda)
+        ptrs = [t.data_ptr() for t in cached if isinstance(t, torch.Tensor)]
+        fused.reset_launches()
+        got = model.eval_torch(obs_t)
+        torch.cuda.synchronize()
+        launched = {c: n for c, n in fused.launches.items() if n}
+        again = model.eval_torch(obs_t)
+        bitwise(again, got, f"{name} {method}: second eval_torch")
+        if (counter and launched.get(counter) != 1) or (not counter and launched):
+            raise AssertionError(f"{name} {method}: launches {launched}, want {counter} once")
+        if model._dev.tensors(cuda) is not cached or ptrs != [
+                t.data_ptr() for t in cached if isinstance(t, torch.Tensor)]:
+            raise AssertionError(f"{name} {method}: the table was put on the card again")
+        # the ops call on tensors made apart from the class
+        if k:
+            # a regular model solves on axes rebuilt from starts and steps in float64
+            spline_axes = ([starts[i].astype(np.float64) + steps[i].astype(np.float64)
+                            * np.arange(20) for i in range(3)] if regular
+                           else [a.astype(np.float64) for a in axes])
+            knots, coeffs = ops.prep_bspline(spline_axes, table.astype(np.float64), k)
+            want = ops.bspline_eval(*convert.bspline_from_numpy(knots, coeffs, device=cuda,
+                                                                dtype=F32), obs_t, k)
+        elif regular:
+            g = convert.regular_grid_from_numpy(*args, device=cuda, dtype=F32)
+            lin = (True,) if method == "cubic" else ()
+            want = getattr(ops, f"{method}_regular")(*g, obs_t, *lin)
+        else:
+            g = convert.rectilinear_grid_from_numpy(*args, device=cuda, dtype=F32)
+            lin = (True,) if method == "cubic" else ()
+            want = getattr(ops, f"{method}_rectilinear")(*g, obs_t, *lin)
+        bitwise(got, want, f"{name} {method}: eval_torch vs the ops call")
+        if not got.isfinite().all():
+            raise AssertionError(f"{name} {method}: not finite")
+        got_np = got.cpu().numpy()
+        via_numpy = model.eval(obs_np)
+        np.testing.assert_array_equal(via_numpy, got_np, err_msg=f"{name} {method} eval")
+        out_np = np.zeros(N_MAIN, npd)
+        if method in reference.values():
+            fn = getattr(raw, f"interpn_{method}_{kind}_f32")
+            lin = (True,) if method == "cubic" else ()
+
+            def entry(fn=fn, lin=lin, args=args):
+                return fn(*args, *lin, obs_np, out_np)
+            what = f"raw.{fn.__name__}"
+        else:
+            def entry(method=method, grid_axes=grid_axes, regular=regular):
+                return itt.interpn(obs_np, grid_axes, table.reshape(dims), method=method,
+                                   assume_regular=regular, out=out_np)
+            what = "interpn()"
+        entry()
+        if k and regular:
+            # interpn() solves on the float32 axes themselves, the model on axes
+            # rebuilt in float64: equal within the f32 bar of the coefficients
+            bar = 1e-5 * max(1.0, float(np.abs(coeffs).max()))
+            np.testing.assert_allclose(out_np, got_np, rtol=bar, atol=bar,
+                                       err_msg=f"{name} {method} vs {what}")
+            how = f"within rtol=atol={bar:.3g} of"
+        else:
+            np.testing.assert_array_equal(out_np, got_np, err_msg=f"{name} {method} vs {what}")
+            how = "equal to"
+        ms = {"eval_torch_ms": host_ms(lambda m=model: m.eval_torch(obs_t)),
+              "eval_numpy_ms": host_ms(lambda m=model: m.eval(obs_np)),
+              "entry_ms": host_ms(entry)}
+        label = f"{name}{f' {method}' if k or method == 'pchip' else ''} 20^3 f32"
+        kernel = (f"launches {launched}" if counter else
+                  "no ops.fused kernel launched (pchip is a gather tree)")
+        log(f"phase 6 class {label} x {N_MAIN} queries: warmup(1024), eval_torch from CUDA "
+            f"tensors twice bitwise equal to the ops call and to each other, {kernel}, the "
+            "cached table not put on the card again; "
+            f"eval from numpy equal to eval_torch and {how} {what} from numpy [{smi}]: "
+            "eval_torch "
+            f"{ms['eval_torch_ms']:.4f} ms/call, eval (numpy in and out) "
+            f"{ms['eval_numpy_ms']:.4f} ms/call, {what} (numpy) {ms['entry_ms']:.4f} ms/call, "
+            "host clock")
+        rows.append({"path": f"class {label}", "entry": what, "kernel": counter,
+                     "launches": launched, **ms})
+
+    # gradient_torch through K1 against the CPU gather tree's gradient
+    model = itt.MultilinearRegular.new(dims, starts, steps, table)
+    sub = [o[:N_GRAD] for o in obs_np]
+    grads = model.gradient_torch([torch.from_numpy(o).to(cuda) for o in sub])
+    g = convert.regular_grid_from_numpy(dims, starts, steps, table, device="cpu", dtype=F32)
+    ob = tuple(torch.from_numpy(o).requires_grad_() for o in sub)
+    want = torch.autograd.grad(ops.linear_regular(*g, ob).sum(), ob)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    log(f"phase 6 class MultilinearRegular gradient_torch on {N_GRAD} CUDA queries: within "
+        f"rtol=atol=1e-5 of the CPU gather tree's gradient on every axis (pydantic "
+        f"{pydantic.VERSION} on this machine)")
+    return rows
+
+
+def slice_phase(cuda, smi) -> None:
+    """Phase 6: pchip, the 1D interpolants and the model classes; the
+    numbers of its timed paths in one log line for PERF.md."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(66)
+    t0 = time.perf_counter()
+    rows = pchip_phase(cuda, smi, gen) + one_dim_phase(cuda, smi, gen) + classes_phase(cuda, smi)
+    log(f"phase 6 record [{smi}] ({time.perf_counter() - t0:.1f} s): {json.dumps(rows)}")
+
+
 def kernels_record(driven, timed) -> list[dict]:
     """One entry per kernel, from its headline path (its first in PATHS),
     a grid kernel's also with `layouts`: for each of its paths, the layout
@@ -2290,6 +2675,7 @@ def main() -> None:
         with f64_engine(p.engine):
             timed[p] = timing_phase(p, cuda, gen, smi)
     layouts = [layout_phase(name, cuda, smi, driven) for name in LAYOUT_PATHS]
+    slice_phase(cuda, smi)
 
     # the last three lines, unprefixed: the card, the kernels, the result
     print(smi)

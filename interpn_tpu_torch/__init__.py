@@ -1,22 +1,27 @@
 """interpn_tpu_torch: the PyTorch / CUDA port of interpn-tpu.
 
 A second package beside `interpn_tpu` (the JAX reference). It imports torch,
-numpy and scipy (for the spline solve), never jax. Ported so far: linear,
-cubic and nearest evaluation on regular and rectilinear grids, the global
-cubic and quintic B-splines, and stacks of tables sharing one grid, f32 and
+numpy and scipy (for the spline solve), never jax. Ported: linear, cubic and
+nearest evaluation on regular and rectilinear grids, the global cubic and
+quintic B-splines, pchip, and stacks of tables sharing one grid, f32 and
 f64, 1-8D (nearest 1-6D at the flat API), through hand-written CUDA kernels
-for Hopper on CUDA tensors and the gather trees on CPU tensors.
+for Hopper on CUDA tensors and the gather trees on CPU tensors (pchip is a
+gather tree on every device).
 
 * `interpn(...)`: the one-shot convenience function
 * `interpn_stack(...)`: the same for a stack of tables on one grid
 * `interpn_tpu_torch.raw`: the reference's 16 flat functions
+* the eight persistent pydantic interpolator classes (where pydantic is
+  installed), with the JAX package's JSON bytes
 * `interpn_tpu_torch.ops`: the batched functions on tensors
+* `interpn_tpu_torch.ops.one_dim`: the 1D interpolants
 * `interpn_tpu_torch.config`: where numpy inputs compute (CUDA by default;
   `config.set_device("cpu")` asks for the CPU)
 """
 
 from __future__ import annotations
 
+from importlib.util import find_spec as _find_spec
 from typing import Sequence
 
 import numpy as np
@@ -26,16 +31,41 @@ from numpy.typing import NDArray
 from . import convert, ops, raw
 from .config import default_device
 from .ops import bspline as _bspline
+from .ops import pchip as _pchip
 from .ops.df64 import host_tensor
+
+# The persistent model classes need pydantic; the functional API works
+# without it, as in the JAX package.
+_PYDANTIC_FOUND = _find_spec("pydantic") is not None
+
+if _PYDANTIC_FOUND:
+    from .models import (
+        MulticubicRectilinear,
+        MulticubicRegular,
+        MultilinearRectilinear,
+        MultilinearRegular,
+        NearestRectilinear,
+        NearestRegular,
+        TensorSplineRectilinear,
+        TensorSplineRegular,
+    )
 
 __version__ = "0.4.0"
 
 __all__ = ["__version__", "raw", "interpn", "interpn_stack"]
 
-# What is not ported yet, by ROADMAP.md item.
-_NOT_PORTED = {
-    "pchip": "ROADMAP item 13",
-}
+if _PYDANTIC_FOUND:
+    __all__ += [
+        "MultilinearRegular",
+        "MultilinearRectilinear",
+        "MulticubicRegular",
+        "MulticubicRectilinear",
+        "NearestRegular",
+        "NearestRectilinear",
+        "TensorSplineRegular",
+        "TensorSplineRectilinear",
+    ]
+
 _SPLINE_DEGREE = {"cubic_spline": 3, "quintic": 5}
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
@@ -62,7 +92,8 @@ def interpn(
     ported on regular and rectilinear grids, and "cubic_spline" / "quintic"
     (global not-a-knot tensor-product splines of degree 3 / 5, >= 4 / 6
     points per axis, coefficients solved on the host in float64 and cached
-    by content); "pchip" raises NotImplementedError naming its ROADMAP item.
+    by content) and "pchip" (monotone cubic, scipy's semantics, >= 4 points
+    per axis).
     """
     user_out = out if out is not None else np.zeros_like(obs[0])
     outshape = user_out.shape
@@ -96,11 +127,34 @@ def interpn(
         if any(outb):
             raise ValueError("Observation points violate interpolator bounds")
 
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet ({_NOT_PORTED[method]})"
-        )
-    if method in _SPLINE_DEGREE:
+    if method == "pchip":
+        if is_regular:
+            arrays = [("starts", starts), ("steps", steps), ("vals", vals)]
+        else:
+            arrays = [(f"grids[{k}]", g) for k, g in enumerate(grids)] + [("vals", vals)]
+        raw._check_eval_dtypes(dtype, out, obs, arrays)
+        if is_regular:
+            dims_t = tuple(int(d) for d in dims)
+            raw._validate_regular(
+                dims_t, starts, steps, vals, obs, out,
+                min_size=4, size_msg="All grids must have at least four entries",
+            )
+        else:
+            raw._validate_rectilinear(
+                grids, vals, obs, out,
+                min_size=4, size_msg="All grids must have at least 4 entries",
+            )
+        device, tdtype = default_device(), _TORCH_DTYPE[dtype]
+        if is_regular:
+            grid = convert.regular_grid_from_numpy(dims_t, starts, steps, vals,
+                                                   device=device, dtype=tdtype)
+            fn = ops.pchip_regular
+        else:
+            grid = convert.rectilinear_grid_from_numpy(grids, vals, device=device, dtype=tdtype)
+            fn = ops.pchip_rectilinear
+        res = fn(*grid, convert.obs_from_numpy(obs, device=device, dtype=tdtype))
+        np.copyto(out, res.cpu().numpy())
+    elif method in _SPLINE_DEGREE:
         k = _SPLINE_DEGREE[method]
         arrays = [(f"grids[{i}]", g) for i, g in enumerate(grids)] + [("vals", vals)]
         raw._check_eval_dtypes(dtype, out, obs, arrays)
@@ -150,10 +204,10 @@ def interpn_stack(
     `config.default_device()`. `vals` carries the channel axis first, shape
     (nch, *grid_shape) or (nch, prod(dims)); the result is a new
     (nch, *obs_shape) array. On the card one kernel launch locates and
-    weighs each query once for all channels. Every method of `interpn`
-    except "pchip" (NotImplementedError naming its ROADMAP item); the
-    splines solve one coefficient stack on the host. Args other than `vals`
-    match `interpn` (no `out=`).
+    weighs each query once for all channels. Every method of `interpn`; the
+    splines solve one coefficient stack on the host, and pchip gathers each
+    query's stencil once for all channels. Args other than `vals` match
+    `interpn` (no `out=`).
     """
     obs_np = [np.ascontiguousarray(np.asarray(x)) for x in obs]
     outshape = obs_np[0].shape
@@ -195,14 +249,20 @@ def interpn_stack(
             bounds(grids, obs_np, bounds_atol, outb)
         if any(outb):
             raise ValueError("Observation points violate interpolator bounds")
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet ({_NOT_PORTED[method]})"
-        )
 
     device, tdtype = default_device(), _TORCH_DTYPE[dtype]
     obs_t = convert.obs_from_numpy(obs_np, device=device, dtype=tdtype)
-    if method in _SPLINE_DEGREE:
+    if method == "pchip":
+        if any(len(g) < 4 for g in grids):
+            raise AssertionError("All grids must have at least 4 entries")
+        vals_t = torch.as_tensor(vals2, device=device)
+        if is_regular:
+            st, sp = convert.obs_from_numpy((starts, steps), device=device, dtype=tdtype)
+            out = _pchip.pchip_regular_stack(dims, st, sp, vals_t, obs_t)
+        else:
+            grids_t = convert.obs_from_numpy(grids, device=device, dtype=tdtype)
+            out = _pchip.pchip_rectilinear_stack(grids_t, vals_t, obs_t)
+    elif method in _SPLINE_DEGREE:
         k = _SPLINE_DEGREE[method]
         if any(len(g) < k + 1 for g in grids):
             raise AssertionError(f"All grids must have at least {k + 1} entries")

@@ -1,0 +1,262 @@
+"""The device side of the persistent interpolator classes, without pydantic.
+
+`DeviceInterpolator` is built from plain numpy arrays (a regular grid's
+dims, starts and steps, or a rectilinear grid's axes, and the flat C-order
+table) and one method: "linear", "cubic" or "nearest" (the six reference
+classes), "pchip", "cubic_spline" or "quintic" (the two spline classes). It
+holds what `interpn_tpu/models/_base.py::InterpolatorBase` does at
+evaluation:
+
+* the grid and table on each device, put there once at the first
+  evaluation on that device (`tensors`); the B-spline coefficients are
+  solved on the host in float64 through the content-keyed prep cache and
+  cast to the model's dtype, as `interpn()` does;
+* `eval` / `eval_unchecked` with the reference's contract: a numpy array or
+  tensor `out` written in place, "Dimension mismatch" for mismatched sizes,
+  TypeError for arrays of another dtype (lists and scalars are accepted),
+  the grid-size floor checked at evaluation, and on regular grids the
+  reference's "Unrepresentable coordinate value" exactly where `raw` raises
+  it;
+* `eval_torch`, which takes tensors or arrays and returns a tensor on their
+  device with no host sync and never raises on NaN or inf coordinates;
+* `gradient_torch`, each query's partial derivatives by reverse mode: every
+  output depends on its own query alone, so the gradient of the sum is the
+  per-query derivative (the kernels' `KernelRoute` has no JVP rule);
+* `warmup(n)` and `check_bounds`.
+
+Each evaluation calls the port's `ops` function of the method with the
+cached tensors, so a class's result is bitwise that call's, and `raw`'s.
+Numpy inputs compute on `config.default_device()`, tensors where they live;
+the JAX package's native fast path for small numpy batches waits for the
+port's native module (ROADMAP module 10). The pydantic classes of
+`models/` hold one of these and add the fields, validation and JSON.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import convert, ops, raw
+from ..config import default_device
+from ..ops import bspline as _bspline
+
+SPLINE_DEGREE = {"cubic_spline": 3, "quintic": 5}
+METHODS = ("linear", "cubic", "nearest", "pchip", *SPLINE_DEGREE)
+_TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
+
+
+def _size(x) -> int:
+    """Element count of a tensor, array, list or scalar (a scalar counts 1)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel()
+    return int(x.size) if hasattr(x, "size") else int(np.size(x))
+
+
+class DeviceInterpolator:
+    """One interpolator's evaluation on the device; see the module
+    docstring. Give `dims`, `starts` and `steps` for a regular grid, or
+    `grids` for a rectilinear one."""
+
+    def __init__(self, method: str, vals, *, dims=None, starts=None, steps=None, grids=None,
+                 linearize_extrapolation: bool = True, min_grid: int = 2,
+                 min_grid_msg: str = "All grids must have at least two entries"):
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got {method!r}")
+        self.method = method
+        self.regular = dims is not None
+        self.vals = np.ascontiguousarray(np.asarray(vals).ravel())
+        self.dtype = self.vals.dtype
+        if self.regular:
+            self.dims = tuple(int(d) for d in dims)
+            self.starts = np.ascontiguousarray(np.asarray(starts).ravel())
+            self.steps = np.ascontiguousarray(np.asarray(steps).ravel())
+        else:
+            self.grids = [np.ascontiguousarray(np.asarray(g).ravel()) for g in grids]
+            self.dims = tuple(g.size for g in self.grids)
+        self.linearize = bool(linearize_extrapolation)
+        self.grid_ok = all(d >= min_grid for d in self.dims)
+        self.min_grid_msg = min_grid_msg
+        self._finite = None
+        self._tensors: dict[torch.device, tuple] = {}
+
+    def ndims(self) -> int:
+        return len(self.dims)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _TORCH_DTYPE[self.dtype]
+
+    # --- the cached tensors ----------------------------------------------------
+
+    def _spline_axes(self) -> list[np.ndarray]:
+        """The axes the collocation solves run on, in float64; a regular
+        grid's rebuilt from its starts and steps."""
+        if not self.regular:
+            return [g.astype(np.float64) for g in self.grids]
+        s = self.starts.astype(np.float64)
+        h = self.steps.astype(np.float64)
+        return [s[i] + h[i] * np.arange(d) for i, d in enumerate(self.dims)]
+
+    def tensors(self, device: torch.device) -> tuple:
+        """The grid and table on `device`, made at the first call for it:
+        (starts, steps, vals) on a regular grid, (grids, vals) on a
+        rectilinear one, (knots, coeffs) for a B-spline."""
+        device = torch.device(device)
+        cached = self._tensors.get(device)
+        if cached is not None:
+            return cached
+        dtype = self.torch_dtype
+        if self.method in SPLINE_DEGREE:
+            knots, coeffs = _bspline.prep_bspline_cached(
+                self._spline_axes(), self.vals.astype(np.float64), SPLINE_DEGREE[self.method])
+            cached = convert.bspline_from_numpy(knots, coeffs, device=device, dtype=dtype)
+        elif self.regular:
+            cached = convert.regular_grid_from_numpy(self.dims, self.starts, self.steps,
+                                                     self.vals, device=device, dtype=dtype)[1:]
+        else:
+            cached = convert.rectilinear_grid_from_numpy(self.grids, self.vals, device=device,
+                                                         dtype=dtype)
+        self._tensors[device] = cached
+        return cached
+
+    @property
+    def vals_finite(self) -> bool:
+        """Whether the table is finite, checked once on the host."""
+        if self._finite is None:
+            self._finite = bool(np.isfinite(self.vals).all())
+        return self._finite
+
+    # --- evaluation ------------------------------------------------------------
+
+    def _eval(self, obs_t, flag: bool = False):
+        """(result, unrepresentable flag or None) on the tensors' device:
+        the flag only where `flag` is asked for and the reference raises it
+        (the reference methods on a regular grid)."""
+        method = self.method
+        grid = self.tensors(obs_t[0].device)
+        if method in SPLINE_DEGREE:
+            return ops.bspline_eval(*grid, obs_t, SPLINE_DEGREE[method],
+                                    vals_finite=self.vals_finite), None
+        kind = "regular" if self.regular else "rectilinear"
+        dims = (self.dims,) if self.regular else ()
+        if method == "pchip":
+            return getattr(ops, f"pchip_{kind}")(*dims, *grid, obs_t), None
+        lin = (self.linearize,) if method == "cubic" else ()
+        result = getattr(ops, f"{method}_{kind}")(*dims, *grid, obs_t, *lin,
+                                                  vals_finite=self.vals_finite)
+        bad = raw._unrep_flag(grid[0], grid[1], obs_t) if flag and self.regular else None
+        return result, bad
+
+    def _obs_to_device(self, obs, device) -> tuple[torch.Tensor, ...]:
+        """Flat query tensors of the model's dtype on `device`."""
+        dtype = self.torch_dtype
+        return tuple(
+            x.reshape(-1).to(dtype) if isinstance(x, torch.Tensor)
+            else torch.as_tensor(np.asarray(x).ravel(), dtype=dtype, device=device)
+            for x in obs
+        )
+
+    def check_obs_sizes(self, obs, out=None) -> None:
+        """ndims observation arrays of one size, and `out` of that size
+        ("Dimension mismatch")."""
+        if len(obs) != self.ndims():
+            raise AssertionError("Dimension mismatch")
+        sizes = {_size(x) for x in obs}
+        if len(sizes) > 1 or (out is not None and _size(out) not in sizes):
+            raise AssertionError("Dimension mismatch")
+
+    def check_grid_sizes(self) -> None:
+        """The stencil's floor of points per axis, raised at evaluation."""
+        if not self.grid_ok:
+            raise AssertionError(self.min_grid_msg)
+
+    def check_eval_dtypes(self, obs, out=None) -> None:
+        """TypeError for an array or tensor of another dtype; lists and
+        scalars pass and are converted."""
+        want = self.dtype.name
+        pairs = [("obs", o) for o in obs] + ([("out", out)] if out is not None else [])
+        for name, a in pairs:
+            dt = getattr(a, "dtype", None)
+            if dt is not None and raw._dtype_name(dt) != want:
+                raise TypeError(
+                    f"argument '{name}': expected a {want} array, got {raw._dtype_name(dt)}"
+                )
+
+    def _check_float(self) -> None:
+        if self.dtype not in (np.float64, np.float32):
+            raise TypeError(f"Unexpected data type: {self.dtype}")
+
+    def eval_torch(self, obs) -> torch.Tensor:
+        """The flat result on the queries' device (numpy queries: the
+        default device), with no host sync. NaN and inf coordinates give
+        NaN or extrapolate; nothing raises for them."""
+        self._check_float()
+        self.check_grid_sizes()
+        self.check_obs_sizes(obs)
+        return self._eval(self._obs_to_device(obs, raw._device(*obs)))[0]
+
+    def eval(self, obs, out=None):
+        """Evaluate at the observation points, into `out` when given (numpy
+        or tensor), else into a new numpy array of the model's dtype."""
+        if out is not None:
+            return self.eval_unchecked(obs, out)
+        out = np.zeros(np.shape(obs[0]), dtype=self.dtype)
+        self.eval_unchecked(obs, out)
+        return out
+
+    def eval_unchecked(self, obs, out=None):
+        """`eval` with the reference's checks of sizes and dtypes; on a
+        regular grid, AssertionError "Unrepresentable coordinate value" for
+        a NaN, inf or far-out coordinate of a reference method."""
+        self.check_grid_sizes()
+        out = out if out is not None else np.zeros(np.shape(obs[0]), dtype=self.dtype)
+        self.check_obs_sizes(obs, out)
+        self.check_eval_dtypes(obs, out)
+        self._check_float()
+        device = raw._device(*obs, out)
+        result, bad = self._eval(self._obs_to_device(obs, device), flag=True)
+        if bad is not None:
+            raw._raise_unrep(bad)
+        return raw._finish(result, out)
+
+    def gradient_torch(self, obs) -> tuple[torch.Tensor, ...]:
+        """ndims flat tensors, d(interpolant)/d(x_k) at each query, by
+        reverse mode through the evaluation (the kernels' backward is their
+        gather tree's). Piecewise polynomials: not defined exactly at cell
+        boundaries; zero for nearest."""
+        self.check_grid_sizes()
+        self.check_obs_sizes(obs)
+        obs_t = tuple(x.detach().requires_grad_() for x in
+                      self._obs_to_device(obs, raw._device(*obs)))
+        with torch.enable_grad():
+            y = self._eval(obs_t)[0]
+        if not y.requires_grad:  # nearest's gather tree: no path from the queries
+            return tuple(torch.zeros_like(x) for x in obs_t)
+        return torch.autograd.grad(y.sum(), obs_t)
+
+    def warmup(self, n: int) -> None:
+        """Put the grid on the default device, build the kernels the model
+        launches and launch them once at batch n."""
+        device = default_device()
+        obs = tuple(torch.zeros(n, dtype=self.torch_dtype, device=device)
+                    for _ in range(self.ndims()))
+        self.eval_torch(obs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def check_bounds(self, obs, atol):
+        """Per-dimension flags: does any query fall outside the grid by more
+        than `atol` (the port's `raw.check_bounds_*`)."""
+        self._check_float()
+        suffix = "f64" if self.dtype == np.float64 else "f32"
+        out = np.array([False] * self.ndims())
+        obs = [x.reshape(-1) if isinstance(x, torch.Tensor) else np.asarray(x).flatten()
+               for x in obs]
+        if self.regular:
+            fn = getattr(raw, f"check_bounds_regular_{suffix}")
+            fn(list(self.dims), self.starts, self.steps, obs, atol, out)
+        else:
+            fn = getattr(raw, f"check_bounds_rectilinear_{suffix}")
+            fn(self.grids, obs, atol, out)
+        return out

@@ -1,0 +1,67 @@
+"""NearestRectilinear: nearest-neighbor interpolator on a rectilinear grid.
+
+Counterpart of `interpn_tpu/models/nearest_rectilinear.py`: the same
+fields, `new()`, validation messages and JSON bytes; evaluation runs the
+port's `ops.nearest_rectilinear` through `models/_device.py`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+from numpy.typing import NDArray
+from pydantic import model_validator
+
+from ._base import InterpolatorBase, RectilinearGridMixin, arrtype_for, prod_dims
+from .serialization import Array
+
+
+class NearestRectilinear(RectilinearGridMixin, InterpolatorBase):
+    """Nearest-neighbor interpolation on a rectilinear grid in up to 6
+    dimensions.
+
+    Construction expects flat (1D, contiguous) arrays sharing one float
+    dtype, np.float64 or np.float32; the validator rejects anything else. Grids must be monotonically increasing.
+    """
+
+    _MIN_GRID = 2
+    _MIN_GRID_MSG = "All grids must have at least 2 entries"
+
+    grids: list[Array]
+    vals: Array
+
+    @classmethod
+    def new(cls, grids: list[NDArray], vals: NDArray) -> "NearestRectilinear":
+        """Build a model from per-axis coordinate arrays and a value table."""
+        arrtype = arrtype_for(np.asarray(vals))
+        return cls(
+            grids=[arrtype(data=np.asarray(x)) for x in grids],
+            vals=arrtype(data=np.asarray(vals).flatten()),
+        )
+
+    @model_validator(mode="after")
+    def _validate_model(self):
+        dims = self.dims()
+        ndims = self.ndims()
+        assert ndims <= 6 and ndims >= 1, (
+            "Number of dimensions must be at least 1 and no more than 6"
+        )
+        assert self.vals.data.size == prod_dims(dims), (
+            "Size of value array does not match grid dims"
+        )
+        assert all([np.all(np.diff(x.data) > 0.0) for x in self.grids]), (
+            "All grids must be monotonically increasing"
+        )
+        assert all([x.data.dtype == self.vals.data.dtype for x in self.grids]), (
+            "All grid inputs must be of the same data type (np.float32 or np.float64)"
+        )
+        assert (
+            all([x.data.data.contiguous for x in self.grids])
+            and self.vals.data.data.contiguous
+        ), "Grid data must be contiguous"
+        return self
+
+    def ndims(self) -> int:
+        return len(self.grids)
+
+    def _device_spec(self) -> dict:
+        return dict(method="nearest", **self._grid_spec())

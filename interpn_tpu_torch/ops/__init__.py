@@ -2,10 +2,11 @@
 
 The evaluation functions dispatch between the Hopper kernels (`ops.fused`)
 and the gather trees (`ops.linear`, `ops.cubic`, `ops.nearest`,
-`ops.bspline`); both stay importable from their submodules. `raw` wraps the
+`ops.bspline`); both stay importable from their submodules. pchip
+(`ops.pchip`) is a gather tree on every device. `raw` wraps the
 single-table ones with the reference-compatible flat API; `interpn_stack`
 wraps the stacked ones (`ops.stack`). B-spline tables come from
-`prep_bspline`.
+`prep_bspline`. The 1D interpolants are the submodule `ops.one_dim`.
 """
 
 from .bounds import check_bounds_rectilinear, check_bounds_regular
@@ -19,6 +20,7 @@ from .dispatch import (
     nearest_rectilinear,
     nearest_regular,
 )
+from .pchip import pchip_rectilinear, pchip_regular
 from .stack import (
     bspline_eval_stack,
     cubic_rectilinear_stack,
@@ -46,5 +48,7 @@ __all__ = [
     "nearest_rectilinear_stack",
     "nearest_regular",
     "nearest_regular_stack",
+    "pchip_rectilinear",
+    "pchip_regular",
     "prep_bspline",
 ]

@@ -14,8 +14,14 @@ from ..utils import corner_offsets
 
 
 def take1(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """vals[idx] for flat `vals` and integer `idx` of any shape."""
-    return vals[idx]
+    """vals[idx] for flat `vals` and integer `idx` of any shape; for a stack
+    of tables (nch, N), each table's entries at `idx`, (nch, *idx.shape)."""
+    return vals[..., idx]
+
+
+# Above this many stencil vertices the pchip tree gathers one matrix and
+# chunks the queries, as the JAX package does (cubic 5-8D).
+LIST_MAX_VERTS = 256
 
 
 def gather_corners(vals, base, dims, footprint: int) -> list[torch.Tensor]:
@@ -26,7 +32,8 @@ def gather_corners(vals, base, dims, footprint: int) -> list[torch.Tensor]:
 
 
 def gather_corners_matrix(vals, base, dims, footprint: int) -> torch.Tensor:
-    """The corner stencil as one (footprint**ndims, *base.shape) tensor,
-    vertex-major, in the same vertex order as `gather_corners`."""
+    """The corner stencil as one (footprint**ndims, *base.shape) tensor
+    (with a stack's leading nch), vertex-major, in the same vertex order as
+    `gather_corners`."""
     offs = torch.from_numpy(corner_offsets(dims, footprint)).to(base.device)
     return take1(vals, offs.reshape(-1, *([1] * base.dim())) + base)

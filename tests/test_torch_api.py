@@ -263,10 +263,8 @@ def test_interpn_refusals():
     grids, vals, obs = _axes((6, 7), np.float64)
     rect = [np.cumsum(np.arange(1.0, 7.0)), grids[1]]
     for g in (grids, rect):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            interpn_tpu_torch.interpn(obs, g, vals, method="pchip")
-        # the splines are ported: the JAX package's values, not a refusal
-        for method in ("cubic_spline", "quintic"):
+        # pchip and the splines are ported: the JAX package's values, not a refusal
+        for method in ("pchip", "cubic_spline", "quintic"):
             np.testing.assert_allclose(interpn_tpu_torch.interpn(obs, g, vals, method=method),
                                        interpn_tpu.interpn(obs, g, vals, method=method),
                                        **TOL[np.float64])

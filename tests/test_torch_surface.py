@@ -1,7 +1,8 @@
 """The port's `ops` surface against the JAX package's on the CPU: every
 evaluator takes the keyword-only `vals_finite`, `ops.__all__` covers the
-JAX package's, and the forced f64 engines' per-table caches see an in-place
-update of a tensor table.
+JAX package's, the package's `__all__` equals the JAX package's, and the
+forced f64 engines' per-table caches see an in-place update of a tensor
+table.
 
 Tolerance: the two packages' gather trees run the same operations in the
 same order in float64, but XLA:CPU may contract a multiply-add into an FMA,
@@ -14,15 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-import interpn_tpu  # noqa: F401  (enables x64)
+import interpn_tpu
 import jax.numpy as jnp
 from interpn_tpu import ops as jops
+import interpn_tpu_torch
 from interpn_tpu_torch import config
 from interpn_tpu_torch import ops as tops
 from interpn_tpu_torch.ops import df64, i8
 
-# ops names that arrive with the pchip port (ROADMAP module 13)
-PCHIP = {"pchip_regular", "pchip_rectilinear"}
 DIMS = (5, 6, 4)
 NCH = 3
 
@@ -117,12 +117,16 @@ def test_vals_finite_is_keyword_only():
 
 
 def test_ops_all_covers_the_jax_package():
-    """Every name `interpn_tpu.ops` exports, the port's `ops` exports too,
-    but for the pchip evaluators, which arrive with their port."""
+    """Every name `interpn_tpu.ops` exports, the port's `ops` exports too;
+    the package's `__all__` is the JAX package's (pydantic is installed
+    here, so both export the eight model classes)."""
     missing = set(jops.__all__) - set(tops.__all__)
-    assert missing == PCHIP
+    assert missing == set()
     for name in tops.__all__:
         assert callable(getattr(tops, name)), name
+    assert interpn_tpu_torch.__all__ == interpn_tpu.__all__
+    for name in interpn_tpu_torch.__all__:
+        assert hasattr(interpn_tpu_torch, name), name
 
 
 def test_prep_bspline_exported_and_matches_jax():
