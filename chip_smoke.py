@@ -51,8 +51,19 @@ pchip, a stack of 8 through interpn_stack), the five 1D interpolants, and
 the eight model classes at 20^3 f32 (the spline classes under each
 method), each class's eval_torch bitwise its ops call with its kernel K1,
 K2, K3 or K4 launched once a call, its table put on the card once, eval
-from numpy against raw or interpn(), each timed. A failed
-check raises and the script exits non-zero; a timing never does. Phase
+from numpy against raw or interpn(), each timed, 7 torch.func
+through the kernel routes and the scipy adapter: TorchInterpolator on each
+method and both grid kinds at 20^3 f32 (the call bitwise its ops call, its
+kernel once; vmap over 8 tables one launch of the stack kernel, bitwise
+the stack op and row for row the single-table call, no gather tree
+forward; vmap over 4 query sets one launch; grad and jvp into the table
+and the queries with the kernel forward, within 1e-5 of the gather tree's
+derivatives), one K8 path under INTERPN_TPU_F64=df64 vmapped and
+differentiated, and compat.RegularGridInterpolator from numpy (linear,
+nearest, slinear and pchip within 1e-12 of scipy's RGI, hermite, cubic and
+quintic bitwise raw / interpn(), a trailing axis of 8 channels one stack
+launch, the float32 opt-in), each timed beside the call it reduces to. A
+failed check raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
 card's name and power limit, the kernels' JSON record and {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero before any
@@ -2599,6 +2610,426 @@ def slice_phase(cuda, smi) -> None:
     log(f"phase 6 record [{smi}] ({time.perf_counter() - t0:.1f} s): {json.dumps(rows)}")
 
 
+# --- phase 7: torch.func through the kernel routes, TorchInterpolator, compat --------
+
+TRANSFORM_METHODS = ("linear", "cubic", "nearest", "pchip", "cubic_spline", "quintic")
+N_QSETS = 4  # query sets of a vmap over queries, N_MAIN // N_QSETS each
+N_F64_TABLES = 4  # tables of the vmap under INTERPN_TPU_F64=df64
+
+
+def grid_launches() -> dict:
+    """The grid kernels launched since the counts were set to 0 (layout
+    kernels left out)."""
+    from interpn_tpu_torch.ops import fused
+
+    torch.cuda.synchronize()
+    layouts = {fused.PACK, fused.CUBIC_PACK, fused.INTERLEAVE, fused.RECT_CUBIC_PACK,
+               fused.RECT_INTERLEAVE, fused.BSPLINE_INTERLEAVE}
+    return {c: n for c, n in fused.launches.items() if n and c not in layouts}
+
+
+def counted(fn, want: dict, what: str):
+    """fn() with the launch counts set to 0 just before it; raise unless
+    the grid kernels it launched are `want`."""
+    from interpn_tpu_torch.ops import fused
+
+    fused.reset_launches()
+    out = fn()
+    got = grid_launches()
+    if got != want:
+        raise AssertionError(f"{what}: launched {got}, want {want}")
+    return out
+
+
+@contextlib.contextmanager
+def gather_forward_refused():
+    """For the body, every gather tree a kernel route can run forward
+    (`ops.dispatch`'s single-table and stack gathers) raises: a vmap on
+    CUDA tensors must reach the kernels alone."""
+    from interpn_tpu_torch.ops import dispatch, fused
+
+    def refuse(*a, **k):
+        raise AssertionError("a gather tree ran forward under vmap on CUDA tensors")
+
+    saved = [(fused, n, getattr(fused, n)) for n in (
+        "gather_rectilinear_stack", "plain_regular_stack", "plain_bspline_stack")]
+    saved.append((dispatch, "_bspline_gather", dispatch._bspline_gather))
+    tables = {name: dict(getattr(dispatch, name)) for name in ("_REGULAR_GATHER",
+                                                               "_RECT_GATHER")}
+    for m, n, _ in saved:
+        setattr(m, n, refuse)
+    for name, table in tables.items():
+        getattr(dispatch, name).update(dict.fromkeys(table, refuse))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+        for name, table in tables.items():
+            getattr(dispatch, name).update(table)
+
+
+def close_to(got, want, tol, what) -> float:
+    """Raise unless got is within tol of want, relative to want's largest
+    magnitude (at least 1); return that relative error."""
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.double() - want.double()).abs().max()) / scale
+    if got.shape != want.shape or not err <= tol:
+        raise AssertionError(f"{what}: {tuple(got.shape)} vs {tuple(want.shape)}, relative "
+                             f"error {err:.3g} over {tol:g}")
+    return err
+
+
+def replaced(itp, vals):
+    """itp with its table (or coefficients) replaced by `vals`."""
+    import torch.utils._pytree as pytree
+
+    leaves, spec = pytree.tree_flatten(itp)
+    return pytree.tree_unflatten(leaves[:-1] + [vals], spec)
+
+
+def interpolator_case(kind, method, cuda, smi, data) -> dict:
+    """TorchInterpolator of `method` on the `kind` 20^3 f32 bench grid:
+    the call bitwise the ops call (its kernel launched once); vmap over
+    NCH tables bitwise the stack op and row for row the single-table call,
+    one launch of the stack kernel, no gather tree forward; vmap over
+    N_QSETS query sets one launch, bitwise; grad into the table and the
+    queries and jvp, the kernel forward launched once, within f32 1e-5 of
+    the gather tree's derivatives on the same CUDA tensors; each timed on
+    the host clock beside the op it reduces to. pchip (no kernel) is held
+    to its ops call and the gather tree alone."""
+    import torch.utils._pytree as pytree
+
+    from interpn_tpu_torch import convert, ops
+    from interpn_tpu_torch.functional import TorchInterpolator
+    from interpn_tpu_torch.ops import dispatch, pchip
+
+    x32, tables, axes, obs, qsets = (data[k] for k in ("x32", "tables", "axes", "obs", "qsets"))
+    dims = (20,) * 3
+    k = SPLINE.get(method)
+    regular = kind == "regular"
+    starts, steps = np.zeros(3, np.float32), np.full(3, x32[1] - x32[0], np.float32)
+    label = f"TorchInterpolator {kind} {method} 20^3 f32"
+
+    def build(table):
+        if regular:
+            st, sp = convert.obs_from_numpy((starts, steps), device=cuda, dtype=F32)
+            return TorchInterpolator.regular(dims, st, sp, torch.from_numpy(table).to(cuda),
+                                             method=method)
+        return TorchInterpolator.rectilinear(convert.obs_from_numpy(axes, device=cuda,
+                                                                    dtype=F32),
+                                             torch.from_numpy(table).to(cuda), method=method)
+
+    itp = build(tables[0])
+    counter = f"bspline_k{k}" if k else (None if method == "pchip" else f"{kind}_{method}")
+    one = {counter: 1} if counter else {}
+    got = counted(lambda: itp(obs), one, f"{label} call")
+    if got.shape != (N_MAIN,) or got.dtype != F32 or not got.isfinite().all():
+        raise AssertionError(f"{label}: {got.shape} {got.dtype}, not finite")
+    # the ops call on tensors made apart from the interpolator
+    lin = (True,) if method == "cubic" else ()
+    if k:
+        spline_axes = ([starts[i].astype(np.float64) + steps[i].astype(np.float64)
+                        * np.arange(20) for i in range(3)] if regular
+                       else [a.astype(np.float64) for a in axes])
+        knots, coeffs = ops.prep_bspline(spline_axes, tables[0].astype(np.float64), k)
+        kt, ct = convert.bspline_from_numpy(knots, coeffs, device=cuda, dtype=F32)
+
+        def op(ob, kt=kt, ct=ct):
+            return ops.bspline_eval(kt, ct, ob, k)
+        op_name = "ops.bspline_eval"
+    elif regular:
+        g = convert.regular_grid_from_numpy(dims, starts, steps, tables[0], device=cuda,
+                                            dtype=F32)
+        fn = getattr(pchip if method == "pchip" else ops, f"{method}_regular")
+
+        def op(ob, g=g, fn=fn):
+            return fn(*g, ob, *lin)
+        op_name = f"ops.{method}_regular"
+    else:
+        g = convert.rectilinear_grid_from_numpy(axes, tables[0], device=cuda, dtype=F32)
+        fn = getattr(pchip if method == "pchip" else ops, f"{method}_rectilinear")
+
+        def op(ob, g=g, fn=fn):
+            return fn(*g, ob, *lin)
+        op_name = f"ops.{method}_rectilinear"
+    bitwise(got, op(obs), f"{label}: the call vs {op_name}")
+    row = {"path": label, "entry": op_name, "launches": one,
+           "call_ms": host_ms(lambda: itp(obs)), "op_ms": host_ms(lambda: op(obs))}
+    notes = [f"the call bitwise {op_name}" + (f", {counter} launched once" if counter
+                                              else ", no kernel (a gather tree)")]
+
+    if counter:
+        # vmap over NCH tables: the stack kernel once, no gather tree forward
+        itps = [itp] + [build(t) for t in tables[1:]]
+        stack = torch.stack([i.vals for i in itps])
+        batched = replaced(itp, stack)
+
+        def vmapped():
+            return torch.func.vmap(lambda i, o: i(o), in_dims=(itp.batch_axes(), None))(
+                batched, obs)
+        with gather_forward_refused():
+            out = counted(vmapped, {f"{counter}_stack": 1}, f"{label} vmap over {NCH} tables")
+        leaves = pytree.tree_flatten(itp)[0][:-1]
+        if k:
+            stack_op = lambda: ops.bspline_eval_stack(leaves, stack, obs, k)  # noqa: E731
+        elif regular:
+            stack_op = lambda: getattr(ops, f"{method}_regular_stack")(  # noqa: E731
+                dims, *leaves, stack, obs, *lin)
+        else:
+            stack_op = lambda: getattr(ops, f"{method}_rectilinear_stack")(  # noqa: E731
+                tuple(leaves), stack, obs, *lin)
+        bitwise(out, stack_op(), f"{label}: vmap vs the stack op")
+        for c, i in enumerate(itps):
+            bitwise(out[c], i(obs), f"{label}: vmap row {c} vs its single-table call")
+        # vmap over N_QSETS query sets: one launch of the single-table kernel
+        qout = counted(lambda: torch.func.vmap(lambda o: itp(o))(qsets), one,
+                       f"{label} vmap over {N_QSETS} query sets")
+        for b in range(N_QSETS):
+            bitwise(qout[b], itp(tuple(q[b] for q in qsets)), f"{label}: query set {b}")
+        notes.append(f"vmap over {NCH} tables bitwise the stack op and each row its "
+                     f"single-table call, {counter}_stack launched once, no gather tree "
+                     f"forward; vmap over {N_QSETS} query sets of {N_MAIN // N_QSETS} "
+                     f"bitwise, {counter} launched once")
+        row.update(vmap_ms=host_ms(vmapped), stack_ms=host_ms(stack_op),
+                   vmap_queries_ms=host_ms(lambda: torch.func.vmap(lambda o: itp(o))(qsets)))
+
+    # grad into the table and the queries, jvp; against the gather tree
+    params = tuple(itp.grid_arrays)
+    if method == "pchip":
+        head = (dims, *params) if regular else (params,)
+
+        def tree(v, *ob):
+            return getattr(pchip, f"pchip_{kind}")(*head, v, ob)
+    else:
+        route = (dispatch.kernel_route("bspline", k, 3) if k else
+                 dispatch.kernel_route(kind, method, dims if regular else 3, *lin))
+
+        def tree(v, *ob):
+            return route.gather(*params, v, *ob)
+
+    def loss(v, *ob):
+        return replaced(itp, v)(ob).sum()
+
+    argnums = tuple(range(4))
+    grads = counted(lambda: torch.func.grad(loss, argnums=argnums)(itp.vals, *obs), one,
+                    f"{label} grad")
+    want = torch.func.grad(lambda v, *ob: tree(v, *ob).sum(), argnums=argnums)(itp.vals, *obs)
+    errs = [close_to(a, b, 1e-5, f"{label}: grad {n}")
+            for a, b, n in zip(grads, want, ("table", "x0", "x1", "x2"))]
+    gen = torch.Generator(device=cuda).manual_seed(77)
+    tangents = tuple(torch.randn(t.shape, generator=gen, device=cuda, dtype=F32)
+                     for t in (itp.vals, *obs))
+    primal, tangent = counted(
+        lambda: torch.func.jvp(lambda v, *ob: replaced(itp, v)(ob), (itp.vals, *obs),
+                               tangents), one, f"{label} jvp")
+    bitwise(primal, got, f"{label}: jvp's primal vs the call")
+    errs.append(close_to(tangent, torch.func.jvp(tree, (itp.vals, *obs), tangents)[1], 1e-5,
+                         f"{label}: jvp tangent"))
+
+    def autograd_op():
+        v = itp.vals.detach().requires_grad_()
+        ob = tuple(o.detach().requires_grad_() for o in obs)
+        return torch.autograd.grad(replaced(itp, v)(ob).sum(), (v, *ob))
+
+    row.update(grad_ms=host_ms(lambda: torch.func.grad(loss, argnums=argnums)(itp.vals, *obs)),
+               autograd_ms=host_ms(autograd_op),
+               jvp_ms=host_ms(lambda: torch.func.jvp(lambda v, *ob: replaced(itp, v)(ob),
+                                                     (itp.vals, *obs), tangents)),
+               grad_rel_err=max(errs))
+    notes.append(f"grad into the table and the 3 query axes and jvp into both"
+                 f"{f', {counter} launched once each' if counter else ''}, within "
+                 f"{max(errs):.3g} of the gather tree's derivatives (bar 1e-5 of the "
+                 "largest magnitude)")
+    times = ", ".join(f"{key.removesuffix('_ms')} {v:.4f}" for key, v in row.items()
+                      if key.endswith("_ms"))
+    log(f"phase 7 {label} x {N_MAIN} queries from CUDA tensors: {'; '.join(notes)} [{smi}]: "
+        f"{times} ms/call, host clock")
+    return row
+
+
+def forced_engine_case(cuda, smi) -> dict:
+    """Under INTERPN_TPU_F64=df64, TorchInterpolator regular cubic 20^3
+    f64: the call takes K8 once; vmap over N_F64_TABLES tables K8 once per
+    table (a stack takes no engine), each row bitwise its single call; grad
+    into the table K8 once, within 1e-12 of the gather tree's: the route
+    decision (the table's split, cached by its data pointer) ran on plain
+    tensors."""
+    from interpn_tpu_torch import convert
+    from interpn_tpu_torch.functional import TorchInterpolator
+    from interpn_tpu_torch.ops import dispatch
+
+    x, vals = bench_grid(20, 3)
+    dims = (20,) * 3
+    st, sp = convert.obs_from_numpy((np.zeros(3), np.full(3, x[1] - x[0])), device=cuda,
+                                    dtype=F64)
+    tables = torch.stack([torch.from_numpy(vals.ravel() + c) for c in range(N_F64_TABLES)]
+                         ).to(cuda)
+    rng = np.random.default_rng(9)
+    obs = tuple(torch.from_numpy(rng.uniform(LO, HI, N_MAIN)).to(cuda) for _ in range(3))
+    label = "TorchInterpolator regular cubic 20^3 f64 under INTERPN_TPU_F64=df64"
+    with f64_engine("df64"):
+        itp = TorchInterpolator.regular(dims, st, sp, tables[0], method="cubic")
+        got = counted(lambda: itp(obs), {"df64": 1}, f"{label} call")
+        out = counted(lambda: torch.func.vmap(lambda i, o: i(o), in_dims=(
+            itp.batch_axes(), None))(replaced(itp, tables), obs), {"df64": N_F64_TABLES},
+            f"{label} vmap over {N_F64_TABLES} tables")
+        for c in range(N_F64_TABLES):
+            bitwise(out[c], replaced(itp, tables[c])(obs), f"{label}: vmap row {c}")
+        bitwise(out[0], got, f"{label}: vmap row 0 vs the call")
+        g = counted(lambda: torch.func.grad(lambda v: replaced(itp, v)(obs).sum())(itp.vals),
+                    {"df64": 1}, f"{label} grad")
+        route = dispatch.kernel_route("regular", "cubic", dims, True)
+        want = torch.func.grad(lambda v: route.gather(st, sp, v, *obs).sum())(itp.vals)
+        err = close_to(g, want, 1e-12, f"{label}: grad into the table")
+        ms = {"call_ms": host_ms(lambda: itp(obs)),
+              "vmap_ms": host_ms(lambda: torch.func.vmap(lambda i, o: i(o), in_dims=(
+                  itp.batch_axes(), None))(replaced(itp, tables), obs))}
+    log(f"phase 7 {label} x {N_MAIN} queries: the call K8 once; vmap over {N_F64_TABLES} "
+        f"tables K8 once a table, each row bitwise its single call; grad into the table K8 "
+        f"once, within {err:.3g} of the gather tree's [{smi}]: call {ms['call_ms']:.4f}, "
+        f"vmap {ms['vmap_ms']:.4f} ms/call, host clock")
+    return {"path": label, "launches": {"df64": 1}, "grad_rel_err": err, **ms}
+
+
+def compat_phase(cuda, smi) -> list[dict]:
+    """compat.RegularGridInterpolator from numpy, f64, on the regular 20^3
+    bench grid (bounds_error=False, fill_value=None, 1e6 queries in [-0.5,
+    10.5]): linear, nearest, slinear and pchip against scipy's RGI on
+    N_SCIPY of them at 1e-12; linear, nearest, slinear and hermite (which
+    scipy has not) bitwise raw's rectilinear functions, their kernel
+    launched once; cubic and quintic bitwise interpn(method="cubic_spline"
+    / "quintic") (scipy's RGI solves the 3-D spline iteratively, no bar);
+    a trailing axis of NCH channels (linear, cubic) one stack launch, each
+    channel bitwise its single-channel call; dtype=np.float32 linear
+    bitwise raw's f32 function; each timed beside raw / interpn()."""
+    import scipy.interpolate as si
+
+    import interpn_tpu_torch as itt
+    from interpn_tpu_torch import compat, raw
+
+    rows = []
+    x, vals = bench_grid(20, 3)
+    grids = (x, x, x)
+    rng = np.random.default_rng(10)
+    xi = rng.uniform(LO, HI, (N_MAIN, 3))
+    obs = [np.ascontiguousarray(xi[:, i]) for i in range(3)]
+    kw = dict(bounds_error=False, fill_value=None)
+    out = np.zeros(N_MAIN)
+    rect = {"linear": ("linear", ()), "slinear": ("linear", ()), "nearest": ("nearest", ()),
+            "hermite": ("cubic", (False,))}
+    for method in ("linear", "nearest", "slinear", "hermite", "pchip", "cubic", "quintic"):
+        rgi = compat.RegularGridInterpolator(grids, vals, method=method, **kw)
+        label = f"compat {method} regular 20^3 f64"
+        if method in rect:
+            m, lin = rect[method]
+            counter = f"rectilinear_{m}"
+            fn = getattr(raw, f"interpn_{m}_rectilinear_f64")
+
+            def entry(fn=fn, lin=lin):
+                fn(list(grids), vals.ravel(), *lin, obs, out)
+                return out
+            what = f"raw.{fn.__name__}"
+        else:
+            counter = {"cubic": "bspline_k3", "quintic": "bspline_k5"}.get(method)
+            name = {"cubic": "cubic_spline"}.get(method, method)
+
+            def entry(name=name):
+                return itt.interpn(obs, list(grids), vals, method=name, out=out)
+            what = f"interpn(method={name!r})"
+        got = counted(lambda: rgi(xi), {counter: 1} if counter else {}, label)
+        if got.shape != (N_MAIN,) or got.dtype != np.float64 or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: {got.shape} {got.dtype}")
+        notes = []
+        if method in ("linear", "nearest", "slinear", "pchip"):
+            ref = si.RegularGridInterpolator(grids, vals, method=method, **kw)(xi[:N_SCIPY])
+            rel = float(np.max(np.abs(got[:N_SCIPY] - ref) / np.maximum(1.0, np.abs(ref))))
+            if not rel <= 1e-12:
+                raise AssertionError(f"{label}: {rel:.3g} from scipy's RGI")
+            notes.append(f"within {rel:.3g} of scipy's RGI on {N_SCIPY} (bar 1e-12)")
+        entry()
+        if method == "pchip":  # interpn() takes the regular tree, compat the rectilinear one
+            rel = float(np.max(np.abs(got - out) / np.maximum(1.0, np.abs(out))))
+            if not rel <= 1e-12:
+                raise AssertionError(f"{label}: {rel:.3g} from {what}")
+            notes.append(f"within {rel:.3g} of {what}")
+        else:
+            np.testing.assert_array_equal(got, out, err_msg=f"{label} vs {what}")
+            notes.append(f"bitwise {what}")
+        ms = {"compat_ms": host_ms(lambda: rgi(xi)), "entry_ms": host_ms(entry)}
+        log(f"phase 7 {label} x {N_MAIN} queries from numpy: "
+            f"{counter + ' launched once, ' if counter else ''}{', '.join(notes)} [{smi}]: "
+            f"compat {ms['compat_ms']:.4f}, {what} {ms['entry_ms']:.4f} ms/call, host clock")
+        rows.append({"path": label, "entry": what, "kernel": counter, **ms})
+
+    # a trailing axis of NCH channels: one stack launch, each channel its single call
+    stacked = np.stack([vals + c for c in range(NCH)], axis=-1)
+    for method, counter in (("linear", "rectilinear_linear_stack"), ("cubic", "bspline_k3_stack")):
+        rgi = compat.RegularGridInterpolator(grids, stacked, method=method, **kw)
+        label = f"compat {method} regular 20^3 f64, {NCH} channels"
+        got = counted(lambda: rgi(xi), {counter: 1}, label)
+        for c in range(NCH):
+            one = compat.RegularGridInterpolator(grids, stacked[..., c], method=method, **kw)
+            np.testing.assert_array_equal(got[:, c], one(xi), err_msg=f"{label}: channel {c}")
+        vt = np.ascontiguousarray(np.moveaxis(stacked, -1, 0))
+        name = {"cubic": "cubic_spline"}.get(method, method)
+        ms = {"compat_ms": host_ms(lambda: rgi(xi)),
+              "entry_ms": host_ms(lambda: itt.interpn_stack(obs, list(grids), vt,
+                                                            method=name))}
+        log(f"phase 7 {label} x {N_MAIN} queries from numpy: {counter} launched once, each "
+            f"channel bitwise its single-channel call [{smi}]: compat {ms['compat_ms']:.4f}, "
+            f"interpn_stack(method={name!r}) {ms['entry_ms']:.4f} ms/call, host clock")
+        rows.append({"path": label, "entry": "interpn_stack()", "kernel": counter, **ms})
+
+    # the float32 opt-in
+    rgi = compat.RegularGridInterpolator(grids, vals, dtype=np.float32, **kw)
+    label = "compat linear regular 20^3, dtype=np.float32"
+    got = counted(lambda: rgi(xi), {"rectilinear_linear": 1}, label)
+    obs32 = [o.astype(np.float32) for o in obs]
+    out32 = np.zeros(N_MAIN, np.float32)
+    x32 = x.astype(np.float32)
+
+    def entry32():
+        raw.interpn_linear_rectilinear_f32([x32] * 3, vals.ravel().astype(np.float32), obs32,
+                                           out32)
+        return out32
+    entry32()
+    if got.dtype != np.float32:
+        raise AssertionError(f"{label}: {got.dtype}")
+    np.testing.assert_array_equal(got, out32, err_msg=f"{label} vs raw")
+    ms = {"compat_ms": host_ms(lambda: rgi(xi)), "entry_ms": host_ms(entry32)}
+    log(f"phase 7 {label} x {N_MAIN} queries from numpy: float32 out, rectilinear_linear "
+        f"launched once, bitwise raw.interpn_linear_rectilinear_f32 [{smi}]: compat "
+        f"{ms['compat_ms']:.4f}, raw {ms['entry_ms']:.4f} ms/call, host clock")
+    rows.append({"path": label, "entry": "raw.interpn_linear_rectilinear_f32",
+                 "kernel": "rectilinear_linear", **ms})
+    return rows
+
+
+def transforms_phase(cuda, smi) -> None:
+    """Phase 7: torch.func through the kernel routes (TorchInterpolator on
+    each method and grid kind, one forced f64 path) and compat from numpy;
+    the numbers of its timed paths in one log line for PERF.md."""
+    t0 = time.perf_counter()
+    x, vals = bench_grid(20, 3)
+    rng = np.random.default_rng(8)
+    data = {
+        "x32": x.astype(np.float32),
+        "tables": [(vals.ravel() + c).astype(np.float32) for c in range(NCH)],
+        "axes": [a.astype(np.float32) for a in bench_rect_axes(20, 3)],
+        "obs": tuple(torch.from_numpy(rng.uniform(LO, HI, N_MAIN).astype(np.float32)).to(cuda)
+                     for _ in range(3)),
+        "qsets": tuple(torch.from_numpy(rng.uniform(LO, HI, (N_QSETS, N_MAIN // N_QSETS))
+                                        .astype(np.float32)).to(cuda) for _ in range(3)),
+    }
+    rows = [interpolator_case(kind, method, cuda, smi, data)
+            for kind in ("regular", "rectilinear") for method in TRANSFORM_METHODS]
+    rows.append(forced_engine_case(cuda, smi))
+    rows += compat_phase(cuda, smi)
+    log(f"phase 7 record [{smi}] ({time.perf_counter() - t0:.1f} s): {json.dumps(rows)}")
+
+
 def kernels_record(driven, timed) -> list[dict]:
     """One entry per kernel, from its headline path (its first in PATHS),
     a grid kernel's also with `layouts`: for each of its paths, the layout
@@ -2676,6 +3107,7 @@ def main() -> None:
             timed[p] = timing_phase(p, cuda, gen, smi)
     layouts = [layout_phase(name, cuda, smi, driven) for name in LAYOUT_PATHS]
     slice_phase(cuda, smi)
+    transforms_phase(cuda, smi)
 
     # the last three lines, unprefixed: the card, the kernels, the result
     print(smi)

@@ -15,6 +15,11 @@ gather tree on every device).
   installed), with the JAX package's JSON bytes
 * `interpn_tpu_torch.ops`: the batched functions on tensors
 * `interpn_tpu_torch.ops.one_dim`: the 1D interpolants
+* `interpn_tpu_torch.functional.TorchInterpolator`: an interpolator that
+  `torch.func` transforms take as an argument (grad and jvp into the table
+  and the queries, vmap over tables onto the stack kernels)
+* `interpn_tpu_torch.compat`: scipy's `RegularGridInterpolator` and
+  `interpn`, with scipy's semantics and error strings
 * `interpn_tpu_torch.config`: where numpy inputs compute (CUDA by default;
   `config.set_device("cpu")` asks for the CPU)
 """

@@ -21,7 +21,7 @@ evaluation:
   device with no host sync and never raises on NaN or inf coordinates;
 * `gradient_torch`, each query's partial derivatives by reverse mode: every
   output depends on its own query alone, so the gradient of the sum is the
-  per-query derivative (the kernels' `KernelRoute` has no JVP rule);
+  per-query derivative, one backward pass for every axis;
 * `warmup(n)` and `check_bounds`.
 
 Each evaluation calls the port's `ops` function of the method with the

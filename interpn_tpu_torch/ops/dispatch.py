@@ -34,15 +34,24 @@ result); the kernels here read only each query's stencil, and the forced
 f64 engines check the table themselves.
 
 The kernels have no backward kernel (nor had the TPU kernels), so each
-kernel route is a `KernelRoute`: the kernel forward, the vector-Jacobian
-product of the gather tree backward, as the JAX package's `_with_gather_jvp`
-takes tangents from the gather tree. For nearest that gives zero gradients
-to the queries and one-hot gradients to `vals`.
+kernel route is a `KernelRoute`: the kernel forward, and the derivatives of
+the gather tree (its plain version) at the same inputs, as the JAX
+package's `_with_gather_jvp` takes tangents from the gather tree. For
+nearest that gives zero gradients to the queries and one-hot gradients to
+`vals`. `KernelRoute` composes with `torch.func` (`grad`, `vjp`, `jvp`,
+`jacrev`, `jacfwd`, `vmap`); its `vmap` rule keeps every row of a batched
+call bit for bit the call on that row's inputs. What a call runs is a
+`Route`, built in one place (`kernel_route`). `_impl` reads only the
+device, which a `torch.func` wrapper reports as its inner tensor's; the
+rest of the route decision (`f64_route`, the layouts, the engines' caches)
+is taken inside the kernel callables, which run on plain tensors.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -60,20 +69,109 @@ from .nearest import nearest_regular as _nearest_reg_gather
 F64_ENV = "INTERPN_TPU_F64"
 
 
+class Route(NamedTuple):
+    """What `KernelRoute` runs: `kernel(*params, vals, *obs)` on flat
+    contiguous queries (the kernel wrapper: its plain version on CPU
+    tensors), `gather` on the same arguments (the differentiable gather
+    tree, which gives the derivatives), `nparams` grid tensors ahead of
+    `vals`, and `stacked`: `vals` an (nch, P) stack and the result
+    (nch, n). `stack` is the family's stack route that a batch of tables
+    goes to (None on a stack route, which takes a batch itself); `f64`
+    whether a forced f64 engine may take the route (`f64_route`)."""
+
+    kernel: Callable
+    gather: Callable
+    nparams: int
+    stacked: bool
+    stack: "Route | None"
+    f64: bool
+
+
 class KernelRoute(torch.autograd.Function):
-    """Forward: kernel(*tensors). Backward: the vector-Jacobian product of
-    gather(*tensors), the kernel's plain version, at the same inputs."""
+    """Forward: route.kernel(*tensors). Backward: the vector-Jacobian
+    product of route.gather, the kernel's plain version, at the same
+    inputs; forward mode its Jacobian-vector product.
+
+    `torch.func.vmap` calls the `vmap` rule, under which each row of the
+    batched result is bit for bit the unbatched call on that row's inputs
+    and the gather tree never runs forward:
+
+    * only the table batched (B tables, or B stacks of nch as B * nch
+      tables): one launch of the family's stack kernel (K1 -> K5, K2/K3 ->
+      K6, K4 -> K7) over the batch as a stack, whose rows are the
+      single-table kernel's bits;
+    * only the queries batched: one launch over the B * n queries;
+    * anything else (a batched grid, the table and the queries batched
+      together) and every call under a forced f64 engine
+      (INTERPN_TPU_F64=df64|i8, which stacks do not take): one launch per
+      batch item, the results stacked. The launches are the price.
+
+    Each of these calls KernelRoute again, so the transforms nest."""
 
     @staticmethod
-    def forward(ctx, kernel, gather, *tensors):
-        ctx.gather = gather
+    def forward(route, *tensors):
+        return route.kernel(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        route, *tensors = inputs
+        ctx.route = route
         ctx.save_for_backward(*tensors)
-        return kernel(*tensors)
+        ctx.save_for_forward(*tensors)
 
     @staticmethod
     def backward(ctx, grad_out):
-        _, vjp_fn = torch.func.vjp(ctx.gather, *ctx.saved_tensors)
-        return (None, None, *vjp_fn(grad_out))
+        _, vjp_fn = torch.func.vjp(ctx.route.gather, *ctx.saved_tensors)
+        return (None, *vjp_fn(grad_out))
+
+    @staticmethod
+    def jvp(ctx, _route, *tangents):
+        primals = ctx.saved_tensors
+        tangents = tuple(torch.zeros_like(p) if t is None else t
+                         for p, t in zip(primals, tangents))
+        return torch.func.jvp(ctx.route.gather, primals, tangents)[1]
+
+    @staticmethod
+    def vmap(info, in_dims, route, *tensors):
+        dims = in_dims[1:]
+        k = route.nparams
+        size = info.batch_size
+        per_item = (any(d is not None for d in dims[:k])
+                    or (route.f64 and f64_engine() != "auto"
+                        and tensors[k].dtype == torch.float64))
+        if not per_item and all(d is None for d in dims[k + 1:]):
+            if dims[k] is None:  # nothing batched at this level
+                return KernelRoute.apply(route, *tensors), None
+            return _batched_tables(route, tensors, dims[k], size), 0
+        if not per_item and dims[k] is None:
+            return _batched_queries(route, tensors, dims, size)
+        rows = [KernelRoute.apply(route, *(t if d is None else t.select(d, b).contiguous()
+                                           for t, d in zip(tensors, dims)))
+                for b in range(size)]
+        return torch.stack(rows), 0
+
+
+def _batched_tables(route, tensors, dim, size):
+    """The batch of tables (or stacks) at `dim` of the table through the
+    stack route: (B, n) or (B, nch, n)."""
+    k = route.nparams
+    vals = tensors[k].movedim(dim, 0)
+    stack = route.stack or route
+    flat = vals.reshape(-1, vals.shape[-1]).contiguous()
+    out = KernelRoute.apply(stack, *tensors[:k], flat, *tensors[k + 1:])
+    return out.reshape(size, *vals.shape[1:-1], out.shape[-1])
+
+
+def _batched_queries(route, tensors, dims, size):
+    """The batch of query sets through one launch over all of them:
+    ((B, n), 0), or ((nch, B, n), 1) on a stack route."""
+    k = route.nparams
+    obs = []
+    for o, d in zip(tensors[k + 1:], dims[k + 1:]):
+        o = o.unsqueeze(0).expand(size, *o.shape) if d is None else o.movedim(d, 0)
+        obs.append(o.reshape(-1).contiguous())
+    out = KernelRoute.apply(route, *tensors[:k + 1], *obs)
+    return out.reshape(*out.shape[:-1], size, -1), int(route.stacked)
 
 
 def _impl(vals: torch.Tensor) -> str:
@@ -106,83 +204,130 @@ def f64_route(vals, dims, method):
     return None, {}
 
 
-def _route(kernel, gather, params, vals, obs, lead=()):
-    """gather(*params, vals, *obs) on the CPU; on a CUDA tensor the kernel
-    on flat contiguous queries, reshaped to (*lead, *obs[0].shape): `lead`
-    is (nch,) for a stack of tables."""
+_REGULAR_GATHER = {"linear": _linear_reg_gather, "cubic": _cubic_reg_gather,
+                   "nearest": _nearest_reg_gather}
+_RECT_GATHER = {"linear": _linear_rect_gather, "cubic": _cubic_rect_gather,
+                "nearest": _nearest_rect_gather}
+
+
+@functools.cache
+def kernel_route(family: str, method, key, lin: bool = True) -> Route:
+    """The single-table Route of `family` ("regular": `key` the dims,
+    params (starts, steps); "rectilinear": `key` the number of axes, params
+    the grids; "bspline": `method` the degree, `key` the number of axes,
+    params the knots), with its stack route as `.stack`. `lin` is cubic's
+    `linearize_extrapolation` (passed to cubic only)."""
+    extra = (bool(lin),) if method == "cubic" else ()
+    if family == "regular":
+        dims = key
+
+        def kernel(st, sp, v, *ob):
+            engine, kw = f64_route(v, dims, method)
+            if engine is None:
+                return _fused.eval_regular(dims, st, sp, v, ob, method, *extra)
+            module = _df64 if engine == "df64" else _i8
+            return module.eval_regular(dims, st, sp, v, ob, method, *extra, **kw)
+
+        parts = (
+            kernel,
+            lambda st, sp, v, *ob: _REGULAR_GATHER[method](dims, st, sp, v, ob, *extra),
+            lambda st, sp, v, *ob: _fused.eval_regular_stack(dims, st, sp, v, ob, method, lin),
+            lambda st, sp, v, *ob: _fused.plain_regular_stack(dims, st, sp, v, ob, method, lin),
+        )
+        nparams = 2
+    elif family == "rectilinear":
+        ng = nparams = key
+
+        def kernel(*a):
+            dims = tuple(int(g.shape[0]) for g in a[:ng])
+            engine, kw = f64_route(a[ng], dims, method)
+            if engine is None:
+                return _fused.eval_rectilinear(a[:ng], a[ng], a[ng + 1:], method, *extra)
+            module = _df64 if engine == "df64" else _i8
+            return module.eval_rectilinear(a[:ng], a[ng], a[ng + 1:], method, *extra, **kw)
+
+        parts = (
+            kernel,
+            lambda *a: _RECT_GATHER[method](a[:ng], a[ng], a[ng + 1:], *extra),
+            lambda *a: _fused.eval_rectilinear_stack(a[:ng], a[ng], a[ng + 1:], method, lin),
+            lambda *a: _fused.gather_rectilinear_stack(a[:ng], a[ng], a[ng + 1:], method, lin),
+        )
+    elif family == "bspline":
+        ng = nparams = key
+        k = method
+
+        def kernel(*a):
+            dims = tuple(int(t.shape[0]) - k - 1 for t in a[:ng])
+            if f64_route(a[ng], dims, k)[0] is None:
+                return _fused.eval_bspline(a[:ng], a[ng], a[ng + 1:], k)
+            return _df64.eval_bspline(a[:ng], a[ng], a[ng + 1:], k)
+
+        parts = (
+            kernel,
+            lambda *a: _bspline_gather(a[:ng], a[ng], a[ng + 1:], k),
+            lambda *a: _fused.eval_bspline_stack(a[:ng], a[ng], a[ng + 1:], k),
+            lambda *a: _fused.plain_bspline_stack(a[:ng], a[ng], a[ng + 1:], k),
+        )
+    else:
+        raise ValueError(f"no kernel route for family {family!r}")
+    stack = Route(parts[2], parts[3], nparams, True, None, False)
+    return Route(parts[0], parts[1], nparams, False, stack, method != "nearest")
+
+
+def _route(route, params, vals, obs):
+    """route.gather(*params, vals, *obs) on the CPU; on a CUDA tensor the
+    kernel on flat contiguous queries, reshaped to (*obs[0].shape) or, on a
+    stack route, (nch, *obs[0].shape)."""
     if _impl(vals) == "gather":
-        return gather(*params, vals, *obs)
+        return route.gather(*params, vals, *obs)
     shape = obs[0].shape
+    lead = (int(vals.shape[0]),) if route.stacked else ()
     tensors = [t.contiguous() for t in params] + [vals.contiguous()]
     tensors += [o.reshape(-1).contiguous() for o in obs]
-    return KernelRoute.apply(kernel, gather, *tensors).reshape(*lead, *shape)
+    return KernelRoute.apply(route, *tensors).reshape(*lead, *shape)
 
 
-def _regular(method, dims, starts, steps, vals, obs, gather, *lin):
+def _regular(method, dims, starts, steps, vals, obs, *lin):
     dims = tuple(int(d) for d in dims)
-    engine, kw = f64_route(vals, dims, method)
-    if engine is None:
-        def kernel(st, sp, v, *ob):
-            return _fused.eval_regular(dims, st, sp, v, ob, method, *lin)
-    else:
-        module = _df64 if engine == "df64" else _i8
-
-        def kernel(st, sp, v, *ob):
-            return module.eval_regular(dims, st, sp, v, ob, method, *lin, **kw)
-    return _route(kernel, lambda st, sp, v, *ob: gather(dims, st, sp, v, ob, *lin),
-                  (starts, steps), vals, obs)
+    return _route(kernel_route("regular", method, dims, *lin), (starts, steps), vals, obs)
 
 
 def linear_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
     """Multilinear eval on a regular grid; obs is a tuple of ndims tensors of
     one shape, and the result has that shape."""
-    return _regular("linear", dims, starts, steps, vals, obs, _linear_reg_gather)
+    return _regular("linear", dims, starts, steps, vals, obs)
 
 
 def cubic_regular(dims, starts, steps, vals, obs, linearize_extrapolation: bool, *,
                   vals_finite=None):
     """Multicubic eval on a regular grid (every dim >= 4)."""
-    return _regular("cubic", dims, starts, steps, vals, obs, _cubic_reg_gather,
-                    bool(linearize_extrapolation))
+    return _regular("cubic", dims, starts, steps, vals, obs, bool(linearize_extrapolation))
 
 
 def nearest_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
     """Nearest-neighbor eval on a regular grid."""
-    return _regular("nearest", dims, starts, steps, vals, obs, _nearest_reg_gather)
+    return _regular("nearest", dims, starts, steps, vals, obs)
 
 
-def _rect_route(method, gather, grids, vals, obs, *extra):
-    ng = len(grids)
-    dims = tuple(int(g.shape[0]) for g in grids)
-    engine, kw = f64_route(vals, dims, method)
-    if engine is None:
-        def kernel(*a):
-            return _fused.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra)
-    else:
-        module = _df64 if engine == "df64" else _i8
-
-        def kernel(*a):
-            return module.eval_rectilinear(a[:ng], a[ng], a[ng + 1 :], method, *extra, **kw)
-    return _route(kernel, lambda *a: gather(a[:ng], a[ng], a[ng + 1 :], *extra),
-                  tuple(grids), vals, obs)
+def _rect_route(method, grids, vals, obs, *lin):
+    grids = tuple(grids)
+    return _route(kernel_route("rectilinear", method, len(grids), *lin), grids, vals, obs)
 
 
 def linear_rectilinear(grids, vals, obs, *, vals_finite=None):
     """Multilinear eval on a rectilinear grid; grids is a tuple of sorted
     1-D tensors, one per dim."""
-    return _rect_route("linear", _linear_rect_gather, grids, vals, obs)
+    return _rect_route("linear", grids, vals, obs)
 
 
 def cubic_rectilinear(grids, vals, obs, linearize_extrapolation: bool, *, vals_finite=None):
     """Multicubic eval on a rectilinear grid (every axis >= 4 entries)."""
-    return _rect_route(
-        "cubic", _cubic_rect_gather, grids, vals, obs, bool(linearize_extrapolation)
-    )
+    return _rect_route("cubic", grids, vals, obs, bool(linearize_extrapolation))
 
 
 def nearest_rectilinear(grids, vals, obs, *, vals_finite=None):
     """Nearest-neighbor eval on a rectilinear grid."""
-    return _rect_route("nearest", _nearest_rect_gather, grids, vals, obs)
+    return _rect_route("nearest", grids, vals, obs)
 
 
 def bspline_eval(knots, coeffs, obs, k: int, *, vals_finite=None):
@@ -191,17 +336,5 @@ def bspline_eval(knots, coeffs, obs, k: int, *, vals_finite=None):
     `ops.bspline.prep_bspline` (carried into tensors by
     `convert.bspline_from_numpy`); out-of-bounds queries extrapolate the end
     span's polynomial."""
-    ng = len(knots)
-    dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
-    engine, _ = f64_route(coeffs, dims, k)
-    if engine is None:
-        def kernel(*a):
-            return _fused.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k)
-    else:
-        def kernel(*a):
-            return _df64.eval_bspline(a[:ng], a[ng], a[ng + 1 :], k)
-    return _route(
-        kernel,
-        lambda *a: _bspline_gather(a[:ng], a[ng], a[ng + 1 :], k),
-        tuple(knots), coeffs, obs,
-    )
+    knots = tuple(knots)
+    return _route(kernel_route("bspline", int(k), len(knots)), knots, coeffs, obs)

@@ -10,37 +10,26 @@ to the single-table gather tree over each channel (`fused.plain_*_stack`;
 for rectilinear grids `fused.gather_rectilinear_stack`, since the plain
 version of rectilinear cubic contracts weights). The JAX package's f64
 channel loop and `vals_finite` guard answer TPU limits and have no
-counterpart: `vals_finite` is accepted and ignored. Gradients come from the
-per-channel gather tree, as in `ops/dispatch.py`.
+counterpart: `vals_finite` is accepted and ignored. Each stack op runs the
+stack route of `ops/dispatch.py::kernel_route`, so gradients come from the
+per-channel gather tree and `torch.func` composes as it does there.
 """
 
 from __future__ import annotations
 
-from . import fused as _fused
-from .dispatch import _route
+from .dispatch import _route, kernel_route
 
 
-def _stack(kernel, plain, params, vals_stack, obs):
-    return _route(kernel, plain, params, vals_stack, tuple(obs),
-                  lead=(int(vals_stack.shape[0]),))
-
-
-def _regular_stack(method, dims, starts, steps, vals_stack, obs, lin=True):
+def _regular_stack(method, dims, starts, steps, vals_stack, obs, *lin):
     dims = tuple(int(d) for d in dims)
-    return _stack(
-        lambda st, sp, v, *ob: _fused.eval_regular_stack(dims, st, sp, v, ob, method, lin),
-        lambda st, sp, v, *ob: _fused.plain_regular_stack(dims, st, sp, v, ob, method, lin),
-        (starts, steps), vals_stack, obs,
-    )
+    route = kernel_route("regular", method, dims, *lin).stack
+    return _route(route, (starts, steps), vals_stack, tuple(obs))
 
 
-def _rectilinear_stack(method, grids, vals_stack, obs, lin=True):
-    ng = len(grids)
-    return _stack(
-        lambda *a: _fused.eval_rectilinear_stack(a[:ng], a[ng], a[ng + 1 :], method, lin),
-        lambda *a: _fused.gather_rectilinear_stack(a[:ng], a[ng], a[ng + 1 :], method, lin),
-        tuple(grids), vals_stack, obs,
-    )
+def _rectilinear_stack(method, grids, vals_stack, obs, *lin):
+    grids = tuple(grids)
+    route = kernel_route("rectilinear", method, len(grids), *lin).stack
+    return _route(route, grids, vals_stack, tuple(obs))
 
 
 def linear_regular_stack(dims, starts, steps, vals_stack, obs, *, vals_finite=None):
@@ -80,9 +69,6 @@ def cubic_rectilinear_stack(grids, vals_stack, obs, linearize_extrapolation: boo
 def bspline_eval_stack(knots, coeffs_stack, obs, k: int, *, vals_finite=None):
     """An (nch, prod(dims)) stack of B-spline coefficient tables sharing one
     knot set, at `obs`: (nch, *obs[0].shape)."""
-    ng = len(knots)
-    return _stack(
-        lambda *a: _fused.eval_bspline_stack(a[:ng], a[ng], a[ng + 1 :], k),
-        lambda *a: _fused.plain_bspline_stack(a[:ng], a[ng], a[ng + 1 :], k),
-        tuple(knots), coeffs_stack, obs,
-    )
+    knots = tuple(knots)
+    route = kernel_route("bspline", int(k), len(knots)).stack
+    return _route(route, knots, coeffs_stack, tuple(obs))

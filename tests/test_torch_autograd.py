@@ -74,8 +74,10 @@ def _torch_grads(fn, dims, starts, steps, vals, obs, cot):
 def _kernel_fn(dims, st, sp, v, ob):
     """The linear kernel route as dispatch builds it for a CUDA tensor."""
     return tdispatch.KernelRoute.apply(
-        lambda *a: tfused.eval_regular(dims, a[0], a[1], a[2], a[3:]),
-        lambda *a: tlinear.linear_regular(dims, a[0], a[1], a[2], a[3:]),
+        tdispatch.Route(
+            lambda *a: tfused.eval_regular(dims, a[0], a[1], a[2], a[3:]),
+            lambda *a: tlinear.linear_regular(dims, a[0], a[1], a[2], a[3:]),
+            2, False, None, False),
         st, sp, v, *ob,
     )
 
@@ -147,8 +149,10 @@ def test_regular_kernel_route_grads_match_jax(route, dtype):
     def kernel_route(st, sp, v, *ob):
         method = route.split("-")[0]
         return tdispatch.KernelRoute.apply(
-            lambda *a: tfused.eval_regular(dims, *a[:3], a[3:], method, *extra),
-            lambda *a: tfn(dims, *a[:3], a[3:], *extra),
+            tdispatch.Route(
+                lambda *a: tfused.eval_regular(dims, *a[:3], a[3:], method, *extra),
+                lambda *a: tfn(dims, *a[:3], a[3:], *extra),
+                2, False, None, False),
             st, sp, v, *ob,
         )
 
@@ -180,8 +184,10 @@ def test_rectilinear_kernel_route_grads_match_jax(route, dtype):
     def kernel_route(*a):
         method = route.split("-")[0]
         return tdispatch.KernelRoute.apply(
-            lambda *b: tfused.eval_rectilinear(b[:3], b[3], b[4:], method, *extra),
-            lambda *b: tfn(b[:3], b[3], b[4:], *extra),
+            tdispatch.Route(
+                lambda *b: tfused.eval_rectilinear(b[:3], b[3], b[4:], method, *extra),
+                lambda *b: tfn(b[:3], b[3], b[4:], *extra),
+                3, False, None, False),
             *a,
         )
 
@@ -200,8 +206,10 @@ def test_nearest_vals_gradient_is_one_hot():
     starts, steps, vals, obs, cot = _case(dims, np.float64, n=50, seed=13)
     args = [torch.tensor(a, requires_grad=True) for a in (starts, steps, vals, *obs)]
     out = tdispatch.KernelRoute.apply(
-        lambda *a: tfused.eval_regular(dims, *a[:3], a[3:], "nearest"),
-        lambda *a: tnearest.nearest_regular(dims, *a[:3], a[3:]),
+        tdispatch.Route(
+            lambda *a: tfused.eval_regular(dims, *a[:3], a[3:], "nearest"),
+            lambda *a: tnearest.nearest_regular(dims, *a[:3], a[3:]),
+            2, False, None, False),
         *args,
     )
     out.backward(torch.from_numpy(cot))

@@ -235,8 +235,10 @@ def test_kernel_route_grads_match_jax(k):
     kt = tuple(torch.from_numpy(t) for t in knots)
     leaves = [torch.tensor(a, requires_grad=True) for a in (coeffs, *obs)]
     out = tdispatch.KernelRoute.apply(
-        lambda c, *ob: tfused.eval_bspline(kt, c, ob, k),
-        lambda c, *ob: tbspline.bspline_gather(kt, c, ob, k),
+        tdispatch.Route(
+            lambda c, *ob: tfused.eval_bspline(kt, c, ob, k),
+            lambda c, *ob: tbspline.bspline_gather(kt, c, ob, k),
+            0, False, None, False),
         *leaves,
     )
     out.backward(torch.from_numpy(cot))

@@ -246,8 +246,10 @@ def test_stack_kernel_route_grads_match_jax(method):
     lin = (False,) if method == "cubic" else ()
     leaves = [torch.tensor(a, requires_grad=True) for a in (*grid, vals, *obs)]
     out = tdispatch.KernelRoute.apply(
-        lambda *a: tfused.eval_rectilinear_stack(a[:3], a[3], a[4:], method, *lin),
-        lambda *a: tfused.gather_rectilinear_stack(a[:3], a[3], a[4:], method, *lin),
+        tdispatch.Route(
+            lambda *a: tfused.eval_rectilinear_stack(a[:3], a[3], a[4:], method, *lin),
+            lambda *a: tfused.gather_rectilinear_stack(a[:3], a[3], a[4:], method, *lin),
+            3, True, None, False),
         *leaves,
     )
     out.backward(torch.from_numpy(cot))
