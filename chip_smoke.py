@@ -62,8 +62,22 @@ derivatives), one K8 path under INTERPN_TPU_F64=df64 vmapped and
 differentiated, and compat.RegularGridInterpolator from numpy (linear,
 nearest, slinear and pchip within 1e-12 of scipy's RGI, hermite, cubic and
 quintic bitwise raw / interpn(), a trailing axis of 8 channels one stack
-launch, the float32 opt-in), each timed beside the call it reduces to. A
-failed check raises and the script exits non-zero; a timing never does. Phase
+launch, the float32 opt-in), each timed beside the call it reduces to, 8
+the serving artifacts and the parallel evaluators: MultilinearRegular 20^3
+f32 exported by `aot.export_eval` on the card with buckets of 1024, 65536
+and 1e6 queries (each program the regular custom op once and a reshape, no
+gather tree), served in a fresh process that imports only
+`interpn_tpu_torch.aot`, at 1e6 and 999,999 (padded) queries, each bitwise
+eval_torch with K1 launched once a call; the seven other classes
+(TensorSplineRegular with pchip, TensorSplineRectilinear with
+cubic_spline) exported at one bucket of 1e6 and served bitwise, K1-K4
+once a call, pchip's program its gather tree; and on
+make_mesh() (the card) and four cuda:0 entries, prepared_evaluator on the
+main path, sharded_evaluator on every method and grid kind, the splines
+prepared, prepared_stack_evaluator on 8 tables (K5, K6, K7), each shard on
+its device, one launch a shard, the shards joined bitwise the
+single-device op; each timed beside the call it stands for. A failed
+check raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
 card's name and power limit, the kernels' JSON record and {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero before any
@@ -3030,6 +3044,280 @@ def transforms_phase(cuda, smi) -> None:
     log(f"phase 7 record [{smi}] ({time.perf_counter() - t0:.1f} s): {json.dumps(rows)}")
 
 
+# --- phase 8: serving artifacts (aot) and obs-axis data parallelism (parallel) --------
+
+SERVE_BUCKETS = (1024, 65536, N_MAIN)
+# The fresh process that serves the main path's artifact: it imports only
+# interpn_tpu_torch.aot, serves N_MAIN and N_MAIN - 1 queries with the launch
+# counts set to 0 just before each call, saves the results, times N_HOST
+# synchronised calls of N_MAIN and prints one JSON line.
+SERVE_SCRIPT = """
+import json, sys, time
+import numpy as np
+import torch
+from interpn_tpu_torch import aot
+
+fused = sys.modules["interpn_tpu_torch.ops.fused"]
+art, obs_path, out_path, calls = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+served = aot.load(open(art, "rb").read())
+obs = [torch.from_numpy(o).to(served.device) for o in np.load(obs_path)]
+launches = {}
+for n in (len(obs[0]), len(obs[0]) - 1):
+    fused.reset_launches()
+    got = served([o[:n] for o in obs])
+    torch.cuda.synchronize()
+    launches[n] = {c: k for c, k in fused.launches.items() if k}
+    np.save(f"{out_path}.{n}.npy", got.cpu().numpy())
+served(obs)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(calls):
+    served(obs)
+torch.cuda.synchronize()
+ms = (time.perf_counter() - t0) * 1e3 / calls
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "interpn_tpu"))
+print(json.dumps({"launches": launches, "served_ms": ms, "foreign": foreign}))
+"""
+
+
+def serving_models(cuda):
+    """The eight classes at 20^3 f32 on the bench grid and table, as phase 6
+    builds them, TensorSplineRegular with pchip (no kernel) and
+    TensorSplineRectilinear with cubic_spline (K4): (label, model, counter
+    of its kernel or None for pchip)."""
+    import interpn_tpu_torch as itt
+
+    x, vals = bench_grid(20, 3)
+    x32, table = x.astype(np.float32), vals.ravel().astype(np.float32)
+    starts, steps = np.zeros(3, np.float32), np.full(3, x32[1] - x32[0], np.float32)
+    axes = [a.astype(np.float32) for a in bench_rect_axes(20, 3)]
+    out = []
+    for kind in ("Regular", "Rectilinear"):
+        args = ([20] * 3, starts, steps, table) if kind == "Regular" else (axes, table)
+        for family, method in (("Multilinear", "linear"), ("Multicubic", "cubic"),
+                               ("Nearest", "nearest")):
+            out.append((f"{family}{kind} 20^3 f32", getattr(itt, f"{family}{kind}").new(*args),
+                        f"{kind.lower()}_{method}"))
+        method = "pchip" if kind == "Regular" else "cubic_spline"
+        out.append((f"TensorSpline{kind} {method} 20^3 f32",
+                    getattr(itt, f"TensorSpline{kind}").new(*args, method=method),
+                    f"bspline_k{SPLINE[method]}" if method in SPLINE else None))
+    return out
+
+
+def program_targets(blob: bytes) -> list:
+    """The call targets of the artifact's first program."""
+    import io
+
+    from interpn_tpu_torch import aot
+
+    _, off = aot._read(blob, len(aot._MAGIC))
+    program = torch.export.load(io.BytesIO(aot._read(blob, off)[0]))
+    return [n.target for n in program.graph.nodes if n.op == "call_function"]
+
+
+def served_main_path(cuda, smi, obs_np) -> dict:
+    """(a) MultilinearRegular 20^3 f32 exported on cuda:0 with buckets
+    SERVE_BUCKETS, its program the regular op's node and a reshape, served
+    in a fresh process at N_MAIN and N_MAIN - 1 (padded) queries, each
+    bitwise eval_torch with K1 launched once a call."""
+    import tempfile
+
+    from interpn_tpu_torch import aot
+    from interpn_tpu_torch.ops import library
+
+    label, model, counter = serving_models(cuda)[0]
+    t0 = time.perf_counter()
+    blob = aot.export_eval(model, list(SERVE_BUCKETS), device=cuda)
+    export_s = time.perf_counter() - t0
+    targets = program_targets(blob)
+    if targets.count(library.overload("regular")) != 1 or set(targets) - {
+            library.overload("regular"), torch.ops.aten.reshape.default}:
+        raise AssertionError(f"{label}: the program's nodes are {targets}, want the regular "
+                             "op once and no gather tree")
+    obs_t = [torch.from_numpy(o).to(cuda) for o in obs_np]
+    with tempfile.TemporaryDirectory() as tmp:
+        art, obs_path, out = f"{tmp}/main.ittaot", f"{tmp}/obs.npy", f"{tmp}/out"
+        with open(art, "wb") as f:
+            f.write(blob)
+        np.save(obs_path, np.stack(obs_np))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", SERVE_SCRIPT, art, obs_path, out,
+                              str(N_HOST)], capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        process_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"{label}: the serving process failed:\n{run.stderr[-4000:]}")
+        record = json.loads(run.stdout.strip().splitlines()[-1])
+        results = {n: np.load(f"{out}.{n}.npy") for n in (N_MAIN, N_MAIN - 1)}
+    if record["foreign"]:
+        raise AssertionError(f"{label}: the serving process imported {record['foreign']}")
+    for n, got in results.items():
+        want = model.eval_torch([o[:n] for o in obs_t])
+        bitwise(torch.from_numpy(got).to(cuda), want, f"{label}: served {n} vs eval_torch")
+        if record["launches"][str(n)] != {counter: 1}:
+            raise AssertionError(f"{label}: served {n} launched {record['launches'][str(n)]}, "
+                                 f"want {counter} once")
+    eval_ms = host_ms(lambda: model.eval_torch(obs_t))
+    row = {"path": f"served {label}", "buckets": list(SERVE_BUCKETS), "artifact_bytes": len(blob),
+           "export_s": export_s, "process_s": process_s, "launches": record["launches"],
+           "served_ms": record["served_ms"], "eval_torch_ms": eval_ms}
+    log(f"phase 8 (a) {label} exported on {cuda} with buckets {list(SERVE_BUCKETS)} in "
+        f"{export_s:.2f} s ({len(blob)} bytes; each program the regular op once and a "
+        f"reshape, no gather tree), served in a fresh process importing only "
+        f"interpn_tpu_torch.aot ({process_s:.1f} s in all) at {N_MAIN} and {N_MAIN - 1} "
+        f"(padded) queries: each bitwise eval_torch, {counter} launched once a call "
+        f"{record['launches']} [{smi}]: served {record['served_ms']:.4f} ms/call (fresh "
+        f"process), eval_torch {eval_ms:.4f} ms/call, host clock, mean of {N_HOST} "
+        "synchronised calls")
+    return row
+
+
+def served_classes(cuda, smi, obs_t) -> list[dict]:
+    """(b) The other classes at 20^3 f32, one bucket of N_MAIN each,
+    exported and served in this process bitwise eval_torch, the class's
+    kernel (K1-K4) launched once a call; pchip's program is its gather
+    tree and launches nothing."""
+    from interpn_tpu_torch import aot
+    from interpn_tpu_torch.ops import library
+
+    kernel_ops = {library.overload(name) for name in library.NAMES}
+    rows = []
+    for label, model, counter in serving_models(cuda)[1:]:
+        t0 = time.perf_counter()
+        blob = aot.export_eval(model, N_MAIN, device=cuda)
+        export_s = time.perf_counter() - t0
+        targets = program_targets(blob)
+        ops_in = [t for t in targets if t in kernel_ops]
+        if len(ops_in) != (1 if counter else 0):
+            raise AssertionError(f"{label}: kernel nodes {ops_in}")
+        served = aot.load(blob)
+        got = counted(lambda: served(obs_t), {counter: 1} if counter else {},
+                      f"{label} served")
+        bitwise(got, model.eval_torch(obs_t), f"{label}: served vs eval_torch")
+        row = {"path": f"served {label}", "artifact_bytes": len(blob), "export_s": export_s,
+               "nodes": len(targets), "served_ms": host_ms(lambda: served(obs_t)),
+               "eval_torch_ms": host_ms(lambda: model.eval_torch(obs_t))}
+        what = f"{counter} launched once" if counter else "no kernel (pchip's gather tree)"
+        log(f"phase 8 (b) {label} exported on {cuda} (bucket {N_MAIN}, {len(blob)} bytes, "
+            f"{len(targets)} nodes, {export_s:.2f} s) and served x {N_MAIN}: bitwise "
+            f"eval_torch, {what} [{smi}]: served {row['served_ms']:.4f}, eval_torch "
+            f"{row['eval_torch_ms']:.4f} ms/call, host clock")
+        rows.append(row)
+    return rows
+
+
+def sharded_case(label, meshes, build, single, counter, smi) -> list[dict]:
+    """For each mesh: `build(mesh)` (the evaluator built on the mesh, bound
+    to its arguments) called once with the launch counts set to 0: one
+    launch of `counter` a shard (none for pchip), each shard on its mesh
+    entry's device, the shards joined bitwise `single()`; both timed."""
+    want = single()
+    rows = []
+    for name, mesh in meshes:
+        f = build(mesh)
+        parts = len(mesh)
+        out = counted(f, {counter: parts} if counter else {}, f"{label} on {name}")
+        for s, d in zip(out, mesh):
+            if s.device != d:
+                raise AssertionError(f"{label} on {name}: a shard on {s.device}, not {d}")
+        bitwise(out.concat(mesh[0]), want, f"{label} on {name}: shards vs the single op")
+        rows.append({"path": f"{label} on {name}", "shards": parts,
+                     "launches": {counter: parts} if counter else {},
+                     "sharded_ms": host_ms(f), "single_ms": host_ms(single)})
+        log(f"phase 8 (c) {label} x {N_MAIN} on {name}: {parts} shard(s) on their devices, "
+            f"joined bitwise the single-device op, "
+            f"{f'{counter} launched {parts} times (once a shard)' if counter else 'no kernel'}"
+            f" [{smi}]: sharded {rows[-1]['sharded_ms']:.4f}, single-device "
+            f"{rows[-1]['single_ms']:.4f} ms/call, host clock")
+    return rows
+
+
+def parallel_phase(cuda, smi, obs_np) -> list[dict]:
+    """(c) The evaluators of interpn_tpu_torch.parallel on make_mesh() (the
+    one card) and on four cuda:0 entries: prepared_evaluator on the main
+    path, sharded_evaluator on every method and grid kind, the splines
+    through prepared_evaluator, prepared_stack_evaluator on NCH tables (K5,
+    K6, K7), each against the single-device op."""
+    from functools import partial
+
+    from interpn_tpu_torch import convert, ops, parallel
+
+    meshes = [("make_mesh()", parallel.make_mesh()), ("4 x cuda:0", (cuda,) * 4)]
+    x, vals = bench_grid(20, 3)
+    x32, table = x.astype(np.float32), vals.ravel().astype(np.float32)
+    starts, steps = np.zeros(3, np.float32), np.full(3, x32[1] - x32[0], np.float32)
+    axes = [a.astype(np.float32) for a in bench_rect_axes(20, 3)]
+    dims = (20,) * 3
+    obs_t = tuple(torch.from_numpy(o).to(cuda) for o in obs_np)
+    reg = convert.regular_grid_from_numpy(dims, starts, steps, table, device=cuda, dtype=F32)
+    rect = convert.rectilinear_grid_from_numpy(axes, table, device=cuda, dtype=F32)
+    heads = {"regular": reg[:3], "rectilinear": rect[:1]}  # the ops' arguments before vals
+    grids = {"regular": (starts, steps), "rectilinear": axes}
+
+    rows = sharded_case(
+        "prepared_evaluator regular linear 20^3 f32", meshes,
+        lambda mesh: partial(parallel.prepared_evaluator(mesh, grids["regular"], table,
+                                                         dims=dims), obs_t),
+        partial(ops.linear_regular, *reg, obs_t), "regular_linear", smi)
+    for method in ("linear", "cubic", "nearest", "pchip"):
+        lin = (True,) if method == "cubic" else ()
+        for kind in ("regular", "rectilinear"):
+            regular = kind == "regular"
+            rows += sharded_case(
+                f"sharded_evaluator {kind} {method} 20^3 f32", meshes,
+                lambda mesh, regular=regular, kind=kind, method=method: partial(
+                    parallel.sharded_evaluator(mesh, method=method, regular=regular),
+                    grids[kind], table, obs_t, dims=dims),
+                partial(getattr(ops, f"{method}_{kind}"), *heads[kind], reg[3], obs_t, *lin),
+                None if method == "pchip" else f"{kind}_{method}", smi)
+    for method, k in SPLINE.items():
+        knots, coeffs = ops.prep_bspline(axes, table.astype(np.float64), k)
+        kt, ct = convert.bspline_from_numpy(knots, coeffs, device=cuda, dtype=F32)
+        rows += sharded_case(
+            f"prepared_evaluator rectilinear {method} 20^3 f32", meshes,
+            lambda mesh, method=method: partial(parallel.prepared_evaluator(
+                mesh, axes, table, method=method, regular=False), obs_t),
+            partial(ops.bspline_eval, kt, ct, obs_t, k), f"bspline_k{k}", smi)
+    tables = np.stack([table + c for c in range(NCH)])
+    stack = torch.from_numpy(tables).to(cuda)
+    for method in ("linear", "cubic", "nearest"):
+        lin = (True,) if method == "cubic" else ()
+        for kind in ("regular", "rectilinear"):
+            regular = kind == "regular"
+            rows += sharded_case(
+                f"prepared_stack_evaluator {kind} {method} {NCH} tables 20^3 f32", meshes,
+                lambda mesh, regular=regular, kind=kind, method=method: partial(
+                    parallel.prepared_stack_evaluator(mesh, grids[kind], tables,
+                                                      dims=dims if regular else None,
+                                                      method=method, regular=regular), obs_t),
+                partial(getattr(ops, f"{method}_{kind}_stack"), *heads[kind], stack, obs_t,
+                        *lin),
+                f"{kind}_{method}_stack", smi)
+    knots, coeffs = ops.prep_bspline(axes, np.ascontiguousarray(tables.T, dtype=np.float64), 3)
+    kt, ct = convert.bspline_from_numpy(knots, np.ascontiguousarray(coeffs.T), device=cuda,
+                                        dtype=F32)
+    rows += sharded_case(
+        f"prepared_stack_evaluator rectilinear cubic_spline {NCH} tables 20^3 f32", meshes,
+        lambda mesh: partial(parallel.prepared_stack_evaluator(
+            mesh, axes, tables, method="cubic_spline", regular=False), obs_t),
+        partial(ops.bspline_eval_stack, kt, ct, obs_t, 3), "bspline_k3_stack", smi)
+    return rows
+
+
+def serving_phase(cuda, smi) -> None:
+    """Phase 8: the serving artifacts (a, b) and the parallel evaluators
+    (c) at the main path's width; their numbers in one log line for
+    PERF.md."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(9)
+    obs_np = [rng.uniform(LO, HI, N_MAIN).astype(np.float32) for _ in range(3)]
+    obs_t = [torch.from_numpy(o).to(cuda) for o in obs_np]
+    rows = [served_main_path(cuda, smi, obs_np), *served_classes(cuda, smi, obs_t),
+            *parallel_phase(cuda, smi, obs_np)]
+    log(f"phase 8 record [{smi}] ({time.perf_counter() - t0:.1f} s): {json.dumps(rows)}")
+
+
 def kernels_record(driven, timed) -> list[dict]:
     """One entry per kernel, from its headline path (its first in PATHS),
     a grid kernel's also with `layouts`: for each of its paths, the layout
@@ -3108,6 +3396,7 @@ def main() -> None:
     layouts = [layout_phase(name, cuda, smi, driven) for name in LAYOUT_PATHS]
     slice_phase(cuda, smi)
     transforms_phase(cuda, smi)
+    serving_phase(cuda, smi)
 
     # the last three lines, unprefixed: the card, the kernels, the result
     print(smi)

@@ -20,6 +20,10 @@ gather tree on every device).
   and the queries, vmap over tables onto the stack kernels)
 * `interpn_tpu_torch.compat`: scipy's `RegularGridInterpolator` and
   `interpn`, with scipy's semantics and error strings
+* `interpn_tpu_torch.aot`: serving artifacts (`torch.export` programs of a
+  model's evaluation, one per batch-size bucket, over the kernels as
+  `torch.library` custom ops, `ops/library.py`)
+* `interpn_tpu_torch.parallel`: the queries split over a mesh of devices
 * `interpn_tpu_torch.config`: where numpy inputs compute (CUDA by default;
   `config.set_device("cpu")` asks for the CPU)
 """

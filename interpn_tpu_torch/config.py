@@ -12,6 +12,17 @@ plain PyTorch versions that could hold one. PyTorch's defaults keep float32
 products in full float32 (`torch.backends.cuda.matmul.allow_tf32` False,
 `torch.get_float32_matmul_precision()` "highest"); TF32 would keep about
 three decimal digits. `require_ieee_fp32` checks that nobody changed them.
+
+What of `interpn_tpu/config.py` has no counterpart here, and why:
+
+* the x64 switch (`jax_enable_x64`, INTERPN_TPU_NO_X64): torch has float64
+  natively, so there is nothing to enable;
+* the persistent XLA compilation cache and `host_feature_tag`, which keys
+  it by the host's CPU features: the port's compiled state is the kernel
+  libraries that `_build.py` builds from `csrc/` into its build directory,
+  and the serving artifacts of `aot.py`;
+* `INDEX_DTYPE`: the kernels' index width is fixed in `csrc/` (int32
+  indices, refused above 2^31 entries by the wrappers in `ops/fused.py`).
 """
 
 from __future__ import annotations

@@ -22,7 +22,10 @@ evaluation:
 * `gradient_torch`, each query's partial derivatives by reverse mode: every
   output depends on its own query alone, so the gradient of the sum is the
   per-query derivative, one backward pass for every axis;
-* `warmup(n)` and `check_bounds`.
+* `warmup(n)` and `check_bounds`;
+* `core(device)`: the evaluation on one device as an `nn.Module`
+  (`DeviceCore`, the grid and table its buffers), which `aot.export_eval`
+  exports.
 
 Each evaluation calls the port's `ops` function of the method with the
 cached tensors, so a class's result is bitwise that call's, and `raw`'s.
@@ -53,6 +56,48 @@ def _size(x) -> int:
     return int(x.size) if hasattr(x, "size") else int(np.size(x))
 
 
+def evaluate(method: str, dims, linearize: bool, grid, obs_t):
+    """`method` at the flat query tensors `obs_t` on the cached tensors
+    `grid` (`DeviceInterpolator.tensors`): the `ops` call of the method;
+    `dims` is a regular grid's dims, None for a rectilinear grid. No check
+    and no host sync."""
+    if method in SPLINE_DEGREE:
+        return ops.bspline_eval(*grid, obs_t, SPLINE_DEGREE[method])
+    kind = "rectilinear" if dims is None else "regular"
+    lead = () if dims is None else (dims,)
+    lin = (linearize,) if method == "cubic" else ()
+    return getattr(ops, f"{method}_{kind}")(*lead, *grid, obs_t, *lin)
+
+
+class DeviceCore(torch.nn.Module):
+    """obs -> result of one interpolator on its tensors on one device, as
+    `torch.export` takes it: the counterpart of the JAX classes'
+    `_eval_device_full` in `interpn_tpu/aot.py`. The grid and table are
+    the module's buffers (the interpolator's cached tensors, not copies);
+    `forward(*obs)` takes ndims flat tensors of the model's dtype on that
+    device and runs `evaluate`: no unrepresentable-coordinate flag, no
+    host sync, so NaN and inf coordinates give NaN or extrapolate, as
+    `eval_torch` does."""
+
+    def __init__(self, interp: "DeviceInterpolator", device: torch.device):
+        super().__init__()
+        self.method = interp.method
+        self.dims = interp.dims if interp.regular else None
+        self.linearize = interp.linearize
+        grid = interp.tensors(device)
+        # regular: (starts, steps, vals); rectilinear: (grids, vals); spline: (knots, coeffs)
+        self.nested = isinstance(grid[0], tuple)
+        flat = [*grid[0], grid[1]] if self.nested else list(grid)
+        for i, t in enumerate(flat):
+            self.register_buffer(f"t{i}", t)
+        self.count = len(flat)
+
+    def forward(self, *obs):
+        flat = [getattr(self, f"t{i}") for i in range(self.count)]
+        grid = (tuple(flat[:-1]), flat[-1]) if self.nested else tuple(flat)
+        return evaluate(self.method, self.dims, self.linearize, grid, obs)
+
+
 class DeviceInterpolator:
     """One interpolator's evaluation on the device; see the module
     docstring. Give `dims`, `starts` and `steps` for a regular grid, or
@@ -77,7 +122,6 @@ class DeviceInterpolator:
         self.linearize = bool(linearize_extrapolation)
         self.grid_ok = all(d >= min_grid for d in self.dims)
         self.min_grid_msg = min_grid_msg
-        self._finite = None
         self._tensors: dict[torch.device, tuple] = {}
 
     def ndims(self) -> int:
@@ -120,33 +164,23 @@ class DeviceInterpolator:
         self._tensors[device] = cached
         return cached
 
-    @property
-    def vals_finite(self) -> bool:
-        """Whether the table is finite, checked once on the host."""
-        if self._finite is None:
-            self._finite = bool(np.isfinite(self.vals).all())
-        return self._finite
-
     # --- evaluation ------------------------------------------------------------
 
     def _eval(self, obs_t, flag: bool = False):
         """(result, unrepresentable flag or None) on the tensors' device:
         the flag only where `flag` is asked for and the reference raises it
         (the reference methods on a regular grid)."""
-        method = self.method
         grid = self.tensors(obs_t[0].device)
-        if method in SPLINE_DEGREE:
-            return ops.bspline_eval(*grid, obs_t, SPLINE_DEGREE[method],
-                                    vals_finite=self.vals_finite), None
-        kind = "regular" if self.regular else "rectilinear"
-        dims = (self.dims,) if self.regular else ()
-        if method == "pchip":
-            return getattr(ops, f"pchip_{kind}")(*dims, *grid, obs_t), None
-        lin = (self.linearize,) if method == "cubic" else ()
-        result = getattr(ops, f"{method}_{kind}")(*dims, *grid, obs_t, *lin,
-                                                  vals_finite=self.vals_finite)
-        bad = raw._unrep_flag(grid[0], grid[1], obs_t) if flag and self.regular else None
+        result = evaluate(self.method, self.dims if self.regular else None, self.linearize,
+                          grid, obs_t)
+        bad = None
+        if flag and self.regular and self.method in ("linear", "cubic", "nearest"):
+            bad = raw._unrep_flag(grid[0], grid[1], obs_t)
         return result, bad
+
+    def core(self, device) -> "DeviceCore":
+        """The evaluation on `device` as a module (for `aot.export_eval`)."""
+        return DeviceCore(self, torch.device(device))
 
     def _obs_to_device(self, obs, device) -> tuple[torch.Tensor, ...]:
         """Flat query tensors of the model's dtype on `device`."""

@@ -23,9 +23,13 @@ A forced engine takes f64 CUDA tables of 2-8D with finite entries; nearest,
 stacks, f32, 1-D, CPU tensors and tables with a NaN or inf keep their
 routes (the JAX package sends a non-finite table to its gather tree; here
 the native kernel reads only the stencil). Unset, `auto` or any other value
-changes nothing: the port makes no automatic choice of these engines, and
-the JAX package's auto-mode gates (`_prefer_i8`, the cost model, the spike
-and depth gates) have no counterpart yet.
+changes nothing: `auto` sends f64 to K8 or K9 never, so the JAX package's
+auto-mode gates (`_prefer_i8`, the cost model, the spike and depth gates)
+have no counterpart. On the H100 the native `double` kernels win every f64
+path by whole call, the shapes the JAX package's `auto` sends to its int8
+engine included: regular cubic f64 at 1e6 queries, 20^4 native 0.4134 ms,
+K8 0.5431, K9 0.9488; 12^5 native 1.3898, K8 1.9731, K9 2.3887
+(`scripts/torch_regular_ab.py --engines`, H100 80GB HBM3 at 700 W).
 
 Every evaluator takes the JAX package's keyword-only `vals_finite` and
 ignores it: there it tells the engine choice whether the table is finite
@@ -45,6 +49,12 @@ call bit for bit the call on that row's inputs. What a call runs is a
 device, which a `torch.func` wrapper reports as its inner tensor's; the
 rest of the route decision (`f64_route`, the layouts, the engines' caches)
 is taken inside the kernel callables, which run on plain tensors.
+
+The kernel callables are the `torch.library` custom ops of
+`ops/library.py`, one per family and form, so `torch.export` records a
+kernel call as one node (`aot.py`). A call asks its op for the engine
+INTERPN_TPU_F64 forces when the call is made or traced (`_engine`, which
+reads no table data); the op admits it for the table (`f64_route`).
 """
 
 from __future__ import annotations
@@ -58,6 +68,7 @@ import torch
 from . import df64 as _df64
 from . import fused as _fused
 from . import i8 as _i8
+from . import library as _library
 from .bspline import bspline_gather as _bspline_gather
 from .cubic import cubic_rectilinear as _cubic_rect_gather
 from .cubic import cubic_regular as _cubic_reg_gather
@@ -186,14 +197,14 @@ def f64_engine() -> str:
     return mode if mode in ("df64", "i8") else "auto"
 
 
-def f64_route(vals, dims, method):
+def f64_route(vals, dims, method, engine=None):
     """(engine, keywords of its wrapper): ('df64', {}) or ('i8', {'prep':
-    the table's `i8.prepare`}) where INTERPN_TPU_F64 forces that engine on
-    this call, else (None, {}). `method` is 'linear', 'cubic' or a spline
-    degree (3, 5). The table's finiteness is cached with its split
-    (`df64.table_split`, which K8's cached taps are made from) or its
-    decomposition."""
-    engine = f64_engine()
+    the table's `i8.prepare`}) where `engine` (by default the one
+    INTERPN_TPU_F64 forces, read now) takes this call, else (None, {}).
+    `method` is 'linear', 'cubic' or a spline degree (3, 5). The table's
+    finiteness is cached with its split (`df64.table_split`, which K8's
+    cached taps are made from) or its decomposition."""
+    engine = f64_engine() if engine is None else engine
     if engine == "auto" or _impl(vals) != "kernel" or vals.dtype != torch.float64:
         return None, {}
     if engine == "i8" and _i8.supported(dims, method):
@@ -202,6 +213,19 @@ def f64_route(vals, dims, method):
     if _df64.supported(dims, method) and _df64.table_split(vals)[2]:
         return "df64", {}
     return None, {}
+
+
+def _engine(vals, method) -> str:
+    """The engine a kernel call asks its op for (`ops/library.py`): the one
+    INTERPN_TPU_F64 forces, read now, on an f64 CUDA table of a method that
+    an engine takes, else 'native'. It reads no table data, so a traced
+    call (`torch.export`) records it and the program keeps it; the op
+    admits it for the table (`f64_route`)."""
+    engine = f64_engine()
+    if (engine == "auto" or method == "nearest" or vals.dtype != torch.float64
+            or _impl(vals) != "kernel"):
+        return "native"
+    return engine
 
 
 _REGULAR_GATHER = {"linear": _linear_reg_gather, "cubic": _cubic_reg_gather,
@@ -216,56 +240,36 @@ def kernel_route(family: str, method, key, lin: bool = True) -> Route:
     params (starts, steps); "rectilinear": `key` the number of axes, params
     the grids; "bspline": `method` the degree, `key` the number of axes,
     params the knots), with its stack route as `.stack`. `lin` is cubic's
-    `linearize_extrapolation` (passed to cubic only)."""
-    extra = (bool(lin),) if method == "cubic" else ()
+    `linearize_extrapolation` (passed to cubic only). The kernel callables
+    are the family's custom ops (`ops/library.py`)."""
+    lin = bool(lin)
+    extra = (lin,) if method == "cubic" else ()
     if family == "regular":
         dims = key
-
-        def kernel(st, sp, v, *ob):
-            engine, kw = f64_route(v, dims, method)
-            if engine is None:
-                return _fused.eval_regular(dims, st, sp, v, ob, method, *extra)
-            module = _df64 if engine == "df64" else _i8
-            return module.eval_regular(dims, st, sp, v, ob, method, *extra, **kw)
-
         parts = (
-            kernel,
+            lambda st, sp, v, *ob: _library.regular(dims, st, sp, v, ob, method, lin,
+                                                    _engine(v, method)),
             lambda st, sp, v, *ob: _REGULAR_GATHER[method](dims, st, sp, v, ob, *extra),
-            lambda st, sp, v, *ob: _fused.eval_regular_stack(dims, st, sp, v, ob, method, lin),
+            lambda st, sp, v, *ob: _library.regular_stack(dims, st, sp, v, ob, method, lin),
             lambda st, sp, v, *ob: _fused.plain_regular_stack(dims, st, sp, v, ob, method, lin),
         )
         nparams = 2
     elif family == "rectilinear":
         ng = nparams = key
-
-        def kernel(*a):
-            dims = tuple(int(g.shape[0]) for g in a[:ng])
-            engine, kw = f64_route(a[ng], dims, method)
-            if engine is None:
-                return _fused.eval_rectilinear(a[:ng], a[ng], a[ng + 1:], method, *extra)
-            module = _df64 if engine == "df64" else _i8
-            return module.eval_rectilinear(a[:ng], a[ng], a[ng + 1:], method, *extra, **kw)
-
         parts = (
-            kernel,
+            lambda *a: _library.rectilinear(a[:ng], a[ng], a[ng + 1:], method, lin,
+                                            _engine(a[ng], method)),
             lambda *a: _RECT_GATHER[method](a[:ng], a[ng], a[ng + 1:], *extra),
-            lambda *a: _fused.eval_rectilinear_stack(a[:ng], a[ng], a[ng + 1:], method, lin),
+            lambda *a: _library.rectilinear_stack(a[:ng], a[ng], a[ng + 1:], method, lin),
             lambda *a: _fused.gather_rectilinear_stack(a[:ng], a[ng], a[ng + 1:], method, lin),
         )
     elif family == "bspline":
         ng = nparams = key
         k = method
-
-        def kernel(*a):
-            dims = tuple(int(t.shape[0]) - k - 1 for t in a[:ng])
-            if f64_route(a[ng], dims, k)[0] is None:
-                return _fused.eval_bspline(a[:ng], a[ng], a[ng + 1:], k)
-            return _df64.eval_bspline(a[:ng], a[ng], a[ng + 1:], k)
-
         parts = (
-            kernel,
+            lambda *a: _library.bspline(a[:ng], a[ng], a[ng + 1:], k, _engine(a[ng], k)),
             lambda *a: _bspline_gather(a[:ng], a[ng], a[ng + 1:], k),
-            lambda *a: _fused.eval_bspline_stack(a[:ng], a[ng], a[ng + 1:], k),
+            lambda *a: _library.bspline_stack(a[:ng], a[ng], a[ng + 1:], k),
             lambda *a: _fused.plain_bspline_stack(a[:ng], a[ng], a[ng + 1:], k),
         )
     else:

@@ -72,14 +72,17 @@ time; exits non-zero without a CUDA device.
     PYTHONPATH=. python3 scripts/torch_regular_ab.py --parent DIR --engines
 
 times the f64 engines K8 and K9 (`INTERPN_TPU_F64=df64|i8`) instead, on
-the ten engine paths of `chip_smoke.py` (its tables and grids, 20 batches
+the ten engine paths of `chip_smoke.py` and regular cubic 20^4 f64 under
+each engine (its tables and grids, 20 batches
 of 1e6 queries uniform in [-0.5, 10.5]), each checkout building only its
 two engine sources. On each path, in turns (earlier, this, this, earlier):
 the kernel alone (the earlier checkout's wrapper on weights built
 beforehand; this checkout's one launch from the queries, which is its
 whole call less host), the whole call (each checkout's
 `ops.df64.eval_*` / `ops.i8.eval_*`: weights, kernel, recombination) by
-CUDA events over 4 batches, the op a user calls back to back (median of
+CUDA events over 4 batches, this checkout's whole call beside its native
+kernel's on the same float64 table (K1, K2, K4: `fused.eval_*`, in turns
+native, engine, engine, native), the op a user calls back to back (median of
 ten passes, host included), and the `raw` entry (the op for a spline) from
 CUDA tensors on the host clock; this checkout's result bitwise equal to the
 earlier one's; the registers, local bytes and blocks an SM of this
@@ -579,9 +582,26 @@ def case_times(case, earlier, cuda) -> dict:
 
 
 def engine_paths(only=None):
+    """`chip_smoke.py`'s engine paths and regular cubic 20^4 f64 under each
+    engine (the shape that the JAX package's auto mode sends to its int8
+    engine, as 12^5: `bench.py`'s tpu_cubic_f64_4d@1M), whose label `only`
+    finds."""
     import chip_smoke as cs
 
-    return [p for p in cs.PATHS if p.engine and (only is None or re.search(only, p.label))]
+    extra = [cs.Path("regular_cubic", cs.F64, 20, 4, engine) for engine in ("df64", "i8")]
+    return [p for p in [*cs.PATHS, *extra]
+            if p.engine and (only is None or re.search(only, p.label))]
+
+
+def native_fn(p, grid):
+    """This checkout's native kernel on the path's f64 table (K1, K2, K4),
+    its whole call, fn(obs)."""
+    dims = (p.n,) * p.ndims
+    if p.kind == "bspline":
+        return lambda ob: fused.eval_bspline(grid[0], grid[1], ob, p.k)
+    if p.kind == "regular":
+        return lambda ob: fused.eval_regular(dims, *grid, ob, p.method)
+    return lambda ob: fused.eval_rectilinear(*grid, ob, p.method)
 
 
 def engine_fns(port, p, grid):
@@ -651,7 +671,7 @@ def engine_times(p, cuda) -> dict:
     kern_e, args = earlier_kernel(p, grid)
     cs.bitwise(whole["this"](main[0]), whole["earlier"](main[0]), f"{p.label}: this vs earlier")
     entry = {"case": p.label, "route": "this", "kernel_ms": {}, "whole_ms": {}, "ahead": {},
-             "loop_ms": {}, "issue_ms": {}, "raw_ms": {}}
+             "native_ms": {}, "loop_ms": {}, "issue_ms": {}, "raw_ms": {}}
     prebuilt = [args(b) for b in main]
     for side in ("earlier", "this", "this", "earlier"):
         t = (cuda_time(kern_e, prebuilt) if side == "earlier"
@@ -662,6 +682,10 @@ def engine_times(p, cuda) -> dict:
         t = cuda_time(whole[side], main[:4])
         entry["whole_ms"].setdefault(side, []).append(t.device_ms)
         entry["ahead"].setdefault(side, []).append(t.ahead)
+    native = native_fn(p, grid)
+    for side in ("native", "this", "this", "native"):
+        t = cuda_time(native if side == "native" else whole["this"], main[:4])
+        entry["native_ms"].setdefault(side, []).append(t.device_ms)
     ports = {"earlier": "earlier_port", "this": "interpn_tpu_torch"}
     with cs.f64_engine(p.engine):
         ops_fn = {side: cs_op(port, p, grid) for side, port in ports.items()}
@@ -717,13 +741,17 @@ def cs_raw(port, p, grid):
 def print_engine(entry, smi) -> None:
     best = {k: min(v) for k, v in entry["kernel_ms"].items()}
     whole = {k: min(v) for k, v in entry["whole_ms"].items()}
+    native = {k: min(v) for k, v in entry["native_ms"].items()}
     info = "; ".join(f"{k} " + "/".join(str(v) for v in i.values())
                      for k, i in entry["info"].items())
     print(f"{entry['case']} [{smi}]: kernel ms, best of two: earlier {best['earlier']:.4f} "
           f"(on prebuilt weights), this {best['this']:.4f} (one launch from the queries); "
           f"whole call by events over 4 batches, best of two: earlier {whole['earlier']:.4f}, "
           f"this {whole['this']:.4f} (head start held: {entry['ahead']}), "
-          f"{whole['earlier'] / whole['this']:.1f}x; the op back to back, median of 10 "
+          f"{whole['earlier'] / whole['this']:.1f}x; against the native kernel (K1, K2, K4 "
+          f"in float64), whole call by events over 4 batches, best of two: native "
+          f"{native['native']:.4f}, this engine {native['this']:.4f}; "
+          "the op back to back, median of 10 "
           "passes: " + ", ".join(f"{k} {statistics.median(v):.4f}"
                                  for k, v in entry["loop_ms"].items())
           + "; host ms/call: " + ", ".join(f"{k} {statistics.median(v):.4f}"
@@ -797,8 +825,11 @@ def main() -> None:
         compare_registers(earlier._build, smi)
         return
     if args.engines:
+        paths = engine_paths(args.paths)
+        # the native kernels this checkout times beside its engines
+        _build.build_all(sorted({f"fused_{p.kind}" for p in paths}))
         record = []
-        for p in engine_paths(args.paths):
+        for p in paths:
             record.append(engine_times(p, cuda))
             print_engine(record[-1], smi)
         print(smi)
