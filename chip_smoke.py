@@ -9,7 +9,9 @@ and K9 under INTERPN_TPU_F64=df64|i8) through the entry points a user calls
 at the JAX package's benchmark configurations (`bench.py`: 20^3, 20^4,
 12^5, 100^3 and 100^2 grids, 1e6 queries uniform in [-0.5, 10.5]), and
 times each kernel beside its plain version, its bound and, where one PyTorch
-call computes the same function, that call.
+call computes the same function, that call; beside the kernels it holds and
+times the native CPU engine (numpy inputs on the CPU device) and the
+factorized products (INTERPN_TPU_IMPL=factorized).
 
     python3 chip_smoke.py
 
@@ -33,7 +35,10 @@ groups, direct) at and over the cap and on the bench tables; K5 cubic's and K7's
 stack routes (staged groups, interleaved, direct) on stacks of 1, 3, 4, 8,
 9 and 17 tables of 20^3 and 21^3 (1 to 6 groups), aligned and at odd
 offsets, with NaN and +-inf in the tables, each row against K1 / K4; a
-staged launch over its cap raises; K8 and K9 on f64 2-8D, one
+staged launch over its cap raises; a K5 linear stack of 8 tables of 200^3
+interleaved while the card has its interleaved copy's bytes free and, with
+a filler holding the free memory below that, direct, bitwise the plain
+version both times; K8 and K9 on f64 2-8D, one
 launch each from the queries against the plain chain that builds the
 float64 weights in torch, and K8 at the float range's edges), 3 nodes
 (exact, splines within 1e-11, K8 to the table's hi + lo, K9 within
@@ -76,8 +81,22 @@ make_mesh() (the card) and four cuda:0 entries, prepared_evaluator on the
 main path, sharded_evaluator on every method and grid kind, the splines
 prepared, prepared_stack_evaluator on 8 tables (K5, K6, K7), each shard on
 its device, one launch a shard, the shards joined bitwise the
-single-device op; each timed beside the call it stands for. A failed
-check raises and the script exits non-zero; a timing never does. Phase
+single-device op; MulticubicRegular 20^3 f64 under INTERPN_TPU_F64=df64
+and again under =i8, exported on the card, served in a fresh process with
+the variable unset at 1e6 and 999,999 queries, each bitwise eval_torch
+under the setting with K8 / K9 once a call, and prepared_evaluator under
+each, one launch a shard, joined bitwise the op; each timed beside the call
+it stands for, 9 the CPU engines: the native C++ engine built on the card's
+host (g++, its version and seconds), its six evaluators and two bounds
+checks at 20^3 f32 and f64 held to the port's plain CPU version and to the
+kernels on the card (f32 1e-5, f64 1e-13, nearest exact but at midpoint
+ties), threaded bitwise one thread; raw.interpn_linear_regular_f32 from
+numpy at 1 to 1e6 queries timed on the native engine (auto threads and one)
+and through the card's round trip, and the crossover; and
+INTERPN_TPU_IMPL=factorized on regular and rectilinear linear, cubic and
+nearest at 20^3 and 64^3 f32 with 1e6 queries on the card, timed by CUDA
+events beside the kernels, both held to the gather tree. A failed check
+raises and the script exits non-zero; a timing never does. Phase
 lines carry the seconds since start; the last three lines are bare: the
 card's name and power limit, the kernels' JSON record and {"ok": true,
 "device": {...}}. Without a CUDA device it exits non-zero before any
@@ -316,17 +335,23 @@ def served(method: str, route: str, stacked: bool, ndims: int, family="regular")
 
 
 @contextlib.contextmanager
-def f64_engine(engine):
-    """INTERPN_TPU_F64=engine for the body (unset for None), then as before."""
-    before = os.environ.pop("INTERPN_TPU_F64", None)
-    if engine:
-        os.environ["INTERPN_TPU_F64"] = engine
+def env_set(name, value):
+    """name=value in the environment for the body (unset for None), then as
+    before."""
+    before = os.environ.pop(name, None)
+    if value:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("INTERPN_TPU_F64", None)
+        os.environ.pop(name, None)
         if before is not None:
-            os.environ["INTERPN_TPU_F64"] = before
+            os.environ[name] = before
+
+
+def f64_engine(engine):
+    """INTERPN_TPU_F64=engine for the body (unset for None)."""
+    return env_set("INTERPN_TPU_F64", engine)
 
 
 _T0 = time.perf_counter()
@@ -1614,6 +1639,63 @@ def stack_routes_phase(cuda):
         f"{results} results bitwise equal to the plain version, through the wrapper (one "
         "launch, and the interleave where it interleaves) and on every route, each table's row "
         "bitwise equal to K1 / K4 on that table")
+    interleave_admission(cuda)
+
+
+def hold_free_below(cuda, target: int):
+    """A filler allocation that leaves about `target` bytes of the card free
+    (within a few MiB: the allocator rounds), or raises."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(cuda)[0]
+    for step in range(8):
+        try:
+            return torch.empty(free - target + step * (64 << 20), dtype=torch.uint8, device=cuda)
+        except torch.OutOfMemoryError:
+            torch.cuda.empty_cache()
+    raise AssertionError(f"could not hold the card's free memory near {target} bytes")
+
+
+def interleave_admission(cuda):
+    """Phase 2, the interleave's admission by bytes: a K5 linear stack of
+    NCH tables of 200^3 f32 (256 MB; its interleaved copy, which the
+    wrapper allocates each call, as large) interleaves while the card has
+    the copy's bytes free, and with a filler holding the free memory at
+    half the copy the wrapper takes the direct route instead (where the
+    interleave would run out of memory): one K5 launch and no interleave,
+    bitwise the plain version on the same inputs both times."""
+    from interpn_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(23)
+    dims = (200,) * 3
+    (st, sp, vals), obs = random_case("regular", dims, F32, N_CHECK // 5, rng, cuda, NCH)
+    copy = vals.numel() * vals.element_size()
+    want = fused.plain_regular_stack(dims, st, sp, vals, obs, "linear")
+    routes = {}
+    for held in (False, True):
+        filler = hold_free_below(cuda, copy // 2) if held else None
+        free = fused.free_bytes(vals)
+        route = fused.regular_route(dims, F32, "linear", NCH, free)
+        fused.reset_launches()
+        got = fused.eval_regular_stack(dims, st, sp, vals, obs, "linear")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in fused.launches.items() if v}
+        del filler
+        torch.cuda.empty_cache()
+        what = f"K5 linear stack of {NCH} 200^3 f32, {free} bytes free"
+        bitwise(got, want, f"{what} ({route})")
+        expect = {"regular_linear_stack": 1, **({"regular_interleave": 1}
+                                               if route == "interleaved" else {})}
+        if launches != expect:
+            raise AssertionError(f"{what}: launches {launches}, want {expect}")
+        routes[held] = (route, free)
+    if routes[False][0] != "interleaved" or routes[True][0] != "direct":
+        raise AssertionError(f"interleave admission: routes {routes}, want interleaved with "
+                             f"{copy} bytes free and direct below")
+    log(f"phase 2 interleave admission: K5 linear stack of {NCH} tables of 200^3 f32, its "
+        f"interleaved copy {copy} bytes: interleaved with {routes[False][1]} bytes free, direct "
+        f"with {routes[True][1]} free (a filler held), one K5 launch and the interleave only "
+        "where it interleaved, each bitwise the plain version")
 
 
 def engine_vs_plain_phase(cuda):
@@ -3116,13 +3198,46 @@ def program_targets(blob: bytes) -> list:
     return [n.target for n in program.graph.nodes if n.op == "call_function"]
 
 
+def serve_fresh(label, blob, obs_np, counter, want, engine=None):
+    """Serve the artifact `blob` in a fresh process (SERVE_SCRIPT, which
+    imports only interpn_tpu_torch.aot) with INTERPN_TPU_F64 unset, at
+    N_MAIN and N_MAIN - 1 (padded) queries: each result bitwise `want(n)`
+    and `counter` launched once a call. (its JSON record, its seconds)."""
+    import tempfile
+
+    env = {k: v for k, v in os.environ.items() if k != "INTERPN_TPU_F64"}
+    with tempfile.TemporaryDirectory() as tmp:
+        art, obs_path, out = f"{tmp}/main.ittaot", f"{tmp}/obs.npy", f"{tmp}/out"
+        with open(art, "wb") as f:
+            f.write(blob)
+        np.save(obs_path, np.stack(obs_np))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-c", SERVE_SCRIPT, art, obs_path, out,
+                              str(N_HOST)], capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)), env=env)
+        process_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"{label}: the serving process failed:\n{run.stderr[-4000:]}")
+        record = json.loads(run.stdout.strip().splitlines()[-1])
+        results = {n: np.load(f"{out}.{n}.npy") for n in (N_MAIN, N_MAIN - 1)}
+    if record["foreign"]:
+        raise AssertionError(f"{label}: the serving process imported {record['foreign']}")
+    for n, got in results.items():
+        with f64_engine(engine):
+            expect = want(n)
+        bitwise(torch.from_numpy(got).to(expect.device), expect,
+                f"{label}: served {n} vs eval_torch")
+        if record["launches"][str(n)] != {counter: 1}:
+            raise AssertionError(f"{label}: served {n} launched {record['launches'][str(n)]}, "
+                                 f"want {counter} once")
+    return record, process_s
+
+
 def served_main_path(cuda, smi, obs_np) -> dict:
     """(a) MultilinearRegular 20^3 f32 exported on cuda:0 with buckets
     SERVE_BUCKETS, its program the regular op's node and a reshape, served
     in a fresh process at N_MAIN and N_MAIN - 1 (padded) queries, each
     bitwise eval_torch with K1 launched once a call."""
-    import tempfile
-
     from interpn_tpu_torch import aot
     from interpn_tpu_torch.ops import library
 
@@ -3136,28 +3251,8 @@ def served_main_path(cuda, smi, obs_np) -> dict:
         raise AssertionError(f"{label}: the program's nodes are {targets}, want the regular "
                              "op once and no gather tree")
     obs_t = [torch.from_numpy(o).to(cuda) for o in obs_np]
-    with tempfile.TemporaryDirectory() as tmp:
-        art, obs_path, out = f"{tmp}/main.ittaot", f"{tmp}/obs.npy", f"{tmp}/out"
-        with open(art, "wb") as f:
-            f.write(blob)
-        np.save(obs_path, np.stack(obs_np))
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-c", SERVE_SCRIPT, art, obs_path, out,
-                              str(N_HOST)], capture_output=True, text=True, timeout=300,
-                             cwd=os.path.dirname(os.path.abspath(__file__)))
-        process_s = time.perf_counter() - t0
-        if run.returncode != 0:
-            raise AssertionError(f"{label}: the serving process failed:\n{run.stderr[-4000:]}")
-        record = json.loads(run.stdout.strip().splitlines()[-1])
-        results = {n: np.load(f"{out}.{n}.npy") for n in (N_MAIN, N_MAIN - 1)}
-    if record["foreign"]:
-        raise AssertionError(f"{label}: the serving process imported {record['foreign']}")
-    for n, got in results.items():
-        want = model.eval_torch([o[:n] for o in obs_t])
-        bitwise(torch.from_numpy(got).to(cuda), want, f"{label}: served {n} vs eval_torch")
-        if record["launches"][str(n)] != {counter: 1}:
-            raise AssertionError(f"{label}: served {n} launched {record['launches'][str(n)]}, "
-                                 f"want {counter} once")
+    record, process_s = serve_fresh(label, blob, obs_np, counter,
+                                    lambda n: model.eval_torch([o[:n] for o in obs_t]))
     eval_ms = host_ms(lambda: model.eval_torch(obs_t))
     row = {"path": f"served {label}", "buckets": list(SERVE_BUCKETS), "artifact_bytes": len(blob),
            "export_s": export_s, "process_s": process_s, "launches": record["launches"],
@@ -3305,17 +3400,356 @@ def parallel_phase(cuda, smi, obs_np) -> list[dict]:
     return rows
 
 
+def forced_engine_serving(cuda, smi) -> list[dict]:
+    """(d) The forced f64 engines served and sharded: MulticubicRegular
+    20^3 f64 under INTERPN_TPU_F64=df64 and again under =i8, its eval_torch
+    at N_MAIN queries one K8 / K9 launch; exported on the card under the
+    setting (the artifact's engine is it), served in a fresh process with
+    the variable unset at N_MAIN and N_MAIN - 1 (padded) queries, each
+    bitwise eval_torch under the setting with K8 / K9 launched once a call;
+    and parallel.prepared_evaluator under the setting on make_mesh() and
+    four cuda:0 entries, one launch a shard, joined bitwise the op."""
+    from functools import partial
+
+    import interpn_tpu_torch as itt
+    from interpn_tpu_torch import aot, convert, ops, parallel
+
+    x, vals = bench_grid(20, 3)
+    dims = (20,) * 3
+    table, starts, steps = vals.ravel(), np.zeros(3), np.full(3, x[1] - x[0])
+    model = itt.MulticubicRegular.new(list(dims), starts, steps, table)
+    rng = np.random.default_rng(29)
+    obs_np = [rng.uniform(LO, HI, N_MAIN) for _ in range(3)]
+    obs_t = [torch.from_numpy(o).to(cuda) for o in obs_np]
+    reg = convert.regular_grid_from_numpy(dims, starts, steps, table, device=cuda, dtype=F64)
+    meshes = [("make_mesh()", parallel.make_mesh()), ("4 x cuda:0", (cuda,) * 4)]
+    rows = []
+    for engine in ("df64", "i8"):
+        label = f"MulticubicRegular 20^3 f64 under INTERPN_TPU_F64={engine}"
+        with f64_engine(engine):
+            counted(lambda: model.eval_torch(obs_t), {engine: 1}, f"{label} eval_torch")
+            eval_ms = host_ms(lambda: model.eval_torch(obs_t))
+            t0 = time.perf_counter()
+            blob = aot.export_eval(model, N_MAIN, device=cuda)
+            export_s = time.perf_counter() - t0
+        pinned = json.loads(aot._read(blob, len(aot._MAGIC))[0])["engine"]
+        if pinned != engine:
+            raise AssertionError(f"{label}: the artifact's engine is {pinned}")
+        record, process_s = serve_fresh(
+            label, blob, obs_np, engine, lambda n: model.eval_torch([o[:n] for o in obs_t]),
+            engine)
+        rows.append({"path": f"served {label}", "artifact_bytes": len(blob),
+                     "export_s": export_s, "process_s": process_s,
+                     "launches": record["launches"], "served_ms": record["served_ms"],
+                     "eval_torch_ms": eval_ms})
+        log(f"phase 8 (d) {label}: eval_torch x {N_MAIN} one {engine} launch; exported on "
+            f"{cuda} (bucket {N_MAIN}, {len(blob)} bytes, engine {pinned}, {export_s:.2f} s), "
+            f"served in a fresh process with INTERPN_TPU_F64 unset ({process_s:.1f} s in all) "
+            f"at {N_MAIN} and {N_MAIN - 1} (padded) queries: each bitwise eval_torch under "
+            f"{engine}, {engine} launched once a call {record['launches']} [{smi}]: served "
+            f"{record['served_ms']:.4f} ms/call (fresh process), eval_torch {eval_ms:.4f} "
+            "ms/call, host clock")
+        with f64_engine(engine):
+            rows += sharded_case(
+                f"prepared_evaluator regular cubic 20^3 f64 under {engine}", meshes,
+                lambda mesh: partial(parallel.prepared_evaluator(
+                    mesh, (starts, steps), table, dims=dims, method="cubic"), tuple(obs_t)),
+                partial(ops.cubic_regular, *reg, tuple(obs_t), True), engine, smi)
+    return rows
+
+
 def serving_phase(cuda, smi) -> None:
-    """Phase 8: the serving artifacts (a, b) and the parallel evaluators
-    (c) at the main path's width; their numbers in one log line for
-    PERF.md."""
+    """Phase 8: the serving artifacts (a, b), the parallel evaluators (c)
+    and both under the forced f64 engines (d) at the main path's width;
+    their numbers in one log line for PERF.md."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(9)
     obs_np = [rng.uniform(LO, HI, N_MAIN).astype(np.float32) for _ in range(3)]
     obs_t = [torch.from_numpy(o).to(cuda) for o in obs_np]
     rows = [served_main_path(cuda, smi, obs_np), *served_classes(cuda, smi, obs_t),
-            *parallel_phase(cuda, smi, obs_np)]
+            *parallel_phase(cuda, smi, obs_np), *forced_engine_serving(cuda, smi)]
     log(f"phase 8 record [{smi}] ({time.perf_counter() - t0:.1f} s): {json.dumps(rows)}")
+
+
+# --- phase 9: the CPU engines: native from numpy, factorized on the card -----------------
+
+NATIVE_TOL = {F32: 1e-5, F64: 1e-13}  # rtol = atol, native against plain and kernels
+TIE_TOL = {F32: 1e-4, F64: 1e-10}  # a nearest query this close to a cell's midpoint is a tie
+CROSSOVER_N = (1, 10, 100, 1_000, 10_000, 1_000_000)
+FACTORIZED_N = (20, 64)  # points an axis; 64^3 = 2^18 cells, the JAX package's factorized cap
+
+
+def host_us(fn, budget_s=0.2, cap=20_000) -> float:
+    """Host-clock microseconds a call of fn(), after one more: the mean over
+    at least 5 calls and `budget_s` seconds, at most `cap` calls."""
+    fn()
+    calls, t0 = 0, time.perf_counter()
+    while calls < cap and (calls < 5 or time.perf_counter() - t0 < budget_s):
+        fn()
+        calls += 1
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
+def nearest_ties(kind, grid, obs, dtype) -> torch.Tensor:
+    """Queries within TIE_TOL of a cell's midpoint on some axis (float64,
+    on the CPU): where two correct nearest results may pick either node."""
+    tie = torch.zeros(len(obs[0]), dtype=torch.bool)
+    for k, x in enumerate(obs):
+        x = np.asarray(x, np.float64)
+        if kind == "regular":
+            t = (x - float(grid[1][k])) / float(grid[2][k])
+            t = t - np.floor(t)
+        else:
+            a = np.asarray(grid[0][k], np.float64)
+            i = np.clip(np.searchsorted(a, x) - 1, 0, len(a) - 2)
+            t = (x - a[i]) / (a[i + 1] - a[i])
+        tie |= torch.from_numpy(np.abs(t - 0.5) < TIE_TOL[dtype])
+    return tie
+
+
+def held_to(got, want, dtype, what, ties=None, tol=NATIVE_TOL) -> float:
+    """Raise unless `got` is within `tol` (rtol = atol) of `want` (for
+    nearest, which passes `ties`, equal but at a tie, where either node is
+    right); the largest absolute difference away from ties."""
+    g = torch.as_tensor(got).double().cpu()
+    w = torch.as_tensor(want).double().cpu()
+    if ties is None:
+        ok = torch.isclose(g, w, rtol=tol[dtype], atol=tol[dtype])
+        ties = torch.zeros_like(ok)
+    else:
+        ok = (g == w) | ties
+    if not bool(ok.all()):
+        raise AssertionError(f"{what}: {int((~ok).sum())} of {ok.numel()} results differ "
+                             f"(max {float((g - w).abs()[~ok].max()):.3e})")
+    diff = (g - w).abs()[~ties]
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def native_build() -> dict:
+    """Build the native engine on the card's host (g++ and its version, the
+    seconds); fails without g++ or a build."""
+    import shutil
+
+    from interpn_tpu_torch import native
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise AssertionError("phase 9: no g++ on the card's host, so the native engine "
+                             "cannot build")
+    version = subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"phase 9: the native engine did not build with {version}")
+    fast = native.fastcall_available()
+    seconds = time.perf_counter() - t0
+    log(f"phase 9 native engine built with {version} ({' '.join(native.CXX_FLAGS)}) in "
+        f"{seconds:.2f} s ({native.build_seconds}), fastcall extension "
+        f"{'built' if fast else 'not built: the ctypes path serves'}, "
+        f"{native.library_path().name}")
+    return {"gxx": version, "build_s": seconds, "fastcall": fast}
+
+
+def native_case(kind, dtype):
+    """(numpy grid args of the engine, numpy table, numpy obs) of the 20^3
+    bench grid of `kind` in `dtype`, N_CHECK queries in [LO, HI]."""
+    npd = np.float32 if dtype == F32 else np.float64
+    x, vals = bench_grid(20, 3)
+    table = vals.ravel().astype(npd)
+    if kind == "regular":
+        grid = ([20] * 3, np.zeros(3, npd), np.full(3, x[1] - x[0], npd))
+    else:
+        grid = ([a.astype(npd) for a in bench_rect_axes(20, 3)],)
+    rng = np.random.default_rng(31)
+    obs = [rng.uniform(LO, HI, N_CHECK).astype(npd) for _ in range(3)]
+    return grid, table, obs
+
+
+def grid_tensors(kind, grid, device) -> tuple:
+    """The `ops` arguments ahead of the table for the engine's grid args:
+    (dims, starts, steps) or (axes,), as tensors on `device`."""
+    if kind == "regular":
+        return (tuple(grid[0]), *(torch.from_numpy(g).to(device) for g in grid[1:]))
+    return (tuple(torch.from_numpy(a).to(device) for a in grid[0]),)
+
+
+def native_vs_plain(cuda) -> list[dict]:
+    """The six native evaluators and both bounds checks, 3D 20^3, f32 and
+    f64: against the port's plain CPU version and the kernel on the card
+    at NATIVE_TOL (nearest exact but at ties), threaded bitwise one
+    thread."""
+    from interpn_tpu_torch import native, ops
+
+    cpu = torch.device("cpu")
+    rows = []
+    for dtype, kind, method in itertools.product((F32, F64), ("regular", "rectilinear"),
+                                                 ("linear", "cubic", "nearest")):
+        grid, table, obs = native_case(kind, dtype)
+        lin = (True,) if method == "cubic" else ()
+        fn = getattr(native, f"{method}_{kind}")
+        outs = {}
+        for threads in (1, None):
+            native.set_threads(threads)
+            out = np.full(N_CHECK, np.nan, table.dtype)
+            if not fn(*grid, table, *lin, obs, out):
+                raise AssertionError(f"native {method} {kind} declined")
+            outs[threads] = out
+        native.set_threads(None)
+        what = f"native {kind} {method} 20^3 {SHORT[dtype]}"
+        if not np.array_equal(outs[1], outs[None]):
+            raise AssertionError(f"{what}: threaded result not bitwise the one-thread one")
+        ties = nearest_ties(kind, grid, obs, dtype) if method == "nearest" else None
+        op = getattr(ops, f"{method}_{kind}")
+        plain = op(*grid_tensors(kind, grid, cpu), torch.from_numpy(table),
+                   tuple(torch.from_numpy(o) for o in obs), *lin)
+        kern = counted(lambda: op(*grid_tensors(kind, grid, cuda), torch.from_numpy(table).to(cuda),
+                                  tuple(torch.from_numpy(o).to(cuda) for o in obs), *lin),
+                       {f"{kind}_{method}": 1}, f"{what} kernel")
+        rows.append({"case": what, "vs_plain": held_to(outs[1], plain, dtype, f"{what} vs plain",
+                                                       ties),
+                     "vs_kernel": held_to(outs[1], kern, dtype, f"{what} vs kernel", ties),
+                     "ties": 0 if ties is None else int(ties.sum())})
+    for dtype, kind, atol in itertools.product((F32, F64), ("regular", "rectilinear"),
+                                               (0.0, 0.5)):
+        grid, _, obs = native_case(kind, dtype)
+        npd = np.float32 if dtype == F32 else np.float64
+        check = getattr(ops, f"check_bounds_{kind}")
+        for q in (obs, [np.clip(o, 0.25, 9.75).astype(npd) for o in obs]):
+            flags = np.zeros(3, bool)
+            if not getattr(native, f"check_bounds_{kind}")(*grid, q, atol, flags, npd):
+                raise AssertionError(f"native bounds {kind} declined")
+            plain, card = (check(*grid_tensors(kind, grid, d),
+                                 tuple(torch.from_numpy(o).to(d) for o in q), atol).cpu()
+                           for d in (cpu, cuda))
+            if not (np.array_equal(flags, plain.numpy()) and np.array_equal(flags, card.numpy())):
+                raise AssertionError(f"native bounds {kind} {SHORT[dtype]} atol {atol}: {flags} "
+                                     f"vs plain {plain} vs card {card}")
+    log(f"phase 9 native vs plain: the six evaluators at 20^3 f32 and f64 ({N_CHECK} queries "
+        f"in [{LO}, {HI}]) within f32 1e-5 / f64 1e-13 of the port's plain CPU version and of "
+        "the kernel on the card (one launch each), nearest exact but at ties, threaded bitwise "
+        "one thread; both bounds checks (atol 0 and 0.5, queries out and in) equal to both: "
+        + json.dumps(rows))
+    return rows
+
+
+def crossover(cuda, smi) -> list[dict]:
+    """raw.interpn_linear_regular_f32 from numpy into numpy at 20^3, host
+    clock: the native engine (the CPU device; auto threads and one thread)
+    against the card's round trip (numpy in, the kernel, numpy out), each
+    result held to the other at the f32 bar."""
+    from interpn_tpu_torch import config, native, raw
+    from interpn_tpu_torch.ops import fused
+
+    x, vals = bench_grid(20, 3)
+    grid = ([20] * 3, np.zeros(3, np.float32), np.full(3, x[1] - x[0], np.float32))
+    table = vals.ravel().astype(np.float32)
+    rng = np.random.default_rng(37)
+    rows = []
+    for n in CROSSOVER_N:
+        obs = [rng.uniform(LO, HI, n).astype(np.float32) for _ in range(3)]
+        out = np.zeros(n, np.float32)
+
+        def call():
+            raw.interpn_linear_regular_f32(*grid, table, obs, out)
+
+        with config.device("cpu"):
+            native.set_threads(1)
+            one_us = host_us(call)
+            native.set_threads(None)
+            auto_us = host_us(call)
+            on_cpu = out.copy()
+        fused.reset_launches()
+        call()
+        if fused.launches["regular_linear"] != 1:
+            raise AssertionError(f"crossover n={n}: the card's round trip launched "
+                                 f"{grid_launches()}")
+        held_to(out, on_cpu, F32, f"crossover n={n}: card vs native")
+        card_us = host_us(call)
+        rows.append({"n": n, "native_auto_us": auto_us, "native_one_thread_us": one_us,
+                     "card_round_trip_us": card_us})
+    won = [r["n"] for r in rows if r["card_round_trip_us"] < r["native_auto_us"]]
+    cross = won[0] if won else None
+    log(f"phase 9 crossover [{smi}]: raw.interpn_linear_regular_f32 20^3 from numpy into "
+        "numpy, host clock, us a call (native auto threads / one thread / the card's round "
+        "trip): " + "; ".join(f"{r['n']}: {r['native_auto_us']:.2f} / "
+                               f"{r['native_one_thread_us']:.2f} / "
+                               f"{r['card_round_trip_us']:.2f}" for r in rows)
+        + (f"; the card is faster from {cross} queries" if cross else "; native wins at every n"))
+    return rows
+
+
+def factorized_timing(cuda, smi) -> list[dict]:
+    """Under INTERPN_TPU_IMPL=factorized: regular and rectilinear linear,
+    cubic and nearest at 20^3 and 64^3 f32 with N_MAIN queries on the card,
+    timed by CUDA events (`cuda_time`) beside the kernel route in the same
+    call; both against the gather tree at GATHER_TOL's f32 bar, a
+    contraction's bar against the tree (1e-4: at 64^3 a query 0.5 outside
+    the grid is ~3 cells out, its weights ~3 an axis, so partial sums of
+    ~200 cancel to results of ~8 and a different association moves them by
+    up to ~1e-4), nearest exact but at ties; the factorized calls launch no
+    kernel and keep IEEE float32."""
+    from interpn_tpu_torch import config, ops
+    from interpn_tpu_torch.ops import cubic, linear, nearest
+    from interpn_tpu_torch.utils.profiling import cuda_time
+
+    config.require_ieee_fp32()
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(41)
+    trees = {"linear": linear, "cubic": cubic, "nearest": nearest}
+    rows = []
+    for n in FACTORIZED_N:
+        x, vals = bench_grid(n, 3)
+        dims = (n,) * 3
+        v = torch.from_numpy(vals.ravel().astype(np.float32)).to(cuda)
+        heads = {"regular": (dims, torch.zeros(3, device=cuda),
+                             torch.full((3,), float(x[1] - x[0]), device=cuda)),
+                 "rectilinear": (tuple(torch.from_numpy(a.astype(np.float32)).to(cuda)
+                                       for a in bench_rect_axes(n, 3)),)}
+        batches = [tuple(torch.rand(N_MAIN, device=cuda, generator=gen) * (HI - LO) + LO
+                         for _ in range(3)) for _ in range(N_SLICE_BATCHES)]
+        for kind, method in itertools.product(("regular", "rectilinear"),
+                                              ("linear", "cubic", "nearest")):
+            lin = (True,) if method == "cubic" else ()
+            head = heads[kind]
+
+            def f(b):
+                return getattr(ops, f"{method}_{kind}")(*head, v, b, *lin)
+
+            what = f"{kind} {method} {n}^3 f32"
+            plain = getattr(trees[method], f"{method}_{kind}")(*head, v, batches[0], *lin)
+            ties = None
+            if method == "nearest":
+                grid = ((None, np.zeros(3), np.full(3, x[1] - x[0])) if kind == "regular"
+                        else ([a.cpu().numpy() for a in head[0]],))
+                ties = nearest_ties(kind, grid, [b.cpu().numpy() for b in batches[0]], F32)
+            with env_set("INTERPN_TPU_IMPL", "factorized"):
+                got = counted(lambda: f(batches[0]), {}, f"factorized {what}")
+                err = held_to(got, plain, F32, f"factorized {what} vs gather tree", ties,
+                              GATHER_TOL)
+                t_fz = cuda_time(f, batches)
+            kern = counted(lambda: f(batches[0]), {f"{kind}_{method}": 1}, f"kernel {what}")
+            kerr = held_to(kern, plain, F32, f"kernel {what} vs gather tree", ties, GATHER_TOL)
+            t_k = cuda_time(f, batches)
+            rows.append({"case": what, "factorized_ms": t_fz.device_ms,
+                         "factorized_ahead": t_fz.ahead, "kernel_ms": t_k.device_ms,
+                         "kernel_ahead": t_k.ahead, "factorized_err": err, "kernel_err": kerr})
+            log(f"phase 9 factorized {what} x {N_MAIN} [{smi}]: factorized "
+                f"{t_fz.device_ms:.4f} ms (ahead {t_fz.ahead}), kernel {t_k.device_ms:.4f} ms "
+                f"(ahead {t_k.ahead}), CUDA events; max abs err vs the gather tree "
+                f"{err:.3e} / {kerr:.3e}")
+        del batches
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cpu_engines_phase(cuda, smi) -> None:
+    """Phase 9: the native engine built on the card's host and held to the
+    plain version and the kernels, the numpy crossover, and the factorized
+    products on the card beside the kernels; one record line for PERF.md."""
+    t0 = time.perf_counter()
+    record = {"build": native_build(), "native": native_vs_plain(cuda),
+              "crossover": crossover(cuda, smi), "factorized": factorized_timing(cuda, smi)}
+    log(f"phase 9 record [{smi}] ({time.perf_counter() - t0:.1f} s): {json.dumps(record)}")
 
 
 def kernels_record(driven, timed) -> list[dict]:
@@ -3397,6 +3831,7 @@ def main() -> None:
     slice_phase(cuda, smi)
     transforms_phase(cuda, smi)
     serving_phase(cuda, smi)
+    cpu_engines_phase(cuda, smi)
 
     # the last three lines, unprefixed: the card, the kernels, the result
     print(smi)

@@ -7,6 +7,12 @@ Without a CUDA device and without such a request they raise RuntimeError:
 the port never carries on quietly on the CPU. Tensor inputs compute where
 they live, whatever is set here.
 
+Numpy inputs with a numpy `out` go to the native C++ engine
+(`interpn_tpu_torch.native`) when the CPU is the device in force
+(`cpu_requested`), or when INTERPN_TPU_NATIVE_THRESHOLD asks for it on
+small batches; INTERPN_TPU_NATIVE=0 turns the engine off. No call falls
+back from the card to the CPU when a CUDA call fails.
+
 The port's path holds no matrix product, but its results are compared with
 plain PyTorch versions that could hold one. PyTorch's defaults keep float32
 products in full float32 (`torch.backends.cuda.matmul.allow_tf32` False,
@@ -67,6 +73,12 @@ def default_device() -> torch.device:
         "CPU, ask for it with interpn_tpu_torch.config.set_device('cpu') or "
         "`with interpn_tpu_torch.config.device('cpu'):`"
     )
+
+
+def cpu_requested() -> bool:
+    """Whether the caller asked for the CPU as the device of host (numpy)
+    inputs (`set_device("cpu")` or `with device("cpu"):`)."""
+    return _requested is not None and _requested.type == "cpu"
 
 
 def require_ieee_fp32() -> None:

@@ -5,7 +5,8 @@ frozen pydantic model holding the grid definition, with `.new()`, `.eval()`,
 `.eval_unchecked()`, `.check_bounds()` and the JAX package's JSON bytes. The
 evaluation lives in a pydantic-free `models/_device.py::DeviceInterpolator`,
 made at the first call and kept in the private `_dev` (it holds the grid and
-table on the device). Beyond the reference API, as in the JAX package:
+table on the device, and the native engine's prepared call); pickling and
+copying drop it. Beyond the reference API, as in the JAX package:
 
 * `.eval_torch(obs)`: tensors or arrays in, a tensor on their device out,
   with no host sync (the JAX package's `eval_jax`);
@@ -54,6 +55,19 @@ class InterpolatorBase(BaseModel):
         priv["_dev"] = None
         state["__pydantic_private__"] = priv
         return state
+
+    def __copy__(self):
+        """A copy (`model_copy`, `copy.copy`) makes its own device side and
+        native prepared call from its own fields at its first evaluation,
+        so that one made with `update=` never evaluates the old grid."""
+        copied = super().__copy__()
+        copied._dev = None
+        return copied
+
+    def __deepcopy__(self, memo=None):
+        copied = super().__deepcopy__(memo)
+        copied._dev = None
+        return copied
 
     # ---- subclass hooks -------------------------------------------------
     def _device_spec(self) -> dict:  # pragma: no cover - abstract

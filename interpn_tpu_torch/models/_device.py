@@ -30,9 +30,14 @@ evaluation:
 Each evaluation calls the port's `ops` function of the method with the
 cached tensors, so a class's result is bitwise that call's, and `raw`'s.
 Numpy inputs compute on `config.default_device()`, tensors where they live;
-the JAX package's native fast path for small numpy batches waits for the
-port's native module (ROADMAP module 10). The pydantic classes of
-`models/` hold one of these and add the fields, validation and JSON.
+`eval` from numpy into a numpy `out` takes the native CPU engine where
+`native.use_native` admits the batch (the CPU device in force, or
+INTERPN_TPU_NATIVE_THRESHOLD), through a `native.prepare_*` closure that
+freezes the grid and is made once (`_prepare_native`, as
+`interpn_tpu/models/_base.py` caches `_native`; the spline methods have
+none), so that its result is bitwise `raw`'s on the engine. The pydantic
+classes of `models/` hold one of these and add the fields, validation and
+JSON; a copy of a class drops it.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import convert, ops, raw
+from .. import convert, native, ops, raw
 from ..config import default_device
 from ..ops import bspline as _bspline
 
@@ -123,6 +128,9 @@ class DeviceInterpolator:
         self.grid_ok = all(d >= min_grid for d in self.dims)
         self.min_grid_msg = min_grid_msg
         self._tensors: dict[torch.device, tuple] = {}
+        # the native engine's prepared call: None until made, False where
+        # the engine does not serve this interpolator
+        self._native = None
 
     def ndims(self) -> int:
         return len(self.dims)
@@ -177,6 +185,42 @@ class DeviceInterpolator:
         if flag and self.regular and self.method in ("linear", "cubic", "nearest"):
             bad = raw._unrep_flag(grid[0], grid[1], obs_t)
         return result, bad
+
+    def _prepare_native(self):
+        """The engine's prepared call for this grid and method (JAX: each
+        class's `_prepare_native`), or None: the spline methods, or more
+        axes than the engine takes."""
+        if self.method not in ("linear", "cubic", "nearest"):
+            return None
+        dt = self.dtype.type
+        lin = (self.linearize,) if self.method == "cubic" else ()
+        if self.regular:
+            return getattr(native, f"prepare_{self.method}_regular")(
+                self.dims, self.starts, self.steps, self.vals, *lin, dt)
+        return getattr(native, f"prepare_{self.method}_rectilinear")(
+            self.grids, self.vals, *lin, dt)
+
+    def _native_call(self):
+        """The prepared call, made at the first need and kept; not kept
+        while the engine is off and unbuilt, so that turning it on again
+        builds it."""
+        if self._native is None:
+            prep = self._prepare_native()
+            if prep is not None or not native.load_deferred():
+                self._native = prep or False
+            return prep or False
+        return self._native
+
+    def _host_native(self, obs, out) -> bool:
+        """Evaluate into `out` on the native engine where it serves this
+        call: numpy queries, a C-contiguous numpy `out`, a batch
+        `native.use_native` admits. False where the caller's path serves."""
+        if type(out) is not np.ndarray or not out.flags.c_contiguous:
+            return False
+        if any(type(x) is not np.ndarray for x in obs) or not native.use_native(out.size):
+            return False
+        call = self._native_call()
+        return bool(call) and call(obs, out)
 
     def core(self, device) -> "DeviceCore":
         """The evaluation on `device` as a module (for `aot.export_eval`)."""
@@ -243,11 +287,16 @@ class DeviceInterpolator:
         """`eval` with the reference's checks of sizes and dtypes; on a
         regular grid, AssertionError "Unrepresentable coordinate value" for
         a NaN, inf or far-out coordinate of a reference method."""
+        nat = self._native
+        if nat and type(out) is np.ndarray and self._host_native(obs, out):
+            return out  # a prepared call exists, so the checks below passed once
         self.check_grid_sizes()
         out = out if out is not None else np.zeros(np.shape(obs[0]), dtype=self.dtype)
         self.check_obs_sizes(obs, out)
         self.check_eval_dtypes(obs, out)
         self._check_float()
+        if self._host_native(obs, out):
+            return out
         device = raw._device(*obs, out)
         result, bad = self._eval(self._obs_to_device(obs, device), flag=True)
         if bad is not None:

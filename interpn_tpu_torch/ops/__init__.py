@@ -2,7 +2,8 @@
 
 The evaluation functions dispatch between the Hopper kernels (`ops.fused`)
 and the gather trees (`ops.linear`, `ops.cubic`, `ops.nearest`,
-`ops.bspline`); both stay importable from their submodules. pchip
+`ops.bspline`), and under INTERPN_TPU_IMPL=factorized the weight-matrix
+products (`ops.factorized`); all stay importable from their submodules. pchip
 (`ops.pchip`) is a gather tree on every device. `raw` wraps the
 single-table ones with the reference-compatible flat API; `interpn_stack`
 wraps the stacked ones (`ops.stack`). B-spline tables come from

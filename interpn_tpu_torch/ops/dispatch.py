@@ -1,4 +1,5 @@
-"""Implementation selection between the Hopper kernels and the gather tree.
+"""Implementation selection between the Hopper kernels, the gather tree and
+the factorized products.
 
 Counterpart of `interpn_tpu/ops/dispatch.py` and of the engine choice in
 `interpn_tpu/ops/bspline.py::bspline_eval`. The JAX package picks among
@@ -8,6 +9,20 @@ CPU tensor to the gather tree (`ops/linear.py`, `ops/cubic.py`,
 `ops/nearest.py`, `ops/bspline.py`). The stacked-table routes are in
 `ops/stack.py`. The kernels read only the stencil, so the TPU's
 finite-table guard, batch floor and grid-size caps have no counterpart.
+
+INTERPN_TPU_IMPL, read at each call as the JAX package reads it, overrides
+the device's choice (`impl_mode`):
+
+* `gather`: every family takes its gather tree, on CUDA tensors too: one
+  table, stacks, B-splines;
+* `factorized`: one table of linear, cubic or nearest on either grid kind
+  takes `ops/factorized.py`'s weight-matrix products (a non-finite table
+  entry then poisons every result; see there); stacks and B-splines take
+  the gather tree, as in the JAX package (`ops/stack.py`, `ops/bspline.py`);
+* `pallas`, `auto`, unset or any other value: the device decides, as above.
+
+A call on the gather tree or the factorized products records plain torch
+operations under `torch.export` and no custom op.
 
 f64 runs on the native `double` kernels (K1, K2, K4) unless the
 environment variable INTERPN_TPU_F64, read at each call as the JAX package
@@ -19,7 +34,8 @@ reads it, forces one of its two f64 contraction engines:
   engine (`ops/i8.py`, `csrc/fused_i8.cu`); f64 B-splines go to K8, as the
   JAX package's spline route knows only df64.
 
-A forced engine takes f64 CUDA tables of 2-8D with finite entries; nearest,
+A forced engine takes f64 CUDA tables of 2-8D with finite entries on
+the kernel route (not under INTERPN_TPU_IMPL=gather|factorized); nearest,
 stacks, f32, 1-D, CPU tensors and tables with a NaN or inf keep their
 routes (the JAX package sends a non-finite table to its gather tree; here
 the native kernel reads only the stencil). Unset, `auto` or any other value
@@ -66,6 +82,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from . import df64 as _df64
+from . import factorized as _fz
 from . import fused as _fused
 from . import i8 as _i8
 from . import library as _library
@@ -78,6 +95,7 @@ from .nearest import nearest_rectilinear as _nearest_rect_gather
 from .nearest import nearest_regular as _nearest_reg_gather
 
 F64_ENV = "INTERPN_TPU_F64"
+IMPL_ENV = "INTERPN_TPU_IMPL"
 
 
 class Route(NamedTuple):
@@ -185,9 +203,23 @@ def _batched_queries(route, tensors, dims, size):
     return out.reshape(*out.shape[:-1], size, -1), int(route.stacked)
 
 
+def impl_mode() -> str:
+    """The implementation INTERPN_TPU_IMPL forces, read now: 'gather',
+    'factorized', or 'auto' (unset, 'auto', 'pallas' or any other value:
+    the device decides)."""
+    mode = os.environ.get(IMPL_ENV, "auto")
+    return mode if mode in ("gather", "factorized") else "auto"
+
+
+def _on_card(vals: torch.Tensor) -> bool:
+    return vals.device.type == "cuda"
+
+
 def _impl(vals: torch.Tensor) -> str:
-    """'kernel' for a CUDA tensor, 'gather' otherwise."""
-    return "kernel" if vals.device.type == "cuda" else "gather"
+    """'kernel' for a CUDA tensor, 'gather' otherwise or where
+    INTERPN_TPU_IMPL forces the gather tree or the factorized products
+    (whose stacks and splines take the gather tree)."""
+    return "kernel" if _on_card(vals) and impl_mode() == "auto" else "gather"
 
 
 def f64_engine() -> str:
@@ -291,8 +323,18 @@ def _route(route, params, vals, obs):
     return KernelRoute.apply(route, *tensors).reshape(*lead, *shape)
 
 
+_FACTORIZED_REGULAR = {"linear": _fz.linear_regular_factorized,
+                       "cubic": _fz.cubic_regular_factorized,
+                       "nearest": _fz.nearest_regular_factorized}
+_FACTORIZED_RECT = {"linear": _fz.linear_rectilinear_factorized,
+                    "cubic": _fz.cubic_rectilinear_factorized,
+                    "nearest": _fz.nearest_rectilinear_factorized}
+
+
 def _regular(method, dims, starts, steps, vals, obs, *lin):
     dims = tuple(int(d) for d in dims)
+    if impl_mode() == "factorized":
+        return _FACTORIZED_REGULAR[method](dims, starts, steps, vals, obs, *lin)
     return _route(kernel_route("regular", method, dims, *lin), (starts, steps), vals, obs)
 
 
@@ -315,6 +357,8 @@ def nearest_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
 
 def _rect_route(method, grids, vals, obs, *lin):
     grids = tuple(grids)
+    if impl_mode() == "factorized":
+        return _FACTORIZED_RECT[method](grids, vals, obs, *lin)
     return _route(kernel_route("rectilinear", method, len(grids), *lin), grids, vals, obs)
 
 

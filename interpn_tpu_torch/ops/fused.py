@@ -344,9 +344,10 @@ def eval_regular_stack(dims, starts, steps, vals_stack, obs, method="linear", li
     return _regular(dims, starts, steps, vals_stack, obs, method, linearize, stacked=True)
 
 
-def regular_route(dims, dtype, method, nch=None) -> str:
+def regular_route(dims, dtype, method, nch=None, free=None) -> str:
     """The layout the regular kernel reads for a table of `dims` (a stack
-    of `nch` tables; None for one table) in `dtype` by `method`, one of
+    of `nch` tables; None for one table) in `dtype` by `method`, where
+    `free` bytes of the tables' device are free (None: no bound), one of
     ROUTES: for a linear or nearest stack `_channel_route`'s; for one f32
     linear table 'staged' (within STAGE_BYTES, copied into shared memory by
     each block) or 'quads' (above that, packed copy within QUAD_BYTES); for
@@ -354,7 +355,8 @@ def regular_route(dims, dtype, method, nch=None) -> str:
     else 'direct' (linear f64 is never staged nor packed). A function of
     these arguments alone, and the only place the choice is made."""
     if method == "cubic":
-        return _cubic_route(dims, dtype) if nch is None else _stack_route(dims, dtype, nch, False)
+        return (_cubic_route(dims, dtype) if nch is None
+                else _stack_route(dims, dtype, nch, False, free))
     if nch is None:
         if method == "linear" and dtype == torch.float32:
             if math.prod(dims) * dtype.itemsize <= STAGE_BYTES:
@@ -362,10 +364,10 @@ def regular_route(dims, dtype, method, nch=None) -> str:
             if _packed_size(dims) * dtype.itemsize <= QUAD_BYTES:
                 return "quads"
         return "direct"
-    return _channel_route(dims, dtype, method, nch)
+    return _channel_route(dims, dtype, method, nch, free)
 
 
-def rectilinear_route(dims, dtype, method, nch=None) -> str:
+def rectilinear_route(dims, dtype, method, nch=None, free=None) -> str:
     """The layout the rectilinear kernel reads, as `regular_route` decides
     it for the regular one: for one cubic table `_cubic_route`'s, but one
     lane a query on the cubic pack from 2D ('taps'; four lanes ran 100^3 f32
@@ -374,12 +376,12 @@ def rectilinear_route(dims, dtype, method, nch=None) -> str:
     double buffer), else 'interleaved' where `_interleaves` (f64 from 4D
     only above L1_BYTES), else 'direct'; for a linear or nearest stack
     `_channel_route`'s, K5's rule; for one linear or nearest table
-    `_lerp_table_route`'s. A function of these arguments alone, and the
-    only place the choice is made."""
+    `_lerp_table_route`'s. `free` as `regular_route` takes it. A function
+    of these arguments alone, and the only place the choice is made."""
     if method != "cubic":
         if nch is None:
             return _lerp_table_route(dims, dtype, method)
-        return _channel_route(dims, dtype, method, nch)
+        return _channel_route(dims, dtype, method, nch, free)
     if nch is None:
         route = _cubic_route(dims, dtype)
         return "taps" if route == "tap_lanes" else route
@@ -388,23 +390,23 @@ def rectilinear_route(dims, dtype, method, nch=None) -> str:
         return "staged"
     if table <= STAGE_BYTES:
         return "staged_tables"
-    wide = _interleaves(dims, dtype, nch) and (
+    wide = _interleaves(dims, dtype, nch, free) and (
         dtype == torch.float32 or len(dims) <= 3 or table > L1_BYTES)
     return "interleaved" if wide else "direct"
 
 
-def bspline_route(dims, dtype, k, nch=None) -> str:
+def bspline_route(dims, dtype, k, nch=None, free=None) -> str:
     """The layout the B-spline kernel of degree `k` reads for coefficient
     tables of `dims` in `dtype`: for one table 'staged_groups' (the one
     group of a table within GROUP_BYTES, staged in shared memory by each
     1024-thread block), else 'direct'; for a stack of `nch`
-    `_stack_route`'s. A function of these arguments alone, and the only
-    place the choice is made."""
+    `_stack_route`'s, `free` as `regular_route` takes it. A function of
+    these arguments alone, and the only place the choice is made."""
     if k not in DEGREES:
         raise ValueError(f"spline degree must be one of {DEGREES}, got {k!r}")
     if nch is None:
         return "staged_groups" if math.prod(dims) * dtype.itemsize <= GROUP_BYTES else "direct"
-    return _stack_route(dims, dtype, nch, True)
+    return _stack_route(dims, dtype, nch, True, free)
 
 
 def _lerp_table_route(dims, dtype, method) -> str:
@@ -446,20 +448,33 @@ def guide_fits(route, dims, dtype) -> bool:
     return guide <= COLUMN_BYTES
 
 
-def _interleaves(dims, dtype, nch) -> bool:
+def _interleaves(dims, dtype, nch, free=None) -> bool:
     """Whether a stack of nch tables of `dims` is wide enough to read
-    channel-interleaved (RUN_BYTES of channels an entry or more) and its
+    channel-interleaved (RUN_BYTES of channels an entry or more), its
     interleave small enough for int32 indices (below 2^31 entries; each
-    table alone always is)."""
-    return nch * dtype.itemsize >= RUN_BYTES and nch * math.prod(dims) < _INT32_LIMIT
+    table alone always is), and the interleaved copy, which the entry
+    allocates each call beside the stack, within the `free` bytes of the
+    tables' device (None: no bound), so that a stack the card holds never
+    runs out of memory on this route where the direct one would not."""
+    entries = nch * math.prod(dims)
+    return (nch * dtype.itemsize >= RUN_BYTES and entries < _INT32_LIMIT
+            and (free is None or entries * dtype.itemsize <= free))
 
 
-def _channel_route(dims, dtype, method, nch) -> str:
+def free_bytes(tensor) -> int | None:
+    """Free bytes of a CUDA tensor's device now (`torch.cuda.mem_get_info`),
+    None on another device."""
+    if tensor.device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(tensor.device)[0]
+
+
+def _channel_route(dims, dtype, method, nch, free=None) -> str:
     """The route of a linear or nearest stack of nch tables (K5, K6):
     'interleaved' where `_interleaves`; else 'staged' for an f32 linear
     stack of at most STAGE_BYTES in all (read table by table); else
     'direct'."""
-    if _interleaves(dims, dtype, nch):
+    if _interleaves(dims, dtype, nch, free):
         return "interleaved"
     if (method == "linear" and dtype == torch.float32
             and math.prod(dims) * nch * dtype.itemsize <= STAGE_BYTES):
@@ -467,7 +482,7 @@ def _channel_route(dims, dtype, method, nch) -> str:
     return "direct"
 
 
-def _stack_route(dims, dtype, nch, interleave) -> str:
+def _stack_route(dims, dtype, nch, interleave, free=None) -> str:
     """The route of a stack of nch cubic (K5) or B-spline (K7) tables:
     'staged_groups' where each table fits GROUP_BYTES; else, where
     `interleave` (K7, whose tree keeps one running sum a channel a level;
@@ -475,7 +490,7 @@ def _stack_route(dims, dtype, nch, interleave) -> str:
     'interleaved' where `_interleaves`; else 'direct'."""
     if math.prod(dims) * dtype.itemsize <= GROUP_BYTES:
         return "staged_groups"
-    return "interleaved" if interleave and _interleaves(dims, dtype, nch) else "direct"
+    return "interleaved" if interleave and _interleaves(dims, dtype, nch, free) else "direct"
 
 
 def _cubic_route(dims, dtype) -> str:
@@ -626,7 +641,8 @@ def _regular(dims, starts, steps, vals, obs, method, linearize, *, stacked):
         plain = plain_regular_stack if stacked else plain_regular
         return plain(dims, starts, steps, vals, obs, method, linearize)
     n = _check(dims, starts, steps, vals, obs, method, stacked)
-    route = regular_route(dims, vals.dtype, method, int(vals.shape[0]) if stacked else None)
+    route = (regular_route(dims, vals.dtype, method, int(vals.shape[0]), free_bytes(vals))
+             if stacked else regular_route(dims, vals.dtype, method))
     return _relaid_launch("regular", route, LAYOUTS, dims, vals, obs, method, linearize, n,
                           stacked, starts.data_ptr(), steps.data_ptr())
 
@@ -680,7 +696,8 @@ def _rectilinear(grids, vals, obs, method, linearize, *, stacked):
         return plain(grids, vals, obs, method, linearize)
     n = _check_rectilinear(grids, vals, obs, method, stacked)
     dims = tuple(int(g.shape[0]) for g in grids)
-    route = rectilinear_route(dims, vals.dtype, method, int(vals.shape[0]) if stacked else None)
+    route = (rectilinear_route(dims, vals.dtype, method, int(vals.shape[0]), free_bytes(vals))
+             if stacked else rectilinear_route(dims, vals.dtype, method))
     return _relaid_launch("rectilinear", route, RECT_LAYOUTS, dims, vals, obs, method,
                           linearize, n, stacked,
                           (_VOIDP * len(grids))(*(g.data_ptr() for g in grids)))
@@ -713,7 +730,8 @@ def _bspline(knots, coeffs, obs, k, *, stacked):
         raise ValueError("knots must be 1-D tensors, one per dim")
     dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
     n = _check_common(dims, coeffs, obs, knots, k + 1, stacked)
-    route = bspline_route(dims, coeffs.dtype, k, int(coeffs.shape[0]) if stacked else None)
+    route = (bspline_route(dims, coeffs.dtype, k, int(coeffs.shape[0]), free_bytes(coeffs))
+             if stacked else bspline_route(dims, coeffs.dtype, k))
     return _relaid_launch("bspline", route, BSPLINE_LAYOUTS, dims, coeffs, obs, k, None, n,
                           stacked, (_VOIDP * len(knots))(*(t.data_ptr() for t in knots)))
 

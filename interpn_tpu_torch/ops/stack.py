@@ -12,7 +12,9 @@ version of rectilinear cubic contracts weights). The JAX package's f64
 channel loop and `vals_finite` guard answer TPU limits and have no
 counterpart: `vals_finite` is accepted and ignored. Each stack op runs the
 stack route of `ops/dispatch.py::kernel_route`, so gradients come from the
-per-channel gather tree and `torch.func` composes as it does there.
+per-channel gather tree and `torch.func` composes as it does there; under
+INTERPN_TPU_IMPL=gather or =factorized a stack takes that gather tree on
+the card too (`dispatch._impl`), as the JAX package's stacks do.
 """
 
 from __future__ import annotations

@@ -14,16 +14,24 @@ another (`config.set_device`); tensors are computed where they live, and all
 tensors of one call must share a device. `out` is mandatory, as in the
 reference, and is written in place whether it is a numpy array or a tensor;
 the function also returns it.
+
+Numpy inputs with a C-contiguous numpy `out` take the native CPU engine
+(`native`, as `interpn_tpu/raw.py::_host_small` does) where
+`native.use_native` admits the batch: the CPU is the device in force, or
+INTERPN_TPU_NATIVE_THRESHOLD asks for it. What the engine does not serve
+(more axes than it takes, ragged bounds queries) goes to the plain path on
+the device in force.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
-from . import ops
+from . import native, ops
 from .config import default_device
 from .ops.df64 import host_tensor
 
@@ -50,6 +58,8 @@ _MAX_DIMS_MSG = (
     "Dimension exceeds maximum (8)."
     " Use interpolator struct directly for higher dimensions."
 )
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 _TWO63 = 9223372036854775808.0  # 2^63, exactly representable in f32 and f64
 
@@ -85,7 +95,10 @@ def _as_dims(dims) -> tuple[int, ...]:
     return tuple(int(d) for d in _host(dims).ravel())
 
 
+@functools.cache
 def _dtype_name(dt) -> str:
+    """The dtype's name ("float32"); cached, as numpy's `.name` costs
+    microseconds on the native engine's small-batch path."""
     if isinstance(dt, torch.dtype):
         return str(dt).removeprefix("torch.")
     return np.dtype(dt).name
@@ -155,6 +168,19 @@ def _validate_rectilinear(grids, vals, obs, out, *, min_size, size_msg):
         _require(g1 > g0, "All grids must be monotonically increasing")
     n = _size(out)
     _require(all(_size(x) == n for x in obs), "Dimension mismatch")
+
+
+def _host_native(out, n, *data) -> bool:
+    """Whether this call of n queries takes the native engine: numpy data,
+    a writable C-contiguous numpy `out`, and `native.use_native` admits the
+    batch."""
+    return (
+        isinstance(out, np.ndarray)
+        and out.flags.c_contiguous
+        and out.flags.writeable
+        and not any(isinstance(a, torch.Tensor) for a in data)
+        and native.use_native(n)
+    )
 
 
 def _raise_unrep(bad):
@@ -236,6 +262,12 @@ def _interpn_regular(method, dtype, dims, starts, steps, vals, obs, out, lin=Tru
         dims, starts, steps, vals, obs, out,
         min_size=min_size, size_msg=_SIZE_MSG[min_size][0],
     )
+    if _host_native(out, _size(out), starts, steps, vals, *obs) and (
+        native.cubic_regular(dims, starts, steps, vals, bool(lin), obs, out)
+        if method == "cubic"
+        else getattr(native, f"{method}_regular")(dims, starts, steps, vals, obs, out)
+    ):
+        return out
     device = _device(starts, steps, vals, *obs, out)
     starts_t, steps_t = _prep(device, starts, steps)
     vals_t = _prep_table(device, vals)
@@ -256,6 +288,12 @@ def _interpn_rectilinear(method, dtype, grids, vals, obs, out, lin=True):
     _validate_rectilinear(
         grids, vals, obs, out, min_size=min_size, size_msg=_SIZE_MSG[min_size][1]
     )
+    if _host_native(out, _size(out), *grids, vals, *obs) and (
+        native.cubic_rectilinear(grids, vals, bool(lin), obs, out)
+        if method == "cubic"
+        else getattr(native, f"{method}_rectilinear")(grids, vals, obs, out)
+    ):
+        return out
     device = _device(*grids, vals, *obs, out)
     grids_t = _prep(device, *grids)
     vals_t = _prep_table(device, vals)
@@ -329,6 +367,10 @@ def _check_bounds_regular(dtype, dims, starts, steps, obs, atol, out):
     dims = _as_dims(dims)
     ndims = len(dims)
     _require(len(obs) == ndims and _size(out) == ndims, "Dimension mismatch")
+    if obs and _host_native(out, _size(obs[0]), starts, steps, *obs) and (
+        native.check_bounds_regular(dims, starts, steps, obs, atol, out, _NP_DTYPE[dtype])
+    ):
+        return out
     device = _device(starts, steps, *obs, out)
     starts_t, steps_t = _prep(device, starts, steps)
     obs_t = _prep(device, *obs)
@@ -348,6 +390,10 @@ def _check_bounds_rectilinear(dtype, grids, obs, atol, out):
     ndims = len(grids)
     _require(len(obs) == ndims and _size(out) == ndims, "Dimension mismatch")
     _require(all(_size(g) > 0 for g in grids), "Dimension mismatch")
+    if obs and _host_native(out, _size(obs[0]), *grids, *obs) and (
+        native.check_bounds_rectilinear(grids, obs, atol, out, _NP_DTYPE[dtype])
+    ):
+        return out
     device = _device(*grids, *obs, out)
     grids_t = _prep(device, *grids)
     obs_t = _prep(device, *obs)

@@ -1,8 +1,8 @@
 """Small numeric helpers shared across the port.
 
-Copies of `interpn_tpu.utils` (stride and stencil helpers). They are numpy
-only, but importing `interpn_tpu` would import jax, so the port keeps its own
-copy.
+Copies of `interpn_tpu.utils` (stride and stencil helpers, and the grid
+samplers `linspace` and `meshgrid`). They are numpy only, but importing
+`interpn_tpu` would import jax, so the port keeps its own copy.
 """
 
 from __future__ import annotations
@@ -45,3 +45,19 @@ def corner_offsets(dims: tuple[int, ...], footprint: int) -> np.ndarray:
         digit = (verts // footprint**k) % footprint
         out += digit * strides[k]
     return out.astype(np.int32)
+
+
+def linspace(start: float, stop: float, n: int, dtype=np.float64) -> np.ndarray:
+    """Evenly spaced samples, inclusive of both endpoints."""
+    return np.linspace(start, stop, n, dtype=dtype)
+
+
+def meshgrid(axes: list[np.ndarray]) -> np.ndarray:
+    """C-order (indexing='ij') tensor-product coordinates.
+
+    Returns an array of shape (prod(len(a) for a in axes), ndims) listing every
+    grid point's coordinates in C order — the layout assumed by all `vals`
+    arrays. Equivalent to the reference's `utils::meshgrid` (`src/utils.rs`).
+    """
+    mesh = np.meshgrid(*axes, indexing="ij")
+    return np.stack([m.ravel() for m in mesh], axis=-1)

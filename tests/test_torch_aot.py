@@ -286,6 +286,36 @@ def test_engine_stays_pinned_to_the_export(kernel_route, monkeypatch):
     _bitwise(got, model.eval_torch(obs))
 
 
+def test_i8_engine_stays_pinned_to_the_export(kernel_route, monkeypatch):
+    """Exported under INTERPN_TPU_F64=i8 the program runs K9 (its plain
+    chain here, `i8.contract`) whatever the variable says at serve time,
+    bitwise eval_torch under i8; exported without it, the native kernel
+    even with i8 set at serve time."""
+    from interpn_tpu_torch.ops import i8
+
+    calls = []
+    contract = i8.contract
+    monkeypatch.setattr(i8, "contract", lambda *a: calls.append(1) or contract(*a))
+    model = _models(itt, np.float64)[1]
+    obs = _obs(20, np.float64)
+    monkeypatch.setenv(dispatch.F64_ENV, "i8")
+    want = model.eval_torch(obs)
+    assert calls == [1]
+    pinned = aot.export_eval(model, 32)
+    monkeypatch.delenv(dispatch.F64_ENV)
+    native = aot.export_eval(model, 32)
+    assert (_header(pinned)["engine"], _header(native)["engine"]) == ("i8", "native")
+    calls.clear()
+    _bitwise(aot.load(pinned).eval_torch(obs), want)
+    assert calls == [1]
+    monkeypatch.setenv(dispatch.F64_ENV, "i8")
+    calls.clear()
+    got = aot.load(native).eval_torch(obs)
+    assert calls == []
+    monkeypatch.delenv(dispatch.F64_ENV)
+    _bitwise(got, model.eval_torch(obs))
+
+
 @pytest.mark.parametrize("route", ["gather", "kernel"])
 def test_serves_without_model_in_fresh_process(tmp_path: Path, monkeypatch, route):
     """The deployment contract: a process that imports only

@@ -68,8 +68,10 @@ def test_interior_matches_scipy(ndims, method):
 
 @pytest.mark.parametrize("method", ["linear", "nearest", "slinear", "hermite", "pchip",
                                     "cubic", "quintic"])
-def test_every_method_matches_the_jax_compat(method):
+def test_every_method_matches_the_jax_compat(method, monkeypatch):
     """Extrapolating, with a NaN and a trailing channel axis of 3."""
+    # each channel against the single-table call on the torch route
+    monkeypatch.setenv("INTERPN_TPU_NATIVE", "0")
     rng = np.random.default_rng(5)
     grids, vals = _make(rng, 3, npts=7)
     xi = rng.uniform([g[0] - 0.3 for g in grids], [g[-1] + 0.3 for g in grids], (150, 3))
@@ -88,10 +90,11 @@ def test_every_method_matches_the_jax_compat(method):
 
 
 @pytest.mark.parametrize("method", ["linear", "nearest", "hermite", "pchip", "quintic"])
-def test_trailing_channels_on_a_regular_grid_keep_each_row(method):
+def test_trailing_channels_on_a_regular_grid_keep_each_row(method, monkeypatch):
     """On evenly spaced axes too, each channel of a stack is the
     single-channel call's bits: the stack takes the rectilinear route the
     single-table classes take."""
+    monkeypatch.setenv("INTERPN_TPU_NATIVE", "0")  # the single-table torch route
     rng = np.random.default_rng(17)
     grids = tuple(np.linspace(0.0, 1.0, 7) for _ in range(3))
     stacked = rng.standard_normal((7, 7, 7, 4))

@@ -334,6 +334,7 @@ def test_forced_engines_cache_numpy_tables_by_content(counted, monkeypatch, engi
     """raw and interpn() make a fresh tensor of a numpy table on every
     call; the engine's cache keys it by content, so the table is split or
     decomposed once and no copy of it is kept."""
+    monkeypatch.setenv("INTERPN_TPU_NATIVE", "0")  # the engines' route from numpy
     from interpn_tpu_torch import interpn, raw
     from interpn_tpu_torch.ops import i8
 

@@ -86,7 +86,8 @@ def test_matches_jax_interpolator(method, regular):
     assert shaped.shape == (1, 257)
 
 
-def test_matches_model_classes():
+def test_matches_model_classes(monkeypatch):
+    monkeypatch.setenv("INTERPN_TPU_NATIVE", "0")  # the classes' torch route
     rng = np.random.default_rng(42)
     for regular in (True, False):
         for method, name in (("linear", "Multilinear"), ("cubic", "Multicubic"),

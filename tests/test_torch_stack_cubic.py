@@ -233,6 +233,43 @@ def test_wide_stacks_past_int32_indices_read_direct(family, method, dtype):
     assert choose((2**9, 2**9, 2**9 - 1), dtype, method, 16) == "interleaved"
 
 
+INTERLEAVING = [("K5", "regular", "linear"), ("K5", "regular", "nearest"),
+                ("K6", "rectilinear", "cubic"), ("K6", "rectilinear", "linear"),
+                ("K6", "rectilinear", "nearest"), ("K7", "bspline", 3), ("K7", "bspline", 5)]
+
+
+@pytest.mark.parametrize("dtype,nch", [(F32, 8), (F64, 4)], ids=["f32x8", "f64x4"])
+@pytest.mark.parametrize("kernel,family,method", INTERLEAVING,
+                         ids=[f"{k}-{f}-{m}" for k, f, m in INTERLEAVING])
+def test_interleave_needs_its_copy_to_fit_free_memory(kernel, family, method, dtype, nch):
+    """Each call allocates the interleaved copy of the whole stack beside
+    it, so a stack interleaves only while that copy fits the free bytes of
+    its device: interleaved with exactly the copy's bytes free, direct with
+    one byte fewer; with no bound (None, as on the CPU) interleaved."""
+    dims = (40, 40, 40)  # each table above STAGE_BYTES and GROUP_BYTES
+    choose = {"regular": fused.regular_route, "rectilinear": fused.rectilinear_route,
+              "bspline": fused.bspline_route}[family]
+    copy = nch * math.prod(dims) * dtype.itemsize
+    assert choose(dims, dtype, method, nch) == "interleaved"
+    assert choose(dims, dtype, method, nch, copy) == "interleaved"
+    assert choose(dims, dtype, method, nch, copy - 1) == "direct"
+    assert choose(dims, dtype, method, nch, 0) == "direct"
+    assert choose(dims, dtype, method, None, 0) == choose(dims, dtype, method)  # one table
+
+
+def test_free_bytes_only_on_the_card(monkeypatch):
+    """The free bytes are asked of CUDA tensors' devices alone, once."""
+    asked = []
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device: asked.append(device) or (123, 456))
+
+    class OnCard:
+        device = torch.device("cuda", 0)
+
+    assert fused.free_bytes(torch.zeros(1)) is None and asked == []
+    assert fused.free_bytes(OnCard()) == 123 and asked == [torch.device("cuda", 0)]
+
+
 @pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("dtype", [F32, F64], ids=str)
 @pytest.mark.parametrize("ndims", [1, 2, 3, 5])
