@@ -48,6 +48,7 @@ import torch
 from .. import convert, native, ops, raw
 from ..config import default_device
 from ..ops import bspline as _bspline
+from ..utils import tracing
 
 SPLINE_DEGREE = {"cubic_spline": 3, "quintic": 5}
 METHODS = ("linear", "cubic", "nearest", "pchip", *SPLINE_DEGREE)
@@ -174,11 +175,11 @@ class DeviceInterpolator:
 
     # --- evaluation ------------------------------------------------------------
 
-    def _eval(self, obs_t, flag: bool = False):
-        """(result, unrepresentable flag or None) on the tensors' device:
-        the flag only where `flag` is asked for and the reference raises it
-        (the reference methods on a regular grid)."""
-        grid = self.tensors(obs_t[0].device)
+    def _eval(self, grid, obs_t, flag: bool = False):
+        """(result, unrepresentable flag or None) at the flat query tensors
+        `obs_t` on the cached tensors `grid` of their device: the flag only
+        where `flag` is asked for and the reference raises it (the
+        reference methods on a regular grid)."""
         result = evaluate(self.method, self.dims if self.regular else None, self.linearize,
                           grid, obs_t)
         bad = None
@@ -269,10 +270,20 @@ class DeviceInterpolator:
         """The flat result on the queries' device (numpy queries: the
         default device), with no host sync. NaN and inf coordinates give
         NaN or extrapolate; nothing raises for them."""
+        if tracing.profiler._is_profiler_enabled:
+            with tracing.span(tracing.ENTRY):
+                grid, obs_t = tracing.call(tracing.CHECKS, self._torch_inputs, obs)
+                return self._eval(grid, obs_t)[0]
+        return self._eval(*self._torch_inputs(obs))[0]
+
+    def _torch_inputs(self, obs):
+        """`eval_torch`'s checks; (the cached tensors, the flat query
+        tensors) on the queries' device."""
         self._check_float()
         self.check_grid_sizes()
         self.check_obs_sizes(obs)
-        return self._eval(self._obs_to_device(obs, raw._device(*obs)))[0]
+        obs_t = self._obs_to_device(obs, raw._device(*obs))
+        return self.tensors(obs_t[0].device), obs_t
 
     def eval(self, obs, out=None):
         """Evaluate at the observation points, into `out` when given (numpy
@@ -287,33 +298,55 @@ class DeviceInterpolator:
         """`eval` with the reference's checks of sizes and dtypes; on a
         regular grid, AssertionError "Unrepresentable coordinate value" for
         a NaN, inf or far-out coordinate of a reference method."""
+        if tracing.profiler._is_profiler_enabled:
+            return tracing.call(tracing.ENTRY, self._eval_unchecked, obs, out)
+        return self._eval_unchecked(obs, out)
+
+    def _eval_unchecked(self, obs, out):
         nat = self._native
         if nat and type(out) is np.ndarray and self._host_native(obs, out):
             return out  # a prepared call exists, so the checks below passed once
+        if tracing.profiler._is_profiler_enabled:
+            out, grid, obs_t = tracing.call(tracing.CHECKS, self._out_inputs, obs, out)
+        else:
+            out, grid, obs_t = self._out_inputs(obs, out)
+        if grid is None:  # the native engine wrote `out`
+            return out
+        result, bad = self._eval(grid, obs_t, flag=True)
+        if bad is not None:
+            raw._raise_unrep(bad)
+        return raw._finish(result, out)
+
+    def _out_inputs(self, obs, out):
+        """`eval_unchecked`'s checks; (out, the cached tensors, the flat
+        query tensors) on the call's device, or (out, None, None) where the
+        native engine has written `out`."""
         self.check_grid_sizes()
         out = out if out is not None else np.zeros(np.shape(obs[0]), dtype=self.dtype)
         self.check_obs_sizes(obs, out)
         self.check_eval_dtypes(obs, out)
         self._check_float()
         if self._host_native(obs, out):
-            return out
-        device = raw._device(*obs, out)
-        result, bad = self._eval(self._obs_to_device(obs, device), flag=True)
-        if bad is not None:
-            raw._raise_unrep(bad)
-        return raw._finish(result, out)
+            return out, None, None
+        obs_t = self._obs_to_device(obs, raw._device(*obs, out))
+        return out, self.tensors(obs_t[0].device), obs_t
 
     def gradient_torch(self, obs) -> tuple[torch.Tensor, ...]:
         """ndims flat tensors, d(interpolant)/d(x_k) at each query, by
         reverse mode through the evaluation (the kernels' backward is their
         gather tree's). Piecewise polynomials: not defined exactly at cell
         boundaries; zero for nearest."""
+        if tracing.profiler._is_profiler_enabled:
+            return tracing.call(tracing.ENTRY, self._gradient_torch, obs)
+        return self._gradient_torch(obs)
+
+    def _gradient_torch(self, obs) -> tuple[torch.Tensor, ...]:
         self.check_grid_sizes()
         self.check_obs_sizes(obs)
         obs_t = tuple(x.detach().requires_grad_() for x in
                       self._obs_to_device(obs, raw._device(*obs)))
         with torch.enable_grad():
-            y = self._eval(obs_t)[0]
+            y = self._eval(self.tensors(obs_t[0].device), obs_t)[0]
         if not y.requires_grad:  # nearest's gather tree: no path from the queries
             return tuple(torch.zeros_like(x) for x in obs_t)
         return torch.autograd.grad(y.sum(), obs_t)

@@ -38,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils import c_strides
+from ..utils import c_strides, tracing
 from . import fused as _fused
 from ._chunk import chunk_len
 from .bspline import spline_locs_weights
@@ -184,7 +184,10 @@ def table_split(vals):
     def build():
         v = torch.as_tensor(vals).detach().reshape(-1).to(_F64)
         vh, vl = split_f64(v)
-        return vh.contiguous(), vl.contiguous(), bool(torch.isfinite(v).all())
+        finite = torch.isfinite(v).all()
+        if tracing.profiler._is_profiler_enabled:
+            finite = tracing.call(tracing.SYNC, bool, finite)
+        return vh.contiguous(), vl.contiguous(), bool(finite)
 
     return _SPLITS.get(vals, (), build)
 
@@ -373,6 +376,13 @@ def eval_regular(dims, starts, steps, vals, obs, method, linearize=True):
     """Double-float f64 evaluation on a regular grid (linear or cubic, 2-8D):
     the counterpart of `pallas_df64.eval_regular`. Returns (n,) float64:
     the plain chain on CPU tensors, one launch of K8 on CUDA tensors."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.WRAPPER, _eval_regular, dims, starts, steps, vals, obs,
+                            method, linearize)
+    return _eval_regular(dims, starts, steps, vals, obs, method, linearize)
+
+
+def _eval_regular(dims, starts, steps, vals, obs, method, linearize):
     dims = tuple(int(d) for d in dims)
     obs = _flat(obs)
     if _on_cpu((vals, starts, steps, *obs)):
@@ -384,6 +394,13 @@ def eval_regular(dims, starts, steps, vals, obs, method, linearize=True):
 
 def eval_rectilinear(grids, vals, obs, method, linearize=True):
     """Double-float f64 evaluation on a rectilinear grid."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.WRAPPER, _eval_rectilinear, grids, vals, obs, method,
+                            linearize)
+    return _eval_rectilinear(grids, vals, obs, method, linearize)
+
+
+def _eval_rectilinear(grids, vals, obs, method, linearize):
     grids, obs = tuple(grids), _flat(obs)
     if _on_cpu((vals, *grids, *obs)):
         return plain_rectilinear(grids, vals, obs, method, linearize)
@@ -396,6 +413,12 @@ def eval_rectilinear(grids, vals, obs, method, linearize=True):
 def eval_bspline(knots, coeffs, obs, k: int):
     """Double-float f64 evaluation of a degree-k (3 or 5) tensor-product
     B-spline: the counterpart of `pallas_df64.eval_bspline`."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.WRAPPER, _eval_bspline, knots, coeffs, obs, k)
+    return _eval_bspline(knots, coeffs, obs, k)
+
+
+def _eval_bspline(knots, coeffs, obs, k):
     knots, obs = tuple(knots), _flat(obs)
     if _on_cpu((coeffs, *knots, *obs)):
         return plain_bspline(knots, coeffs, obs, k)

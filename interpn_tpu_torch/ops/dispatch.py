@@ -81,6 +81,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils import tracing
 from . import df64 as _df64
 from . import factorized as _fz
 from . import fused as _fused
@@ -314,6 +315,12 @@ def _route(route, params, vals, obs):
     """route.gather(*params, vals, *obs) on the CPU; on a CUDA tensor the
     kernel on flat contiguous queries, reshaped to (*obs[0].shape) or, on a
     stack route, (nch, *obs[0].shape)."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.DISPATCH, _routed, route, params, vals, obs)
+    return _routed(route, params, vals, obs)
+
+
+def _routed(route, params, vals, obs):
     if _impl(vals) == "gather":
         return route.gather(*params, vals, *obs)
     shape = obs[0].shape
@@ -332,6 +339,13 @@ _FACTORIZED_RECT = {"linear": _fz.linear_rectilinear_factorized,
 
 
 def _regular(method, dims, starts, steps, vals, obs, *lin):
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.ENTRY, _regular_call, method, dims, starts, steps, vals,
+                            obs, *lin)
+    return _regular_call(method, dims, starts, steps, vals, obs, *lin)
+
+
+def _regular_call(method, dims, starts, steps, vals, obs, *lin):
     dims = tuple(int(d) for d in dims)
     if impl_mode() == "factorized":
         return _FACTORIZED_REGULAR[method](dims, starts, steps, vals, obs, *lin)
@@ -356,6 +370,12 @@ def nearest_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
 
 
 def _rect_route(method, grids, vals, obs, *lin):
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.ENTRY, _rect_call, method, grids, vals, obs, *lin)
+    return _rect_call(method, grids, vals, obs, *lin)
+
+
+def _rect_call(method, grids, vals, obs, *lin):
     grids = tuple(grids)
     if impl_mode() == "factorized":
         return _FACTORIZED_RECT[method](grids, vals, obs, *lin)
@@ -384,5 +404,11 @@ def bspline_eval(knots, coeffs, obs, k: int, *, vals_finite=None):
     `ops.bspline.prep_bspline` (carried into tensors by
     `convert.bspline_from_numpy`); out-of-bounds queries extrapolate the end
     span's polynomial."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.ENTRY, _bspline_call, knots, coeffs, obs, k)
+    return _bspline_call(knots, coeffs, obs, k)
+
+
+def _bspline_call(knots, coeffs, obs, k):
     knots = tuple(knots)
     return _route(kernel_route("bspline", int(k), len(knots)), knots, coeffs, obs)

@@ -62,6 +62,7 @@ from functools import cache
 import torch
 
 from .. import _build
+from ..utils import tracing
 from .bspline import bspline_gather
 from .cubic import cubic_rectilinear, cubic_rectilinear_weighted, cubic_regular
 from .linear import linear_rectilinear, linear_regular
@@ -574,9 +575,9 @@ def _launch_pack(name, dims, vals, shape):
     out = torch.empty(shape, dtype=vals.dtype, device=vals.device)
     entry = name.removeprefix("regular")
     with torch.cuda.device(vals.device):
-        rc = _fn("fused_regular", entry)(
-            _is_f64(vals), len(dims), (_INT * len(dims))(*dims), vals.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        rc = _c_call(_fn("fused_regular", entry), _is_f64(vals), len(dims),
+                     (_INT * len(dims))(*dims), vals.data_ptr(), out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_regular{entry} launch failed: CUDA error {rc}")
     launches[name] += 1
@@ -606,9 +607,8 @@ def interleave(vals_stack, family="regular"):
     out = torch.empty((table, nch), dtype=vals_stack.dtype, device=vals_stack.device)
     source = f"fused_{family}_stack"
     with torch.cuda.device(vals_stack.device):
-        rc = _fn(source, "_interleave")(
-            _is_f64(vals_stack), table, nch, vals_stack.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        rc = _c_call(_fn(source, "_interleave"), _is_f64(vals_stack), table, nch,
+                     vals_stack.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{source} interleave launch failed: CUDA error {rc}")
     launches[names[family]] += 1
@@ -633,7 +633,30 @@ def regular_info(method, dtype, ndims, route, stacked=False, family="regular") -
     return dict(zip(("registers", "static_smem", "local_bytes", "blocks_per_sm"), got))
 
 
+def _chosen(rule, dims, vals, method, stacked) -> str:
+    """The route that `rule` (`regular_route`, `rectilinear_route`,
+    `bspline_route`; `method` a B-spline's degree) picks for this call, a
+    stack's with the free bytes of its device now; in a `route` span while
+    a profiler records."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.ROUTE, _choose, rule, dims, vals, method, stacked)
+    return _choose(rule, dims, vals, method, stacked)
+
+
+def _choose(rule, dims, vals, method, stacked) -> str:
+    if stacked:
+        return rule(dims, vals.dtype, method, int(vals.shape[0]), free_bytes(vals))
+    return rule(dims, vals.dtype, method)
+
+
 def _regular(dims, starts, steps, vals, obs, method, linearize, *, stacked):
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.WRAPPER, _regular_wrapper, dims, starts, steps, vals, obs,
+                            method, linearize, stacked)
+    return _regular_wrapper(dims, starts, steps, vals, obs, method, linearize, stacked)
+
+
+def _regular_wrapper(dims, starts, steps, vals, obs, method, linearize, stacked):
     _method(method)  # refuses an unknown method on every device
     dims = tuple(int(d) for d in dims)
     obs = tuple(obs)
@@ -641,8 +664,7 @@ def _regular(dims, starts, steps, vals, obs, method, linearize, *, stacked):
         plain = plain_regular_stack if stacked else plain_regular
         return plain(dims, starts, steps, vals, obs, method, linearize)
     n = _check(dims, starts, steps, vals, obs, method, stacked)
-    route = (regular_route(dims, vals.dtype, method, int(vals.shape[0]), free_bytes(vals))
-             if stacked else regular_route(dims, vals.dtype, method))
+    route = _chosen(regular_route, dims, vals, method, stacked)
     return _relaid_launch("regular", route, LAYOUTS, dims, vals, obs, method, linearize, n,
                           stacked, starts.data_ptr(), steps.data_ptr())
 
@@ -688,6 +710,13 @@ def eval_rectilinear_stack(grids, vals_stack, obs, method="linear", linearize=Tr
 
 
 def _rectilinear(grids, vals, obs, method, linearize, *, stacked):
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.WRAPPER, _rectilinear_wrapper, grids, vals, obs, method,
+                            linearize, stacked)
+    return _rectilinear_wrapper(grids, vals, obs, method, linearize, stacked)
+
+
+def _rectilinear_wrapper(grids, vals, obs, method, linearize, stacked):
     _method(method)  # refuses an unknown method on every device
     grids = tuple(grids)
     obs = tuple(obs)
@@ -696,8 +725,7 @@ def _rectilinear(grids, vals, obs, method, linearize, *, stacked):
         return plain(grids, vals, obs, method, linearize)
     n = _check_rectilinear(grids, vals, obs, method, stacked)
     dims = tuple(int(g.shape[0]) for g in grids)
-    route = (rectilinear_route(dims, vals.dtype, method, int(vals.shape[0]), free_bytes(vals))
-             if stacked else rectilinear_route(dims, vals.dtype, method))
+    route = _chosen(rectilinear_route, dims, vals, method, stacked)
     return _relaid_launch("rectilinear", route, RECT_LAYOUTS, dims, vals, obs, method,
                           linearize, n, stacked,
                           (_VOIDP * len(grids))(*(g.data_ptr() for g in grids)))
@@ -719,6 +747,12 @@ def eval_bspline_stack(knots, coeffs_stack, obs, k: int):
 
 
 def _bspline(knots, coeffs, obs, k, *, stacked):
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.WRAPPER, _bspline_wrapper, knots, coeffs, obs, k, stacked)
+    return _bspline_wrapper(knots, coeffs, obs, k, stacked)
+
+
+def _bspline_wrapper(knots, coeffs, obs, k, stacked):
     if k not in DEGREES:
         raise ValueError(f"spline degree must be one of {DEGREES}, got {k!r}")
     knots = tuple(knots)
@@ -730,8 +764,7 @@ def _bspline(knots, coeffs, obs, k, *, stacked):
         raise ValueError("knots must be 1-D tensors, one per dim")
     dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
     n = _check_common(dims, coeffs, obs, knots, k + 1, stacked)
-    route = (bspline_route(dims, coeffs.dtype, k, int(coeffs.shape[0]), free_bytes(coeffs))
-             if stacked else bspline_route(dims, coeffs.dtype, k))
+    route = _chosen(bspline_route, dims, coeffs, k, stacked)
     return _relaid_launch("bspline", route, BSPLINE_LAYOUTS, dims, coeffs, obs, k, None, n,
                           stacked, (_VOIDP * len(knots))(*(t.data_ptr() for t in knots)))
 
@@ -795,6 +828,14 @@ def _check_common(dims, vals, obs, params, need, stacked) -> int:
     return n
 
 
+def _c_call(entry, *args) -> int:
+    """entry(*args): the ctypes call of a launch, in a `launch` span while
+    a profiler records (`utils/tracing.py`)."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.LAUNCH, entry, *args)
+    return entry(*args)
+
+
 def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route):
     """Launch `csrc/<source>.cu` on `route` on the current stream; count the
     launch."""
@@ -807,7 +848,8 @@ def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route
     if index is None:
         index = torch.cuda.current_device()
     with torch.cuda.device(index):
-        rc = _fn(source)(
+        rc = _c_call(
+            _fn(source),
             *head,
             ndims,
             (_INT * ndims)(*dims),
@@ -895,8 +937,8 @@ def _launch_engine(source, head, dims, grid_args, tables, obs, n, threads, devic
     index = device.index if device.index is not None else torch.cuda.current_device()
     blocks = min(-(-n // threads), _sm_count(index) * _BLOCKS_PER_SM * _THREADS // threads)
     with torch.cuda.device(index):
-        rc = _fn(source)(
-            *head, len(dims), (_INT * len(dims))(*dims), *grid_args, *tables,
+        rc = _c_call(
+            _fn(source), *head, len(dims), (_INT * len(dims))(*dims), *grid_args, *tables,
             (_VOIDP * len(dims))(*(o.data_ptr() for o in obs)), out.data_ptr(), n, blocks,
             torch.cuda.current_stream().cuda_stream,
         )

@@ -47,7 +47,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils import c_strides
+from ..utils import c_strides, tracing
 from . import fused as _fused
 from ._chunk import chunk_len
 from .df64 import (
@@ -148,6 +148,10 @@ def decompose(dims, vals):
 _PREPS = TableCache(8)
 
 
+def _to_numpy(vals: torch.Tensor) -> np.ndarray:
+    return vals.detach().cpu().numpy()
+
+
 def prepare(dims, vals):
     """(pieces (prod(dims), 8) int8 cell-major, ch, cl, sv (lead,) float32,
     c0), on the table's device, or None for a table with a non-finite entry
@@ -157,7 +161,8 @@ def prepare(dims, vals):
     def build():
         host = host_array(vals)
         if host is None:
-            host = vals.detach().cpu().numpy()
+            host = (tracing.call(tracing.SYNC, _to_numpy, vals)
+                    if tracing.profiler._is_profiler_enabled else _to_numpy(vals))
         host = np.asarray(host, dtype=np.float64).reshape(-1)
         if not np.isfinite(host).all():
             return None
@@ -350,6 +355,13 @@ def eval_regular(dims, starts, steps, vals, obs, method, linearize=True, prep=No
     2-8D): the counterpart of `pallas_i8.eval_regular`. `prep` is
     `prepare(dims, vals)`, where the caller has it. Returns (n,) float64:
     the plain chain on CPU tensors, one launch of K9 on CUDA tensors."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.WRAPPER, _eval_regular, dims, starts, steps, vals, obs,
+                            method, linearize, prep)
+    return _eval_regular(dims, starts, steps, vals, obs, method, linearize, prep)
+
+
+def _eval_regular(dims, starts, steps, vals, obs, method, linearize, prep):
     dims = tuple(int(d) for d in dims)
     obs = _flat(obs)
     if _fused._device((vals, starts, steps, *obs)).type == "cpu":
@@ -360,6 +372,13 @@ def eval_regular(dims, starts, steps, vals, obs, method, linearize=True, prep=No
 
 def eval_rectilinear(grids, vals, obs, method, linearize=True, prep=None):
     """int8-multipass f64 evaluation on a rectilinear grid."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.WRAPPER, _eval_rectilinear, grids, vals, obs, method,
+                            linearize, prep)
+    return _eval_rectilinear(grids, vals, obs, method, linearize, prep)
+
+
+def _eval_rectilinear(grids, vals, obs, method, linearize, prep):
     grids = tuple(grids)
     obs = _flat(obs)
     dims = tuple(int(g.shape[0]) for g in grids)

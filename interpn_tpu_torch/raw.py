@@ -34,6 +34,7 @@ import torch
 from . import native, ops
 from .config import default_device
 from .ops.df64 import host_tensor
+from .utils import tracing
 
 __all__ = [
     "interpn_linear_regular_f64",
@@ -68,6 +69,13 @@ def _unrep_flag(starts, steps, obs) -> torch.Tensor:
     """True when a query's cell index does not fit an isize: the reference's
     "Unrepresentable coordinate value" error for NaN, inf and far-out
     coordinates."""
+    if tracing.profiler._is_profiler_enabled:
+        with tracing.span(tracing.UNREP_FLAG, starts.device):
+            return _unrep_passes(starts, steps, obs)
+    return _unrep_passes(starts, steps, obs)
+
+
+def _unrep_passes(starts, steps, obs) -> torch.Tensor:
     bad = torch.zeros((), dtype=torch.bool, device=starts.device)
     for k, x in enumerate(obs):
         floc = torch.floor((x - starts[k]) / steps[k])
@@ -88,7 +96,15 @@ def _require(cond, msg):
 
 
 def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.SYNC, _to_numpy, a)
+    return _to_numpy(a)
+
+
+def _to_numpy(a: torch.Tensor) -> np.ndarray:
+    return a.detach().cpu().numpy()
 
 
 def _as_dims(dims) -> tuple[int, ...]:
@@ -184,6 +200,8 @@ def _host_native(out, n, *data) -> bool:
 
 
 def _raise_unrep(bad):
+    if tracing.profiler._is_profiler_enabled:
+        bad = tracing.call(tracing.SYNC, bool, bad)
     if bool(bad):
         raise AssertionError("Unrepresentable coordinate value")
 
@@ -225,10 +243,16 @@ def _prep_table(device, vals) -> torch.Tensor:
 
 def _finish(result, out):
     """Write `result` into `out` in place and return `out`."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.FINISH, _copy_into, result, out)
+    return _copy_into(result, out)
+
+
+def _copy_into(result, out):
     if isinstance(out, torch.Tensor):
         out.copy_(result.reshape(out.shape))
     else:
-        np.copyto(out, result.detach().cpu().numpy().reshape(out.shape))
+        np.copyto(out, _host(result).reshape(out.shape))
     return out
 
 
@@ -252,6 +276,13 @@ def _require_ndims(ndims: int, method: str):
 
 
 def _interpn_regular(method, dtype, dims, starts, steps, vals, obs, out, lin=True):
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.ENTRY, _regular_call, method, dtype, dims, starts, steps,
+                            vals, obs, out, lin)
+    return _regular_call(method, dtype, dims, starts, steps, vals, obs, out, lin)
+
+
+def _regular_call(method, dtype, dims, starts, steps, vals, obs, out, lin):
     _check_eval_dtypes(
         dtype, out, obs, [("starts", starts), ("steps", steps), ("vals", vals)]
     )
@@ -282,6 +313,13 @@ def _interpn_regular(method, dtype, dims, starts, steps, vals, obs, out, lin=Tru
 
 
 def _interpn_rectilinear(method, dtype, grids, vals, obs, out, lin=True):
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.call(tracing.ENTRY, _rectilinear_call, method, dtype, grids, vals, obs,
+                            out, lin)
+    return _rectilinear_call(method, dtype, grids, vals, obs, out, lin)
+
+
+def _rectilinear_call(method, dtype, grids, vals, obs, out, lin):
     _check_eval_dtypes(dtype, out, obs, [("grids", g) for g in grids] + [("vals", vals)])
     _require_ndims(len(grids), method)
     min_size = 4 if method == "cubic" else 2
