@@ -16,7 +16,8 @@ factorized products (INTERPN_TPU_IMPL=factorized).
     python3 chip_smoke.py
 
 Phases: 1 build (seconds, registers, spills; for K1/K5, K2/K3/K6 and
-K4/K7 also shared memory and blocks an SM of every instantiation), 2
+K4/K7 also shared memory and blocks an SM of every instantiation; the
+regular entries' unrepresentable-coordinate flag, `csrc/unrep_flag.cu`), 2
 kernel vs plain, bitwise (f32/f64, 1-8D, both cubic extrapolation modes, spline degrees 3 and 5,
 stacks of 1, 3 and 8, NaN and +-inf; K1's linear and nearest routes
 (staged, quads, direct) and cubic routes (staged, taps at 2D, four lanes
@@ -46,17 +47,21 @@ float64 weights in torch, and K8 at the float range's edges), 3 nodes
 routes' cubic pack beside K1 and the interleave beside K5 and K6, the cubic pack
 beside K2 at 100^3, no torch weight build on an engine path, the route of
 each grid and spline kernel, and checks; rectilinear cubic also against
-the gather tree at f32 1e-4, f64 1e-13), 5 timing: each kernel from CUDA
+the gather tree at f32 1e-4, f64 1e-13; on a single regular table the
+flag's kernel once a call, and equal to its plain version with NaN, +-inf
+and far-out values planted), 5 timing: each kernel from CUDA
 events behind a head start (`utils/profiling.py::cuda_time`), each plain
 version from the profiler's device events (`profiled_time`), for K8/K9
-also the whole call through the op a user calls, and the four layout
-kernels, 6 the slice without kernels of its own: pchip (a torch gather
+also the whole call through the op a user calls, the four layout
+kernels and the flag's kernel (3 x 1e6 and 1e8 f32, 3 x 1e7 f64), 6 the slice without kernels of its own: pchip (a torch gather
 tree; regular 20^3 f64 and f32, rectilinear 20^3 f64 against scipy's
 pchip, a stack of 8 through interpn_stack), the five 1D interpolants, and
 the eight model classes at 20^3 f32 (the spline classes under each
 method), each class's eval_torch bitwise its ops call with its kernel K1,
 K2, K3 or K4 launched once a call, its table put on the card once, eval
-from numpy against raw or interpn(), each timed, 7 torch.func
+into a CUDA out bitwise with the flag's kernel once (the regular
+reference methods), eval from numpy against raw or interpn(), each timed,
+7 torch.func
 through the kernel routes and the scipy adapter: TorchInterpolator on each
 method and both grid kinds at 20^3 f32 (the call bitwise its ops call, its
 kernel once; vmap over 8 tables one launch of the stack kernel, bitwise
@@ -862,8 +867,8 @@ def build_phase():
     from interpn_tpu_torch.ops import fused
 
     sources = fused.SOURCES
-    cached = {s: _build.library_path(s).exists() for s in sources}
-    seconds = _build.build_all(sources)
+    cached = {s: _build.library_path(s).exists() for s in (*sources, FLAG)}
+    seconds = _build.build_all([*sources, FLAG])
     for source in sources:
         fused._fn(source)  # load and bind
         ptxas = _build.library_path(source).with_suffix(".log").read_text()
@@ -888,6 +893,38 @@ def build_phase():
             cells = ", ".join(f"{nd}D {r}/{s}" for nd, (r, s) in sorted(by_nd.items()))
             log(f"phase 1   {source} {method} {dt}: registers/spill-store bytes {cells}")
         bspline_build_log(source)
+    built = "already built" if cached[FLAG] else f"built in {seconds[FLAG]:.3f} s"
+    flag_build_log(_build.library_path(FLAG).with_suffix(".log").read_text(), built)
+
+
+# the regular entries' unrepresentable-coordinate flag (csrc/unrep_flag.cu),
+# built and loaded apart from the wrappers' sources at the first flag on a
+# CUDA tensor
+FLAG = "unrep_flag"
+
+
+def flag_build_log(ptxas, built):
+    """Phase 1 for the flag's kernel: registers and spill stores of its f32
+    and f64 instantiations from the ptxas log, and the registers, shared
+    and local bytes and blocks an SM that its launch sizes the grid by
+    (`raw._flag_info`)."""
+    from interpn_tpu_torch import raw
+
+    found = re.findall(
+        r"unrep_flag_kernelI([fd])E\S*' for \S+\n[^\n]*\n\s+(\d+) bytes stack frame, "
+        r"(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers", ptxas)
+    if sorted(t for t, _, _, _ in found) != ["d", "f"]:
+        raise AssertionError(f"{FLAG}: kernels in the ptxas log {found}, expected f32 and f64")
+    raw._flag_entry()  # load and bind
+    log(f"phase 1 build: {FLAG}.cu {built}")
+    cells = []
+    for t, stack, spill, regs in sorted(found, reverse=True):
+        dtype = F32 if t == "f" else F64
+        i = raw._flag_info(dtype)
+        cells.append(f"{SHORT[dtype]} {regs}/{spill}/{stack} ({i['registers']}/"
+                     f"{i['static_smem']}/{i['local_bytes']}/{i['blocks_per_sm']})")
+    log(f"phase 1   {FLAG} registers/spill-store bytes/stack-frame bytes (registers/static "
+        f"shared bytes/local bytes/blocks an SM of 256 threads): {', '.join(cells)}")
 
 
 def bspline_build_log(source):
@@ -1952,10 +1989,12 @@ def drive_path(p: Path, cuda, rng):
     """Phase 4 for one path: interpn() (interpn_stack() for a stack) from
     numpy, where the default device is the card; raw from numpy too for a
     single-table interpolator; then `cuda_entry` from CUDA tensors; launch
-    counts; results checked. Returns (launches of its kernel,
-    kernel-vs-plain max_abs_err, launches of its companion by name)."""
+    counts; results checked; on a single regular table the flag's kernel
+    counted and held against its plain version (`flag_vs_plain`). Returns
+    (launches of its kernel, kernel-vs-plain max_abs_err, launches of its
+    companion by name, launches of the flag's kernel)."""
     import interpn_tpu_torch
-    from interpn_tpu_torch import convert
+    from interpn_tpu_torch import convert, raw
     from interpn_tpu_torch.ops import fused
 
     npd = np.float32 if p.dtype == F32 else np.float64
@@ -1965,6 +2004,7 @@ def drive_path(p: Path, cuda, rng):
     obs_t = convert.obs_from_numpy(obs_np, device=cuda, dtype=p.dtype)
     grid = path_grid(p, cuda)
     regular = p.kind == "regular"
+    flagged = regular and not p.stacked
     if p.stacked:
         entry = "interpn_stack()"
         calls = {entry: lambda: interpn_tpu_torch.interpn_stack(
@@ -1986,19 +2026,27 @@ def drive_path(p: Path, cuda, rng):
     torch.cuda.synchronize()
 
     fused.reset_launches()
-    results, counts = {}, []
+    raw.flag_launches = 0
+    results, counts, flags = {}, [], []
     with weight_builds() as built:  # the torch float64 weight build, on no path
         for name, call in calls.items():
             results[name] = call()
             counts.append(fused.launches[p.counter])
+            flags.append(raw.flag_launches)
     torch.cuda.synchronize()
     others = {k: v for k, v in fused.launches.items() if k not in (p.counter, p.companion) and v}
     expected = list(range(1, len(calls) + 1))
+    # every call of a single regular table goes through a regular raw shim,
+    # which computes the flag once on the card; no other path computes it
+    flags_expected = expected if flagged else [0] * len(calls)
     if counts != expected or others or built or (p.companion and
                                                  fused.launches[p.companion] != len(calls)):
         raise AssertionError(f"{p.label}: launch counts after each call {counts}, others "
                              f"{others}, {p.companion} {fused.launches.get(p.companion)}, "
                              f"torch weight builds {built}")
+    if flags != flags_expected:
+        raise AssertionError(f"{p.label}: flag launches after each call {flags}, want "
+                             f"{flags_expected}")
     launches = fused.launches[p.counter]
     companions = {p.companion: fused.launches[p.companion]} if p.companion else {}
     companion = "".join(f", {k} launches {v} (one a call)" for k, v in companions.items())
@@ -2064,14 +2112,17 @@ def drive_path(p: Path, cuda, rng):
                 if p.kind == "bspline" else "a float64 numpy reference")
     weights = ", no torch float64 weight build" if p.engine else ""
     route = f" ({p.route} route)" if p.route else ""
+    flag_note = (f", flag launches after each call {flags}, {flag_vs_plain(p, grid, obs_t)}"
+                 if flagged else "")
     log(f"phase 4 path {p.label}{route} x {N_MAIN} queries: {', '.join(calls)}; {p.counter} "
-        f"launches after each call {counts}{companion}, no other kernel{weights}; finite, "
+        f"launches after each call {counts}{companion}{flag_note}, no other kernel{weights}; "
+        "finite, "
         f"equal across entry points, kernel "
         f"bitwise equal to its plain version, within rtol {tol:g}, atol {atol:.3g} of the CPU "
         f"plain version{gather_note} on "
         f"{N_REF} queries and of {ref_name} on the {covered} of them it covers, every table "
         f"(rtol {REF_TOL[p.dtype]['rtol']:g}, atol {REF_TOL[p.dtype]['atol']:g})")
-    return launches, err, companions
+    return launches, err, companions, flags[-1]
 
 
 def grid_sample_call(vals: torch.Tensor, n: int, mode: str, nch: int = 1):
@@ -2251,6 +2302,39 @@ LAYOUT_PATHS = {"regular_pack": Path("regular_linear", F32, 100, 3),
                 "rectilinear_interleave": Path("rectilinear_linear_stack", F32, 20, 3)}
 
 
+def flag_vs_plain(p: Path, grid, obs_t) -> str:
+    """The flag's kernel (`raw._unrep_flag` on CUDA tensors) against its
+    plain version (`raw._unrep_passes`) on the path's grid and queries: as
+    they are (all representable), then with one value planted in turn (NaN
+    at the first query, +inf at the last, -inf and a far-out finite value
+    in the middle of the last axis, NaN in the scalar head of a column one
+    value off 16 bytes); one launch a call. Returns the log's note."""
+    from interpn_tpu_torch import raw
+
+    starts, steps = grid[0], grid[1]
+    far = torch.finfo(p.dtype).max / 2  # (far - start) / step is beyond 2^63
+    n, last = obs_t[0].numel(), len(obs_t) - 1
+    plants = [("as drawn", None, 0, None), ("NaN first", 0, 0, math.nan),
+              ("+inf last", last, n - 1, math.inf), ("-inf middle", last, n // 2, -math.inf),
+              ("far-out middle", last, n // 2, far), ("NaN unaligned head", 0, 1, math.nan)]
+    for what, axis, i, value in plants:
+        cols = list(obs_t)
+        if axis is not None:
+            cols[axis] = cols[axis].clone()
+            cols[axis][i] = value
+        if what.endswith("unaligned head"):  # every column starts one value on
+            cols = [c[1:] for c in cols]
+        before = raw.flag_launches
+        got = raw._unrep_flag(starts, steps, cols)
+        want = raw._unrep_passes(starts, steps, cols)
+        if raw.flag_launches != before + 1 or bool(got) != bool(want) or bool(got) != (
+                axis is not None):
+            raise AssertionError(f"{p.label} flag {what}: kernel {bool(got)}, plain "
+                                 f"{bool(want)}, launches {raw.flag_launches - before}")
+    return (f"the flag's kernel equal to its plain version at {n} x {len(obs_t)} queries as "
+            f"drawn and with {', '.join(w for w, *_ in plants[1:])} planted, one launch each")
+
+
 def layout_phase(name, cuda, smi, driven) -> dict:
     """Phase 5 for a layout kernel (`name`: the quads route's pack, the taps
     routes' cubic pack, the interleaved route's interleave) on its path's
@@ -2325,6 +2409,84 @@ def layout_phase(name, cuda, smi, driven) -> dict:
         "bound_by": "bytes",
         "library_ms": lib_ms,
     }
+
+
+# the flag's timings: queries and axes a call, by dtype, and the path whose grid it reads
+FLAG_SIZES = ((F32, N_MAIN, 3), (F32, 100_000_000, 3), (F64, 10_000_000, 3))
+FLAG_PATH = PATHS[0]  # 20^3 f32 linear: its kernels-record entry
+
+
+def flag_phase(cuda, smi, driven) -> dict:
+    """Phase 5 for the flag's kernel (`raw._unrep_flag` on CUDA tensors) at
+    each of FLAG_SIZES on the 20^3 grid: unset on the drawn queries, as its
+    plain version (`raw._unrep_passes`) is, one launch a call; its device
+    time and the plain version's by CUDA events behind a head start, in
+    turns (plain, kernel, kernel, plain), over distinct batches where
+    N_BATCHES of them fit in 1 GiB (one batch again and again above, each
+    far beyond the L2); and its bound (the columns read once). Returns its
+    entry of the kernels record, at the first size."""
+    from interpn_tpu_torch import raw
+    from interpn_tpu_torch.utils.profiling import cuda_time
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(20)
+    entry = None
+    for dtype, n, ndims in FLAG_SIZES:
+        starts, steps = path_grid(Path("regular_linear", dtype, 20, ndims), cuda)[:2]
+        itemsize = torch.finfo(dtype).bits // 8
+        distinct = N_BATCHES if N_BATCHES * ndims * n * itemsize <= 2**30 else 1
+        batches = [tuple(torch.rand(n, generator=gen, device=cuda, dtype=dtype) * (HI - LO) + LO
+                         for _ in range(ndims)) for _ in range(distinct)]
+        obs = batches[0]
+        calls = []
+
+        def kern(ob):
+            calls.append(1)
+            return raw._unrep_flag(starts, steps, ob)
+
+        def plain(ob):
+            return raw._unrep_passes(starts, steps, ob)
+        before = raw.flag_launches
+        if bool(kern(obs)) or bool(plain(obs)):
+            raise AssertionError(f"flag at {ndims} x {n} {SHORT[dtype]}: set on drawn queries")
+        timed = (batches * N_BATCHES)[:N_BATCHES]
+        k_runs, p_runs = [], []
+        for step in ("plain", "kernel", "kernel", "plain"):
+            (k_runs if step == "kernel" else p_runs).append(
+                cuda_time(kern if step == "kernel" else plain, timed))
+        launched = raw.flag_launches - before
+        if launched != len(calls):
+            raise AssertionError(f"flag at {ndims} x {n} {SHORT[dtype]}: {launched} launches "
+                                 f"in {len(calls)} calls")
+        k_best = min(k_runs, key=lambda t: t.device_ms)
+        ahead = all(t.ahead for t in k_runs)
+        p_dev = min(t.device_ms for t in p_runs)
+        b_ms = ndims * n * itemsize / PEAK_BYTES * 1e3
+        log(f"phase 5 timing the flag's kernel at {ndims} x {n:,} {SHORT[dtype]} queries, "
+            f"{distinct} distinct batch{'es' if distinct > 1 else ''} [{smi}]: {k_best.device_ms:.4f} ms/call by CUDA events behind a head start "
+            f"({'held' if ahead else 'DID NOT hold'}; one launch a call, {launched} in all), "
+            f"{k_best.loop_ms:.4f} ms/call back to back; bound {b_ms:.4f} ms by bytes "
+            f"({b_ms / k_best.device_ms:.1%} of it); plain version {p_dev:.4f} ms/call by "
+            f"CUDA events behind a head start ({p_dev / k_best.device_ms:.1f}x)")
+        if entry is None:
+            entry = {
+                "name": FLAG,
+                "route": "cuda",
+                "source": f"interpn_tpu_torch/csrc/{FLAG}.cu",
+                "replaces": "none: the JAX package's flag is jnp ops "
+                            "(interpn_tpu/raw.py::_unrep_flag)",
+                "config": f"{FLAG_PATH.label} grid, {ndims} x {n} queries",
+                "launches": driven[FLAG_PATH][3],
+                "max_abs_err": 0.0,  # a flag: equal or not (phase 4 raises where not)
+                "ms": k_best.device_ms,
+                "ahead": ahead,
+                "plain_ms": p_dev,
+                "bound_ms": b_ms,
+                "bound_by": "bytes",
+                "library_ms": None,
+            }
+        del obs, batches, timed
+    return entry
 
 
 # --- phase 6: pchip, the 1D interpolants and the model classes ----------------------
@@ -2607,6 +2769,7 @@ def classes_phase(cuda, smi) -> list[dict]:
         cached = model._dev.tensors(cuda)
         ptrs = [t.data_ptr() for t in cached if isinstance(t, torch.Tensor)]
         fused.reset_launches()
+        raw.flag_launches = 0
         got = model.eval_torch(obs_t)
         torch.cuda.synchronize()
         launched = {c: n for c, n in fused.launches.items() if n}
@@ -2614,6 +2777,19 @@ def classes_phase(cuda, smi) -> list[dict]:
         bitwise(again, got, f"{name} {method}: second eval_torch")
         if (counter and launched.get(counter) != 1) or (not counter and launched):
             raise AssertionError(f"{name} {method}: launches {launched}, want {counter} once")
+        if raw.flag_launches:
+            raise AssertionError(f"{name} {method}: eval_torch launched the flag's kernel "
+                                 f"{raw.flag_launches} times, want none")
+        checked = ""
+        if regular and method in reference.values():
+            # eval into a CUDA out (the checked cell's call): the flag once, on the card
+            out_t = torch.full_like(got, math.nan)
+            if model.eval(list(obs_t), out=out_t) is not out_t or raw.flag_launches != 1:
+                raise AssertionError(f"{name} {method}: eval into a CUDA out, flag launches "
+                                     f"{raw.flag_launches}, want 1")
+            bitwise(out_t, got, f"{name} {method}: eval into a CUDA out vs eval_torch")
+            checked = ("; eval into a CUDA out bitwise equal to eval_torch, the flag's kernel "
+                       "launched once there and not by eval_torch")
         if model._dev.tensors(cuda) is not cached or ptrs != [
                 t.data_ptr() for t in cached if isinstance(t, torch.Tensor)]:
             raise AssertionError(f"{name} {method}: the table was put on the card again")
@@ -2672,7 +2848,7 @@ def classes_phase(cuda, smi) -> list[dict]:
                   "no ops.fused kernel launched (pchip is a gather tree)")
         log(f"phase 6 class {label} x {N_MAIN} queries: warmup(1024), eval_torch from CUDA "
             f"tensors twice bitwise equal to the ops call and to each other, {kernel}, the "
-            "cached table not put on the card again; "
+            f"cached table not put on the card again{checked}; "
             f"eval from numpy equal to eval_torch and {how} {what} from numpy [{smi}]: "
             "eval_torch "
             f"{ms['eval_torch_ms']:.4f} ms/call, eval (numpy in and out) "
@@ -3779,7 +3955,7 @@ def kernels_record(driven, timed) -> list[dict]:
 def kernel_entry(p: Path, name: str, driven, timed) -> dict:
     """A kernels-record entry for path p: its launches and error from the
     phase-4 drive, its times and bound from phase 5."""
-    launches, err, _ = driven[p]
+    launches, err, *_ = driven[p]
     source = p.engine or f"{p.kind}{'_stack' if p.stacked else ''}"
     return {
         "name": name,
@@ -3828,6 +4004,7 @@ def main() -> None:
         with f64_engine(p.engine):
             timed[p] = timing_phase(p, cuda, gen, smi)
     layouts = [layout_phase(name, cuda, smi, driven) for name in LAYOUT_PATHS]
+    flag = flag_phase(cuda, smi, driven)
     slice_phase(cuda, smi)
     transforms_phase(cuda, smi)
     serving_phase(cuda, smi)
@@ -3835,7 +4012,7 @@ def main() -> None:
 
     # the last three lines, unprefixed: the card, the kernels, the result
     print(smi)
-    print(json.dumps({"kernels": [*kernels_record(driven, timed), *layouts]}))
+    print(json.dumps({"kernels": [*kernels_record(driven, timed), *layouts, flag]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -179,7 +179,10 @@ class DeviceInterpolator:
         """(result, unrepresentable flag or None) at the flat query tensors
         `obs_t` on the cached tensors `grid` of their device: the flag only
         where `flag` is asked for and the reference raises it (the
-        reference methods on a regular grid)."""
+        reference methods on a regular grid), a 0-d bool tensor queued
+        after the evaluation (`raw._unrep_flag`: on a CUDA tensor one launch
+        of its kernel, which reads each query column once) and not yet read
+        to the host."""
         result = evaluate(self.method, self.dims if self.regular else None, self.linearize,
                           grid, obs_t)
         bad = None
@@ -228,10 +231,10 @@ class DeviceInterpolator:
         return DeviceCore(self, torch.device(device))
 
     def _obs_to_device(self, obs, device) -> tuple[torch.Tensor, ...]:
-        """Flat query tensors of the model's dtype on `device`."""
+        """Flat contiguous query tensors of the model's dtype on `device`."""
         dtype = self.torch_dtype
         return tuple(
-            x.reshape(-1).to(dtype) if isinstance(x, torch.Tensor)
+            x.reshape(-1).to(dtype).contiguous() if isinstance(x, torch.Tensor)
             else torch.as_tensor(np.asarray(x).ravel(), dtype=dtype, device=device)
             for x in obs
         )

@@ -5,6 +5,9 @@ What the port reports about itself, in one place:
 * `ops.fused.launches`: the launch counter, one count a wrapper launch by
   kernel name, layout launches (pack, cubic pack, interleave) included;
   `fused.reset_launches()` zeroes it. It counts always.
+* `raw.flag_launches`: the unrepresentable-value flag's kernel launches
+  (`csrc/unrep_flag.cu`), kept apart from `ops.fused.launches`. It counts
+  always.
 * the spans below, recorded only while a `torch.profiler` session records.
 
 **Switch.** Each span site tests `tracing.profiler._is_profiler_enabled`:
@@ -37,7 +40,7 @@ class method nests them in this order):
 |---|---|
 | `entry` | the public call: the classes' `eval_torch`, `eval_unchecked`, `gradient_torch`; the `ops` evaluators of one table and of a stack; `raw`'s evaluators |
 | `checks` | `eval_torch` / `eval_unchecked`: size, dtype and grid checks, the native engine's test, the queries to the device, the cached tensors |
-| `unrep_flag` | `raw._unrep_flag`'s elementwise passes; on a CUDA tensor also a pair of CUDA events, its device time |
+| `unrep_flag` | `raw._unrep_flag`: on a CUDA tensor the flag's zeroing and its kernel's launch (`csrc/unrep_flag.cu`), and a pair of CUDA events around them, its device time; on a CPU tensor its plain passes |
 | `sync` | a read of a device value to the host: `raw._raise_unrep`'s `bool`, `raw._host`'s `.cpu()` (the copy into a numpy `out`, a tensor grid's checks), the f64 engines' table caches; their count is the host-sync counter |
 | `finish` | `raw._finish`, the copy into `out` |
 | `dispatch` | `ops/dispatch.py::_route`: `KernelRoute.apply` and the custom op's dispatcher down to the wrapper (on a CPU tensor, the gather tree) |

@@ -18,9 +18,11 @@ import pytest
 import torch
 
 import interpn_tpu_torch
-from interpn_tpu_torch import config, convert
+from interpn_tpu_torch import config, convert, raw
+from interpn_tpu_torch.models import MulticubicRegular, MultilinearRegular, NearestRegular
 from interpn_tpu_torch.ops import bspline, cubic, df64, dispatch, fused, i8, linear, nearest, stack
 from interpn_tpu_torch.utils import profiling
+from interpn_tpu_torch.utils.testing import unrep_edge_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -1294,3 +1296,128 @@ def test_forced_engine_grads_equal_cpu_grads(cuda, monkeypatch):
             grads[str(dev)] = _grads(leaves)
         for a, b in zip(grads["cpu"], grads[str(cuda)]):
             torch.testing.assert_close(b, a, rtol=1e-12, atol=1e-12, msg=engine)
+
+
+# --- the unrepresentable-coordinate flag (csrc/unrep_flag.cu) ---------------------------
+
+FLAG_NS = (1, 3, 4, 5, 1023, 1_000_003)
+
+
+def _flag_equal(starts, steps, cols, expect=None):
+    """The kernel's flag is the plain passes' on the same inputs, after one
+    launch; and `expect` where given."""
+    before = raw.flag_launches
+    got = raw._unrep_flag(starts, steps, cols)
+    assert raw.flag_launches == before + 1
+    want = raw._unrep_passes(starts, steps, cols)
+    assert got.dtype == torch.bool and got.shape == () and got.device == starts.device
+    assert bool(got) == bool(want)
+    if expect is not None:
+        assert bool(got) == expect
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ndims", [1, 2, 3, 4, 8])
+def test_unrep_flag_kernel_equals_plain(cuda, dtype, ndims):
+    """At 1 to ~1e6 queries a column, columns aligned to 16 bytes and slices
+    one element off (a scalar head), each edge case of `unrep_edge_cases`
+    at the first queries (the head), the middle, and the last (the tail)
+    of an axis that turns with the case."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    info = raw._flag_info(dtype)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+    rng = np.random.default_rng(ndims)
+    s0 = rng.uniform(-1, 1, ndims)
+    h0 = rng.uniform(0.3, 1, ndims)
+    for n in FLAG_NS:
+        full = [torch.tensor(s0[k] + h0[k] * rng.uniform(-5, 25, n + 1), dtype=dtype,
+                             device=cuda) for k in range(ndims)]
+        for sliced in (False, True):
+            cols = [c[1:] if sliced else c[:n] for c in full]
+            assert all(c.is_contiguous() for c in cols)
+            positions = sorted({0, 1, 2, 3, n // 2, n - 4, n - 3, n - 2, n - 1} & set(range(n)))
+            for i, (name, x, s, h, expect) in enumerate(unrep_edge_cases(np_dtype)):
+                axis = i % ndims
+                starts = torch.tensor(s0, dtype=dtype, device=cuda)
+                steps = torch.tensor(h0, dtype=dtype, device=cuda)
+                _flag_equal(starts, steps, cols, False)
+                starts[axis], steps[axis] = float(s), float(h)
+                col = cols[axis]
+                keep = col.clone()
+                col.uniform_(-5, 25)  # in range on the case's grid, but for its tiny step
+                for pos in positions:
+                    was = col[pos].item()
+                    col[pos] = float(x)
+                    _flag_equal(starts, steps, cols, expect)
+                    col[pos] = was
+                col.copy_(keep)
+
+
+def test_unrep_flag_kernel_launches_nothing_for_no_queries(cuda):
+    for dtype in (torch.float32, torch.float64):
+        starts = torch.zeros(3, dtype=dtype, device=cuda)
+        steps = torch.ones(3, dtype=dtype, device=cuda)
+        cols = [torch.empty(0, dtype=dtype, device=cuda)] * 3
+        before = raw.flag_launches
+        got = raw._unrep_flag(starts, steps, cols)
+        assert raw.flag_launches == before and got.device == starts.device and not bool(got)
+
+
+FLAG_MODELS = {"linear": MultilinearRegular, "cubic": MulticubicRegular,
+               "nearest": NearestRegular}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("method", ["linear", "cubic", "nearest"])
+def test_checked_entries_raise_before_writing_out(cuda, dtype, method):
+    """`eval(obs, out=cuda_out)` of the class, the raw shim into a CUDA
+    `out` and `interpn` from numpy on the card: with every query good, K1's
+    values bitwise, through one launch of the flag's kernel; with one NaN,
+    inf or far-out query, the reference's error and `out` untouched."""
+    dims = (20, 20, 20)
+    rng = np.random.default_rng(20)
+    starts = np.array([-0.5, 0.25, -1.0], dtype=dtype)  # grids exact, so interpn's steps are
+    steps = np.array([0.5, 0.25, 0.75], dtype=dtype)  # these
+    vals = rng.uniform(0, 1, math.prod(dims)).astype(dtype)
+    obs_np = [(starts[k] + steps[k] * rng.uniform(-0.5, 19.5, 10_000)).astype(dtype)
+              for k in range(3)]
+    grids = [starts[k] + steps[k] * np.arange(dims[k], dtype=dtype) for k in range(3)]
+    tdtype = torch.float32 if dtype == np.float32 else torch.float64
+    obs = [torch.from_numpy(o).to(cuda) for o in obs_np]
+    st, sp, vt = (torch.from_numpy(a).to(cuda) for a in (starts, steps, vals))
+    model = FLAG_MODELS[method].new(list(dims), starts, steps, vals)
+    suffix = "f32" if dtype == np.float32 else "f64"
+    shim = getattr(raw, f"interpn_{method}_regular_{suffix}")
+    lin = (True,) if method == "cubic" else ()
+    want = model.eval_torch(obs)
+    calls = {
+        "class": lambda o, out: model.eval(o, out=out),
+        "raw": lambda o, out: shim(np.array(dims), st, sp, vt, *lin, o, out),
+    }
+    for name, call in calls.items():
+        out = torch.full((10_000,), 7.0, dtype=tdtype, device=cuda)
+        before = raw.flag_launches
+        assert call(obs, out) is out
+        assert raw.flag_launches == before + 1, name
+        _equal(out, want)
+        for bad in (np.nan, np.inf, 1e30):
+            worse = [o.clone() for o in obs]
+            worse[1][5_000] = bad
+            out = torch.full((10_000,), 7.0, dtype=tdtype, device=cuda)
+            with pytest.raises(AssertionError, match="Unrepresentable coordinate value"):
+                call(worse, out)
+            torch.cuda.synchronize()
+            assert (out == 7.0).all(), (name, bad)
+    out = np.full(10_000, 7.0, dtype=dtype)
+    before = raw.flag_launches
+    interpn_tpu_torch.interpn(obs_np, grids, vals.reshape(dims), method=method, out=out,
+                              assume_regular=True)
+    assert raw.flag_launches == before + 1
+    np.testing.assert_array_equal(out, want.cpu().numpy())
+    worse = [o.copy() for o in obs_np]
+    worse[2][-1] = np.nan
+    out = np.full(10_000, 7.0, dtype=dtype)
+    with pytest.raises(AssertionError, match="Unrepresentable coordinate value"):
+        interpn_tpu_torch.interpn(worse, grids, vals.reshape(dims), method=method, out=out,
+                                  assume_regular=True)
+    assert (out == 7.0).all()
