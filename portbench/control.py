@@ -51,7 +51,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("portbench control: needs a CUDA device", file=sys.stderr)
         return 2
-    ref = harness.load_reference()
+    ref = harness.cell_reference(cell)
     harness.import_port(harness.ROOT)
     device = torch.device("cuda", 0)
     rows = []

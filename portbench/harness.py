@@ -6,6 +6,10 @@ alone:
 
 * `configs/<config>.json`: the grid, its dtype and method, and the table's
   recipe;
+* `grids/<grid>.py`: the configuration's grid kind, `METHODS`, `make`, the
+  grid's host arrays from the seed, and `reference_args`, those arrays as the
+  reference takes them;
+* `reference/<grid>.py`: the plain reference of the grid kind, `evaluate`;
 * `mixes/<traffic>.json`: the entry, the queries a step, the tables, the
   query distribution, the ring of distinct batches and the answers sampled
   for the check;
@@ -22,11 +26,11 @@ A run makes the tables and the ring of query batches on the device from
 loop for `--seconds`: each step is one call on the next batch of the ring,
 then `torch.cuda.synchronize()`. A reservoir drawn from the seed keeps the
 answers of a few steps; once the window has closed and the program's state
-is freed, `reference/` recomputes them in float64 and the largest gap
-decides `correct`. With `--trace 1` the window runs under torch.profiler
-(it feeds `device.busy_s` and `breakdown` only: on the H100 the profiler
-was seen to drop kernels) and a head-start pass of the cell's call times
-one step on the device after the window (`timing.py`).
+is freed, the configuration's reference recomputes them in float64 and the
+largest gap decides `correct`. With `--trace 1` the window runs under
+torch.profiler (it feeds `device.busy_s` and `breakdown` only: on the H100
+the profiler was seen to drop kernels) and a head-start pass of the cell's
+call times one step on the device after the window (`timing.py`).
 """
 
 from __future__ import annotations
@@ -88,20 +92,25 @@ def reference_imports(folder: Path) -> list[str]:
     return names
 
 
-def load_reference(folder: Path = BENCH_DIR / "reference",
-                   module: str = "portbench.reference.regular") -> ModuleType:
-    """The reference, refused where its files import, or importing it pulls
-    in, the program or the JAX package."""
+def guarded(folder: Path, what: str, load: Callable[[], ModuleType]) -> ModuleType:
+    """`load()`, refused where the files under `folder` import, or loading
+    pulls in, the program or the JAX package."""
     refused = (*FORBIDDEN, PORT)
     named = top_level_hits(reference_imports(folder), refused)
     if named:
-        raise RuntimeError(f"the reference imports {', '.join(named)}")
+        raise RuntimeError(f"{what} imports {', '.join(named)}")
     before = set(sys.modules)
-    ref = importlib.import_module(module)
+    module = load()
     pulled = top_level_hits(set(sys.modules) - before, refused)
     if pulled:
-        raise RuntimeError(f"the reference pulled in {', '.join(pulled)}")
-    return ref
+        raise RuntimeError(f"{what} pulled in {', '.join(pulled)}")
+    return module
+
+
+def load_reference(folder: Path, module: str) -> ModuleType:
+    """The reference `module`, refused where the files under `folder` import,
+    or importing it pulls in, the program or the JAX package."""
+    return guarded(folder, "the reference", lambda: importlib.import_module(module))
 
 
 def import_port(root: Path) -> ModuleType:
@@ -126,6 +135,12 @@ def load_module(path: Path, tag: str) -> ModuleType:
     return module
 
 
+def cell_reference(cell: Cell) -> ModuleType:
+    """The reference of the cell's grid kind, `reference/<grid>.py`."""
+    return load_reference(cell.bench_dir / "reference",
+                          f"portbench.reference.{cell.config['grid']}")
+
+
 # --- the cell ----------------------------------------------------------------------
 
 
@@ -134,6 +149,7 @@ class Cell:
     name: str
     chips: int
     config: dict
+    grid: ModuleType  # grids/<config's grid>.py
     mix: dict  # the mix's values, with the cell file's in their place
     limits: dict
     entry: ModuleType
@@ -153,11 +169,15 @@ def load_cell(bench_file: Path, bench_dir: Path, name: str) -> Cell:
     if work is None:
         raise KeyError(f"no workload {name!r} in {bench_file}")
     config = json.loads((bench_dir / "configs" / f"{work['config']}.json").read_text())
+    # the grid kind makes inputs that the reference takes: as guarded as it
+    kind = config["grid"]
+    grid = guarded(bench_dir / "grids", f"the grid kind {kind}",
+                   lambda: load_module(bench_dir / "grids" / f"{kind}.py", f"grid_{kind}"))
     mix = json.loads((bench_dir / "mixes" / f"{work['traffic']}.json").read_text())
     own = json.loads((bench_dir / "cells" / f"{name}.json").read_text())
     mix = {**mix, **own.get("mix", {})}
     entry = load_module(bench_dir / "entries" / f"{mix['entry']}.py", f"entry_{mix['entry']}")
-    return Cell(name, int(work["chips"]), config, mix, own["limits"], entry,
+    return Cell(name, int(work["chips"]), config, grid, mix, own["limits"], entry,
                 [m for m in bench["end_to_end"] if _reports(m, name)],
                 [m for m in bench["per_layer"] if _reports(m, name)], bench_dir)
 
@@ -167,17 +187,26 @@ def load_cell(bench_file: Path, bench_dir: Path, name: str) -> Cell:
 
 @dataclass
 class Problem:
-    """What both sides get: the grid as the configuration's dtype holds it,
-    the (T, prod(dims)) tables and the ring of (N, n) query batches."""
+    """What both sides get: the grid as the configuration's dtype holds it
+    (`arrays`, by its kind's `make`), the (T, prod(dims)) tables and the ring
+    of (N, n) query batches."""
 
     method: str
     dtype: str
     dims: tuple
     linearize: bool
-    starts: np.ndarray
-    steps: np.ndarray
+    grid: ModuleType  # grids/<config's grid>.py
+    arrays: dict  # the grid kind's host arrays
     tables: torch.Tensor
     ring: list
+
+    @property
+    def starts(self) -> np.ndarray:
+        return self.arrays["starts"]
+
+    @property
+    def steps(self) -> np.ndarray:
+        return self.arrays["steps"]
 
     @property
     def queries(self) -> int:
@@ -198,16 +227,18 @@ class Problem:
 
 
 def make_problem(cell: Cell, seed: int, device: torch.device) -> Problem:
-    """The tables and query batches of `cell` from `seed`, made on `device`
-    by one generator there, in the configuration's dtype."""
+    """The grid, tables and query batches of `cell` from `seed`: the grid by
+    its kind, the tables and queries on `device` by one generator there, in
+    the configuration's dtype."""
     cfg, mix = cell.config, cell.mix
-    if cfg["grid"] != "regular" or cfg["method"] not in ("linear", "cubic"):
+    if cfg["method"] not in cell.grid.METHODS:
         raise ValueError(f"no generator for a {cfg['grid']} {cfg['method']} configuration")
     dt = DTYPES[cfg["dtype"]]
+    np_dt = np.dtype(cfg["dtype"])
     dims = tuple(int(d) for d in cfg["dims"])
+    arrays = cell.grid.make(cfg, seed, np_dt)
     starts64 = np.asarray(cfg["starts"], dtype=np.float64)
     stops64 = np.asarray(cfg["stops"], dtype=np.float64)
-    steps64 = (stops64 - starts64) / (np.asarray(dims, dtype=np.float64) - 1)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed % 2**64)
     table = cfg["table"]
@@ -227,10 +258,9 @@ def make_problem(cell: Cell, seed: int, device: torch.device) -> Problem:
         x = torch.rand((len(dims), int(mix["queries_per_step"])), generator=gen, dtype=dt,
                        device=device)
         ring.append(x.mul_(width).add_(lo))
-    np_dt = np.dtype(cfg["dtype"])
     return Problem(cfg["method"], cfg["dtype"], dims,
                    bool(cfg.get("linearize_extrapolation", True)),
-                   starts64.astype(np_dt), steps64.astype(np_dt), tables, ring)
+                   cell.grid, arrays, tables, ring)
 
 
 # --- the closed loop ---------------------------------------------------------------
@@ -363,10 +393,8 @@ def reference_values(ref: ModuleType, problem: Problem, r: int, dtype,
     """(T, n) values of ring batch r by the reference, on inputs cast to
     `dtype` and computed in it, the contraction's factors rounded by the
     reference's function `rounding` where named."""
-    dev = problem.tables.device
-    starts = torch.tensor(problem.starts.astype(np.float64), device=dev).to(dtype)
-    steps = torch.tensor(problem.steps.astype(np.float64), device=dev).to(dtype)
-    return ref.evaluate(problem.method, problem.dims, starts, steps, problem.tables.to(dtype),
+    grid = problem.grid.reference_args(problem.arrays, dtype, problem.tables.device)
+    return ref.evaluate(problem.method, problem.dims, *grid, problem.tables.to(dtype),
                         problem.ring[r].to(dtype), problem.linearize,
                         operand=None if rounding is None else getattr(ref, rounding))
 
@@ -555,7 +583,9 @@ def run_cell(cell: Cell, port: ModuleType, ref: ModuleType, seed: int, seconds: 
     call = outs = None
     if cuda:
         torch.cuda.empty_cache()
+    t_check = time.perf_counter()
     found, compared = checks(cell, ref, problem, win)
+    info.append(f"info values compared {compared} in {time.perf_counter() - t_check:.3f} s")
     correct = bool(win.kept) and all(v["value"] <= v["limit"] for v in found.values())
     if win.errors:
         info.append("info failed calls: " + " | ".join(win.errors))
@@ -564,7 +594,7 @@ def run_cell(cell: Cell, port: ModuleType, ref: ModuleType, seed: int, seconds: 
     if breakdown is not None:
         result["breakdown"] = breakdown
     result["checks"] = found  # last: each number compared beside its limit
-    lines = info + [f"info values compared {compared}"] + [
+    lines = info + [
         f"check {k} {v['value']!r} limit {v['limit']!r}" for k, v in found.items()]
     return result, lines
 
@@ -582,7 +612,7 @@ def main(argv, t0: float) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
     marks = [("imports", time.perf_counter())]
-    ref = load_reference()
+    ref = cell_reference(cell)
     try:
         port = import_port(ROOT)
     except ImportError as exc:

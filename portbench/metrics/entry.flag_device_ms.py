@@ -1,9 +1,10 @@
 """entry.flag_device_ms: the device time a step of the entry's
-unrepresentable-value flag (`raw._unrep_flag`'s elementwise passes, its
-`unrep_flag` span), by the CUDA events the span records around the passes,
-over the traced window, in ms (`spans.py`); on CPU tensors, where the host
-runs the passes, the span's host time. Nothing where the window computed no
-flag, or where its events were reused before the window was read."""
+unrepresentable-value flag (`raw._unrep_flag`: on CUDA tensors the flag's
+zeroing and one launch of `csrc/unrep_flag.cu`, its `unrep_flag` span), by
+the CUDA events the span records around them, over the traced window, in ms
+(`spans.py`); on CPU tensors, where the host runs the elementwise passes,
+the span's host time. Nothing where the window computed no flag, or where
+its events were reused before the window was read."""
 
 from portbench import spans
 

@@ -110,6 +110,27 @@ def _stencil(dims, locs, weights):
     return idx, wts
 
 
+def contract(dims, width, tables, n, axes, operand=None):
+    """(T, n) values of the (T, prod(dims)) `tables` at n queries, a block
+    of queries at a time: `axes(a, b)` gives, for the queries a .. b - 1,
+    each axis's first stencil index and its `width` weights, and the
+    tables' stencils are contracted with the tensor product of the weights.
+    `operand`, where given, rounds the weights and the table's values
+    before they are multiplied."""
+    block = max(1, BLOCK_ENTRIES // width ** len(dims))
+    out = torch.empty((tables.shape[0], n), dtype=tables.dtype, device=tables.device)
+    for a in range(0, n, block):
+        b = min(n, a + block)
+        locs, weights = axes(a, b)
+        idx, wts = _stencil(dims, locs, weights)
+        if operand is not None:
+            wts = operand(wts)
+        for c in range(tables.shape[0]):
+            vals = tables[c][idx]
+            out[c, a:b] = ((vals if operand is None else operand(vals)) * wts).sum(dim=1)
+    return out
+
+
 def evaluate(method, dims, starts, steps, tables, obs, linearize=True, operand=None):
     """(T, n) values of the (T, prod(dims)) `tables` at the (N, n) queries
     `obs`, by `method` ("linear" or "cubic"), computed in the dtype of the
@@ -117,12 +138,8 @@ def evaluate(method, dims, starts, steps, tables, obs, linearize=True, operand=N
     numbers or 0-d tensors of that dtype. `operand`, where given, rounds
     the weights and the table's values before they are multiplied."""
     dims = [int(d) for d in dims]
-    width = 4 if method == "cubic" else 2
-    n = obs.shape[1]
-    block = max(1, BLOCK_ENTRIES // width ** len(dims))
-    out = torch.empty((tables.shape[0], n), dtype=tables.dtype, device=tables.device)
-    for a in range(0, n, block):
-        b = min(n, a + block)
+
+    def axes(a, b):
         locs, weights = [], []
         for k, dim in enumerate(dims):
             x = obs[k, a:b]
@@ -132,10 +149,6 @@ def evaluate(method, dims, starts, steps, tables, obs, linearize=True, operand=N
                 loc, w = axis_linear(x, starts[k], steps[k], dim)
             locs.append(loc)
             weights.append(w)
-        idx, wts = _stencil(dims, locs, weights)
-        if operand is not None:
-            wts = operand(wts)
-        for c in range(tables.shape[0]):
-            vals = tables[c][idx]
-            out[c, a:b] = ((vals if operand is None else operand(vals)) * wts).sum(dim=1)
-    return out
+        return locs, weights
+
+    return contract(dims, 4 if method == "cubic" else 2, tables, obs.shape[1], axes, operand)
