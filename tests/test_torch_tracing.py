@@ -4,19 +4,24 @@ benchmark's readers of them (`portbench/spans.py`, `portbench/metrics/`).
 On the CPU: nothing records and no span opens without a profiler; under
 one, each entry records its spans in order, a class call one `entry`, a
 call into a tensor `out` its flag, one `sync` and `finish`, each span a
-profiler range `interpn.<span>`; results are those of an untraced call; an
-exported program is the same with a profiler open; the ring refuses a
-window it has overwritten; each reader gives the value computed by hand on
-a hand-built ring, and nothing without the tracing module. The tests
-marked `gpu` hold the wrapper's `route` and `launch` spans, the launch
-counts and routes, and the flag's CUDA events on the card, and that no
-range lands on the device's timeline. The file imports no jax:
+profiler range `interpn.<span>`; results are those of an untraced call; the
+rectilinear classes, as the benchmark's `rect4d20_f64_cubic.bulk` cell
+drives them, record their spans as the regular ones, and that cell's 20^4
+float64 cubic table takes the `taps` route; an exported program is the same
+with a profiler open; the ring refuses a window it has overwritten; each
+reader gives the value computed by hand on a hand-built ring, and nothing
+without the tracing module. The tests marked `gpu` hold the wrapper's
+`route` and `launch` spans, the launch counts and routes (one
+`rectilinear_cubic` and one `rectilinear_cubic_pack` launch a call on the
+rectilinear cell's path), and the flag's CUDA events on the card, and that
+no range lands on the device's timeline. The file imports no jax:
 
     python -m pytest --noconftest -m gpu tests/test_torch_tracing.py
 """
 
 from __future__ import annotations
 
+import math
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -27,7 +32,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from interpn_tpu_torch import aot, config, ops, raw
-from interpn_tpu_torch.models import MulticubicRegular, MultilinearRegular
+from interpn_tpu_torch.models import (MulticubicRectilinear, MulticubicRegular,
+                                      MultilinearRectilinear, MultilinearRegular)
 from interpn_tpu_torch.ops import dispatch, fused
 from interpn_tpu_torch.utils import tracing
 
@@ -39,6 +45,7 @@ from portbench.harness import load_module  # noqa: E402
 
 DIMS = (5, 6, 7)
 N = 300
+CELL_DIMS = (20, 20, 20, 20)  # the rectilinear cell's table
 READERS = ("entry.predispatch_ms", "dispatch.host_ms", "wrappers.route_ms",
            "entry.syncs_per_step", "entry.flag_device_ms")
 
@@ -62,6 +69,49 @@ def _obs(device="cpu", dtype=torch.float32, n=N):
     his = (2.0, 0.25, 8.0)
     return tuple((torch.rand(n, generator=gen, dtype=torch.float64) * (hi + 2) - 1)
                  .to(dtype).to(device) for hi in his)
+
+
+def _rect_model(cls, dims, linearize=None):
+    """A rectilinear class over jittered axes on [0, 10] (each inner node
+    moved by up to a fifth of the even spacing) and a table uniform in [0, 1)."""
+    rng = np.random.default_rng(5)
+    coords = []
+    for dim in dims:
+        u = np.zeros(dim)
+        u[1:-1] = rng.uniform(-0.2, 0.2, dim - 2)
+        coords.append((np.arange(dim) + u) * 10.0 / (dim - 1))
+    vals = rng.uniform(0, 1, math.prod(dims))
+    kw = {} if linearize is None else {"linearize_extrapolation": linearize}
+    return cls.new(coords, vals, **kw)
+
+
+def _rect_obs(ndims, device="cpu", n=N):
+    """Float64 queries uniform over [-0.5, 10.5] on each axis, the
+    rectilinear cell's box."""
+    gen = torch.Generator().manual_seed(11)
+    return tuple((torch.rand(n, generator=gen, dtype=torch.float64) * 11 - 0.5).to(device)
+                 for _ in range(ndims))
+
+
+# the classes whose `eval_torch` spans are held: the regular model of
+# `_model`, and the rectilinear classes at 3 and 4 axes, the cubic one with
+# and without linearised extrapolation
+CLASS_CASES = [(MultilinearRegular, DIMS, None),
+               (MulticubicRectilinear, (5, 6, 4), True),
+               (MulticubicRectilinear, (5, 6, 4), False),
+               (MulticubicRectilinear, (4, 5, 4, 6), True),
+               (MulticubicRectilinear, (4, 5, 4, 6), False),
+               (MultilinearRectilinear, (5, 6, 4), None),
+               (MultilinearRectilinear, (4, 5, 4, 6), None)]
+CLASS_IDS = [f"{cls.__name__}-{len(dims)}d" + ("" if lin is None else f"-{lin}")
+             for cls, dims, lin in CLASS_CASES]
+
+
+def _case(cls, dims, linearize, device="cpu", n=N):
+    """(model, queries) of a case of CLASS_CASES."""
+    if cls is MultilinearRegular:
+        return _model(), _obs(device, n=n)
+    return _rect_model(cls, dims, linearize), _rect_obs(len(dims), device, n)
 
 
 def _calls(model, obs, out):
@@ -138,14 +188,33 @@ def test_spans_change_no_result(name):
 # --- on ----------------------------------------------------------------------------
 
 
-def test_eval_torch_records_entry_around_checks_then_dispatch():
-    model = _model()
-    _, rows, _ = _recorded(lambda: model.eval_torch(_obs()))
-    assert sorted(_names(rows)) == ["checks", "dispatch", "entry"]
+@pytest.mark.parametrize("kernel", [False, True], ids=["plain", "kernel"])
+@pytest.mark.parametrize("case", CLASS_CASES, ids=CLASS_IDS)
+def test_eval_torch_records_entry_around_checks_then_dispatch(monkeypatch, case, kernel):
+    """One `entry` holds `checks`, then `dispatch`; on the kernel route (the
+    wrapper's plain version on CPU tensors) the `wrapper` sits in `dispatch`."""
+    if kernel:
+        monkeypatch.setattr(dispatch, "_impl", lambda vals: "kernel")
+    model, obs = _case(*case)
+    plain = model.eval_torch(obs)
+    got, rows, _ = _recorded(lambda: model.eval_torch(obs))
+    torch.testing.assert_close(got, plain, rtol=0, atol=0, equal_nan=True)
+    assert sorted(_names(rows)) == ["checks", "dispatch", "entry"] + ["wrapper"] * kernel
     entry, checks, dispatch_ = (_one(rows, n) for n in ("entry", "checks", "dispatch"))
     assert entry[1] <= checks[1] < checks[2] <= dispatch_[1] < dispatch_[2] <= entry[2]
     assert (entry[3], checks[3], dispatch_[3]) == (0, 1, 1)
+    if kernel:
+        wrapper = _one(rows, "wrapper")
+        assert dispatch_[1] < wrapper[1] < wrapper[2] <= dispatch_[2] and wrapper[3] == 2
     assert (rows[:, 4] == -1).all()  # no events on the CPU
+
+
+def test_the_rectilinear_cells_table_takes_the_taps_route():
+    """1.28 MB of float64 is above the staging cap, so one 20^4 f64 cubic
+    table is read through its cubic pack."""
+    assert math.prod(CELL_DIMS) * 8 > fused.STAGE_BYTES
+    assert fused.rectilinear_route(CELL_DIMS, torch.float64, "cubic") == "taps"
+    assert fused.RECT_LAYOUTS["taps"] == "rectilinear_cubic_pack"
 
 
 def test_eval_into_a_tensor_records_the_flag_one_sync_and_finish():
@@ -332,25 +401,42 @@ def _card_recorded(fn):
     return got, _since(before), prof
 
 
+def _card_call(name, device):
+    """(the call `name`, the launches it makes a call where they are known):
+    `rect4d20` is the benchmark's rectilinear cell's path at its 20^4 f64
+    cubic table, one K2 cubic launch on its cubic pack a call."""
+    if name.startswith("rect4d20"):
+        model = _rect_model(MulticubicRectilinear, CELL_DIMS, name == "rect4d20")
+        obs = _rect_obs(len(CELL_DIMS), device, 10_000)
+        return (lambda: model.eval_torch(obs)), {"rectilinear_cubic": 1,
+                                                 "rectilinear_cubic_pack": 1}
+    return _calls(_model(), _obs(device), None)[name], None
+
+
+def _launched(before):
+    return {k: v - before.get(k, 0) for k, v in fused.launches.items() if v != before.get(k, 0)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["eval_torch", "stack"])
+@pytest.mark.parametrize("name", ["eval_torch", "stack", "rect4d20", "rect4d20-no-linearize"])
 def test_card_wrapper_route_and_launch_spans(cuda, name):
-    model = _model()
-    obs = _obs(cuda)
-    call = _calls(model, obs, None)[name]
-    plain = call()
+    call, want = _card_call(name, cuda)
+    plain = call()  # builds the library and caches the tensors on the card
     torch.cuda.synchronize()
     launches = dict(fused.launches)
     plain = call().clone()
-    untraced = {k: v - launches[k] for k, v in fused.launches.items()}
+    untraced = _launched(launches)
     launches = dict(fused.launches)
     got, rows, prof = _card_recorded(call)
-    traced = {k: v - launches[k] for k, v in fused.launches.items()}
+    traced = _launched(launches)
     assert traced == untraced and sum(traced.values()) >= 1
+    assert want is None or untraced == want
     torch.testing.assert_close(got, plain, rtol=0, atol=0, equal_nan=True)
     names = _names(rows)
     for n in ("entry", "dispatch", "wrapper", "route", "launch"):
         assert names.count(n) == 1, names
+    if want is not None:
+        assert names.count("checks") == 1 and "sync" not in names, names
     dispatch_, wrapper, route, launch = (_one(rows, n) for n in
                                          ("dispatch", "wrapper", "route", "launch"))
     assert dispatch_[1] < wrapper[1] <= route[1] < route[2] <= launch[1] < launch[2] <= wrapper[2]
@@ -361,6 +447,8 @@ def test_card_wrapper_route_and_launch_spans(cuda, name):
 def test_card_flag_records_its_events(cuda):
     model = _model()
     out = torch.empty(N, device=cuda)
+    # the first flag on the card builds its library, inside the span
+    model.eval(_obs(cuda), out=out)
     _, rows, _ = _card_recorded(lambda: model.eval(_obs(cuda), out=out))
     flag = _one(rows, "unrep_flag")
     assert flag[4] >= 0
