@@ -170,8 +170,8 @@ class Path:
             return None
         from interpn_tpu_torch.ops import fused
 
-        layouts = {"regular": fused.LAYOUTS, "rectilinear": fused.RECT_LAYOUTS,
-                   "bspline": fused.BSPLINE_LAYOUTS}[self.kind]
+        layouts = {"regular": fused.STACK_LAYOUTS if self.stacked else fused.LAYOUTS,
+                   "rectilinear": fused.RECT_LAYOUTS, "bspline": fused.BSPLINE_LAYOUTS}[self.kind]
         return layouts.get(self.route)
 
     @property
@@ -251,6 +251,8 @@ PATHS = [
     Path("bspline_k5", F32, 20, 3),
     Path("regular_linear_stack", F32, 20, 3),
     Path("regular_cubic_stack", F32, 20, 3),
+    # K5 cubic on the tables' cubic packs (tap lanes), as the stack8 cell runs it
+    Path("regular_cubic_stack", F64, 20, 4),
     Path("regular_nearest_stack", F32, 20, 3),
     Path("rectilinear_linear_stack", F32, 20, 3),
     Path("rectilinear_cubic_stack", F32, 20, 3),
@@ -300,8 +302,8 @@ def served(method: str, route: str, stacked: bool, ndims: int, family="regular")
     """Whether K1 (K5 where `stacked`) has an instantiation for the method
     on the route (csrc/regular.cuh::serves): staged serves linear and
     single-table cubic, staged groups the cubic stacks, quads single-table
-    linear, interleaved the linear and nearest stacks, taps single-table
-    cubic at 2D, tap lanes from 3D.
+    linear, interleaved the linear and nearest stacks, taps cubic (one
+    table or a stack) at 2D, tap lanes from 3D.
     For the rectilinear `family`, K2 (K6) (csrc/rectilinear.cuh::rect_serves):
     direct every method; staged cubic; staged tables and interleaved the
     cubic stacks; taps single-table cubic from 2D; interleaved the linear
@@ -334,8 +336,7 @@ def served(method: str, route: str, stacked: bool, ndims: int, family="regular")
     if route == "interleaved":
         return method != "cubic" and stacked
     if route in fused.TAP_ROUTES:
-        return method == "cubic" and not stacked and (ndims == 2 if route == "taps"
-                                                      else ndims >= 3)
+        return method == "cubic" and (ndims == 2 if route == "taps" else ndims >= 3)
     return route == "direct"
 
 
@@ -948,7 +949,8 @@ def bspline_build_log(source):
                 f"bytes/local bytes/blocks an SM {', '.join(cells)}")
 
 
-# the layout kernel that the entry launches before the kernel, by route
+# the layout kernel that the entry launches before the kernel, by route (a
+# stack's cubic packs by the same kernel)
 LAYOUT_KERNELS = {"quads": "pack_kernel", "interleaved": "interleave_kernel",
                   "taps": "cubic_pack_kernel", "tap_lanes": "cubic_pack_kernel"}
 
@@ -981,7 +983,7 @@ def regular_build_log(source, ptxas, built):
         + ", ".join(f"{name} {'f32' if t == 'f' else 'f64'} {regs}/{spill}"
                     for name, t, spill, regs in sorted(layouts)))
     for method, route in itertools.product(fused.METHODS, fused.ROUTES):
-        if not served(method, route, stacked, 8, family):
+        if not any(served(method, route, stacked, nd, family) for nd in range(1, 9)):
             continue
         for dtype in (F32, F64):
             cells = []
@@ -1568,12 +1570,15 @@ def bspline_table_routes_phase(cuda):
 def stack_routes(dims, dtype, family):
     """Every route of a K5 cubic (`family` "regular") or K7 ("bspline")
     stack of tables of `dims` that takes it: staged groups (each table
-    within GROUP_BYTES), direct; for K7 also interleaved."""
+    within GROUP_BYTES), direct; for K5 also the tables' cubic packs (taps
+    at 2D, tap lanes from 3D, at any size); for K7 also interleaved."""
     from interpn_tpu_torch.ops import fused
 
     routes = ["direct"]
     if math.prod(dims) * torch.empty((), dtype=dtype).element_size() <= fused.GROUP_BYTES:
         routes.append("staged_groups")
+    if family == "regular" and len(dims) >= 2:
+        routes.append("taps" if len(dims) == 2 else "tap_lanes")
     if family == "bspline":
         routes.append("interleaved")
     return routes
@@ -1587,17 +1592,24 @@ def at_offset(vals, offset):
     return view
 
 
+# K5 cubic stacks of tables just above GROUP_BYTES, which the wrapper reads
+# through the tables' cubic packs: (dtype, dims, tables)
+PACKED_STACKS = [(F32, (240, 240), 8), (F32, (39,) * 3, 8), (F32, (16, 16, 16, 15), 3),
+                 (F64, (13, 13, 13, 14), 8), (F64, (8,) * 5, 9), (F64, (20,) * 4, 8)]
+
+
 def stack_routes_phase(cuda):
     """Phase 2 for the stack routes of K5 cubic and K7: stacks of 1, 3, 4,
     8, 9 and 17 tables of 20^3 and 21^3 entries (bytes no multiple of 16;
-    1 to 6 groups, as the C entry splits them),
+    1 to 6 groups, as the C entry splits them), and K5 stacks of tables
+    above GROUP_BYTES (PACKED_STACKS),
     aligned and as a view at an odd offset, each table holding a NaN, +inf
     and -inf, in f32 and f64 (K5 in both extrapolation modes, K7 of degree
     3 and 5), with extrapolated, NaN and +-inf queries: through the wrapper
-    (one launch, and the interleave where its route interleaves) and on
-    every route that takes the stack (`stack_routes`), each bitwise against
-    the plain version, each row bitwise against K1 / K4 on its table. Fails
-    unless every route ran."""
+    (one launch, and the interleave or the stack's cubic pack where its
+    route lays one out) and on every route that takes the stack
+    (`stack_routes`), each bitwise against the plain version, each row
+    bitwise against K1 / K4 on its table. Fails unless every route ran."""
     from interpn_tpu_torch.ops import fused
 
     rng = np.random.default_rng(19)
@@ -1611,10 +1623,9 @@ def stack_routes_phase(cuda):
                                    dtype=vals.dtype, device=cuda)
         return vals
 
-    for dtype, n, nch, offset in itertools.product((F32, F64), (20, 21), (1, 3, 4, 8, 9, 17),
-                                                   (0, 3)):
-        dims = (n,) * 3
-        (st, sp, vals), obs = random_case("regular", dims, dtype, N_CHECK // 5, rng, cuda, nch)
+    def k5(dims, dtype, nch, offset, n):
+        nonlocal results
+        (st, sp, vals), obs = random_case("regular", dims, dtype, n, rng, cuda, nch)
         vals = spoil(vals)
         vals = at_offset(vals, offset) if offset else vals
         for lin in (True, False):
@@ -1626,17 +1637,29 @@ def stack_routes_phase(cuda):
             what = f"K5 cubic lin={lin} stack of {nch} {dims} {SHORT[dtype]} offset {offset}"
             results += bitwise(fused.eval_regular_stack(dims, st, sp, vals, obs, "cubic", lin),
                                want, f"{what} ({route})")
-            if fused.launches != {k: int(k == "regular_cubic_stack") for k in fused.launches}:
+            layout = fused.STACK_LAYOUTS.get(route)
+            if fused.launches != {k: int(k in ("regular_cubic_stack", layout))
+                                  for k in fused.launches}:
                 raise AssertionError(f"{what}: launches {fused.launches}")
             for r in stack_routes(dims, dtype, "regular"):
-                got = fused._launch("fused_regular_stack", "regular_cubic_stack",
-                                    (1, int(lin), int(dtype == F64)), dims, vals, obs,
-                                    obs[0].shape[0], True, st.data_ptr(), sp.data_ptr(), None,
-                                    route=r)
+                got = fused._relaid_launch("regular", r, fused.STACK_LAYOUTS, dims, vals, obs,
+                                           "cubic", lin, obs[0].shape[0], True, st.data_ptr(),
+                                           sp.data_ptr())
                 results += bitwise(got, want, f"{what} {r}")
                 for c in range(nch):
                     bitwise(got[c], rows[c], f"{what} {r}: table {c} vs K1")
                 ran["K5", r] = ran.get(("K5", r), 0) + 1
+        return route
+
+    packed = set()
+    for (dtype, dims, nch), offset in itertools.product(PACKED_STACKS, (0, 3)):
+        packed.add(k5(dims, dtype, nch, offset, N_CHECK // 20))
+    if packed != set(fused.TAP_ROUTES):
+        raise AssertionError(f"PACKED_STACKS took the routes {packed}, want {fused.TAP_ROUTES}")
+    for dtype, n, nch, offset in itertools.product((F32, F64), (20, 21), (1, 3, 4, 8, 9, 17),
+                                                   (0, 3)):
+        dims = (n,) * 3
+        k5(dims, dtype, nch, offset, N_CHECK // 5)
         for k in SPLINE.values():
             knots, coeffs, sobs = spline_case(dims, k, dtype, N_CHECK // 5, rng, cuda, nch)
             coeffs = spoil(coeffs)
@@ -1665,16 +1688,19 @@ def stack_routes_phase(cuda):
                     bitwise(got[c], rows[c], f"{what} {r}: table {c} vs K4")
                 ran["K7", r] = ran.get(("K7", r), 0) + 1
     for family, kernel in (("regular", "K5"), ("bspline", "K7")):
-        want = [r for r in fused.ROUTES if served("cubic", r, True, 3, family)]
+        want = [r for r in fused.ROUTES if any(served("cubic", r, True, nd, family)
+                                               for nd in (2, 3))]
         if [r for r in fused.ROUTES if (kernel, r) in ran] != want:
             raise AssertionError(f"phase 2 ran {kernel} on the routes "
                                  f"{[r for k, r in ran if k == kernel]} only")
     log(f"phase 2 kernel vs plain K5 cubic and K7 stack routes: stacks of 1, 3, 4, 8, 9, 17 "
-        f"tables of 20^3 and 21^3 (bytes no multiple of 16), aligned and at an odd offset, "
+        f"tables of 20^3 and 21^3 (bytes no multiple of 16), and K5 {PACKED_STACKS} (the "
+        f"tables' cubic packs through the wrapper), aligned and at an odd offset, "
         f"with a NaN, +inf and -inf in every table (f32, f64; K5 linearize True and False, K7 "
         f"k=3 and 5; {', '.join(f'{k} {r} {c}' for (k, r), c in ran.items())} cases): all "
         f"{results} results bitwise equal to the plain version, through the wrapper (one "
-        "launch, and the interleave where it interleaves) and on every route, each table's row "
+        "launch, and the interleave or the stack's pack where its route lays one out) and on "
+        "every route, each table's row "
         "bitwise equal to K1 / K4 on that table")
     interleave_admission(cuda)
 
@@ -2299,6 +2325,7 @@ def timing_phase(p: Path, cuda, gen, smi):
 LAYOUT_PATHS = {"regular_pack": Path("regular_linear", F32, 100, 3),
                 "regular_cubic_pack": Path("regular_cubic", F32, 20, 4),
                 "regular_interleave": Path("regular_linear_stack", F32, 20, 3),
+                "regular_cubic_stack_pack": Path("regular_cubic_stack", F64, 20, 4),
                 "rectilinear_interleave": Path("rectilinear_linear_stack", F32, 20, 3)}
 
 
@@ -2337,17 +2364,17 @@ def flag_vs_plain(p: Path, grid, obs_t) -> str:
 
 def layout_phase(name, cuda, smi, driven) -> dict:
     """Phase 5 for a layout kernel (`name`: the quads route's pack, the taps
-    routes' cubic pack, the interleaved route's interleave) on its path's
-    table: bitwise against its plain version; its device time and the plain
-    version's from CUDA events behind a head start (the profiler came back
-    from the pack's one-call trace empty on this card), in turns (plain,
-    kernel, kernel, plain), each call laying out the one table as the path
-    does; its bound (the table read once, the copy written once); and the
-    one PyTorch call that computes the same copy: `.contiguous()` of the
-    table's 2x2 windows (`unfold`) for the pack, of its windows of four
-    along axis 0 for the cubic pack, the plain version's
-    `.t().contiguous()` itself for the interleave. Returns its entry of the
-    kernels record."""
+    routes' cubic pack of one table or of a stack, the interleaved route's
+    interleave) on its path's table: bitwise against its plain version; its
+    device time and the plain version's from CUDA events behind a head start
+    (the profiler came back from the pack's one-call trace empty on this
+    card), in turns (plain, kernel, kernel, plain), each call laying out the
+    one table as the path does; its bound (the table read once, the copy
+    written once); and the one PyTorch call that computes the same copy:
+    `.contiguous()` of the table's 2x2 windows (`unfold`) for the pack, of
+    its windows of four along axis 0 for the cubic pack (each table's for a
+    stack's), the plain version's `.t().contiguous()` itself for the
+    interleave. Returns its entry of the kernels record."""
     from interpn_tpu_torch.ops import fused
     from interpn_tpu_torch.utils.profiling import cuda_time
 
@@ -2364,6 +2391,12 @@ def layout_phase(name, cuda, smi, driven) -> dict:
         plain = lambda v: fused.plain_cubic_pack(dims, v)  # noqa: E731
         lib = lambda v: v.reshape(dims).unfold(0, 4, 1).contiguous()  # noqa: E731
         lib_name, what = "the unfold windows' .contiguous()", "the cubic pack of the taps routes"
+    elif name == fused.CUBIC_STACK_PACK:
+        kern = lambda v: fused.cubic_stack_pack(dims, v)  # noqa: E731
+        plain = lambda v: fused.plain_cubic_stack_pack(dims, v)  # noqa: E731
+        lib = lambda v: v.reshape(-1, *dims).unfold(1, 4, 1).contiguous()  # noqa: E731
+        lib_name, what = ("the unfold windows' .contiguous()",
+                          "the cubic pack of the taps routes of a stack")
     else:
         kern = lambda v: fused.interleave(v, p.kind)  # noqa: E731
         plain = lib = fused.plain_interleave
@@ -2895,8 +2928,8 @@ def grid_launches() -> dict:
     from interpn_tpu_torch.ops import fused
 
     torch.cuda.synchronize()
-    layouts = {fused.PACK, fused.CUBIC_PACK, fused.INTERLEAVE, fused.RECT_CUBIC_PACK,
-               fused.RECT_INTERLEAVE, fused.BSPLINE_INTERLEAVE}
+    layouts = {fused.PACK, fused.CUBIC_PACK, fused.INTERLEAVE, fused.CUBIC_STACK_PACK,
+               fused.RECT_CUBIC_PACK, fused.RECT_INTERLEAVE, fused.BSPLINE_INTERLEAVE}
     return {c: n for c, n in fused.launches.items() if n and c not in layouts}
 
 

@@ -78,7 +78,7 @@ extern "C" int interpn_regular_cubic_pack(int is_f64, int ndims, const int* dims
   const auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       is_f64 ? interp::launch_cubic_pack(ndims, dims, static_cast<const double*>(vals),
-                                         static_cast<double*>(out), s)
+                                         static_cast<double*>(out), 0, 1, s)
              : interp::launch_cubic_pack(ndims, dims, static_cast<const float*>(vals),
-                                         static_cast<float*>(out), s));
+                                         static_cast<float*>(out), 0, 1, s));
 }

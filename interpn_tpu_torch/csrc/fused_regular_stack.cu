@@ -9,8 +9,11 @@
 // channel-interleaved, a corner's channels side by side; a smaller linear
 // stack is staged in shared memory where the whole stack fits the cap, and
 // a cubic stack in groups of consecutive tables, one group to a block,
-// each block reading its tables one after another from its copy. f32 and
-// f64. What bounds it and what the layouts do about it are in regular.cuh.
+// each block reading its tables one after another from its copy; a cubic
+// stack of larger tables is read table after table through each table's
+// cubic pack, which the entry lays out first, four lanes a query from 3D.
+// f32 and f64. What bounds it and what the layouts do about it are in
+// regular.cuh.
 
 #include "interp_common.cuh"
 #include "regular.cuh"
@@ -23,8 +26,12 @@
 // `table_group` says; every table within it), which read `vals` as it is,
 // or 3 interleaved (linear and nearest): the interleave of `vals` into
 // `work`, (prod(dims), nch) in C order, is launched first and the kernel
-// reads it. `work` is unused on the other routes. The caller also
-// guarantees prod(dims) * nch < 2^31 on the interleaved route.
+// reads it, or 4 taps (2D) and 5 taps on four lanes a query (from 3D)
+// (cubic): the cubic pack of each table of `vals` into `work`, nch times
+// (d0-3) prod(d1..) cells of 4 values, table after table, is launched first
+// and the kernel reads it. `work` is unused on the other routes. The caller
+// also guarantees prod(dims) * nch < 2^31 on the interleaved route, and
+// that `work` holds fewer than 2^31 values on the taps routes.
 extern "C" int interpn_regular_stack(int method, int linearize, int is_f64, int ndims,
                                      const int* dims, const void* starts, const void* steps,
                                      void* work, const void* vals, const void* const* obs,
@@ -53,5 +60,26 @@ extern "C" int interpn_regular_stack_interleave(int is_f64, long long table, int
       is_f64 ? interp::launch_interleave(static_cast<const double*>(vals),
                                          static_cast<double*>(out), table, nch, s)
              : interp::launch_interleave(static_cast<const float*>(vals),
+                                         static_cast<float*>(out), table, nch, s));
+}
+
+// The cubic pack of the taps routes alone, as `interpn_regular_stack`
+// launches it on those routes: `out` receives the cubic pack of each table
+// of the (nch, prod(dims)) stack `vals`, table after table (regular.cuh,
+// `cubic_pack_kernel`). Launched on `stream` without synchronising;
+// returns cudaGetLastError(). The caller guarantees 1 <= ndims <= 8,
+// dims[0] >= 4 and that the pack holds fewer than 2^31 values.
+extern "C" int interpn_regular_stack_cubic_pack(int is_f64, int ndims, const int* dims, int nch,
+                                                const void* vals, void* out, void* stream) {
+  if (ndims < 1 || ndims > interp::kMaxDims || dims[0] < 4 || nch <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long table = 1;
+  for (int k = 0; k < ndims; ++k) table *= dims[k];
+  const auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_f64 ? interp::launch_cubic_pack(ndims, dims, static_cast<const double*>(vals),
+                                         static_cast<double*>(out), table, nch, s)
+             : interp::launch_cubic_pack(ndims, dims, static_cast<const float*>(vals),
                                          static_cast<float*>(out), table, nch, s));
 }

@@ -74,7 +74,26 @@
 //   one lane a query, 12^5 f64 1.389 against 2.336; at 2D one lane a query
 //   led, 0.024 against 0.043 ms at 200^2 f32). A 1-D table reads direct:
 //   its taps lie side by side already. So does an f64 table of at most 256
-//   KB at 2D or 3D, whose scalar reads hit L1 where its pack would not.
+//   KB at 2D or 3D, whose scalar reads hit L1 where its pack would not (a
+//   stack of two or more such tables does not fit L1 and reads its packs).
+//   A cubic stack of tables above kGroupBytes (K5) reads the same way,
+//   table after table, each through its own pack: the entry first lays out
+//   the packs of the whole stack, table after table, in one launch of
+//   `cubic_pack_kernel`, and each query's axes, located once, serve
+//   every table. Against kDirect at 1e6 queries on an H100: 8 x 20^4 f64
+//   3.564 against 13.82 ms, 20^4 f32 1.528 against 13.38, 40^3 f32 0.455
+//   against 2.569, 12^5 f64 12.10 against 58.61, 31^3 f64, whose tables fit
+//   L1 one at a time but not together, 0.641 against 2.217 (2 tables 0.215
+//   against 0.372; 1 table 0.144 against 0.136), on kTaps 240^2 f32 0.196
+//   against 0.556 and 170^2 f64 0.256 against 0.537 (at 1e4 queries, 8 x
+//   40^3 f32 and 20^4 f32 and f64, the kernels 2.0-4.3x too, though 40^3
+//   f32's call, bound by the host there, ran 15% behind back to back, ~15
+//   us longer on the host). Laid out
+//   cell-major (a cell's tables side by side) the packs ran 1.24-2.5x
+//   behind: a query's four lanes read four adjacent cells of a table, one
+//   128-byte line, where cell-major spreads them over four; streaming loads
+//   and stores of the queries and results (`__ldcs`, `__stcs`) moved no
+//   case by more than 1%.
 // - kInterleaved (a linear or nearest stack of at least kRunBytes of
 //   channels a table entry: 8 f32, 4 f64 tables, at 1-8D): the entry
 //   first launches the interleave (`interleave_kernel`) into a buffer the
@@ -102,7 +121,8 @@
 //   group a table at a time through a double buffer (kStagedTables, K6's)
 //   and the interleave ran behind.
 // - kDirect (the rest): the stencil straight from the table through the
-//   read-only cache, a stack's tables one at a time.
+//   read-only cache, a stack's tables one at a time (a cubic stack whose
+//   packs would not fit the card's free memory or int32 indices).
 
 #pragma once
 
@@ -225,16 +245,15 @@ __host__ __device__ constexpr int lanes_of() {
 // Whether the route has an instantiation for the method and ndims: staged
 // serves linear, one table or a stack read table by table, and single-table
 // cubic; staged groups the cubic stacks; quads single-table linear;
-// interleaved the linear and nearest stacks; taps single-table cubic at 2D,
-// tap lanes from 3D.
+// interleaved the linear and nearest stacks; taps cubic, one table or a
+// stack, at 2D, tap lanes from 3D.
 constexpr bool serves(int route, int method, bool stack, int ndims) {
   return route == kDirect ||
          (route == kStaged && (method == kLinear || (method == kCubic && !stack))) ||
          (route == kStagedGroups && method == kCubic && stack) ||
          (route == kQuads && method == kLinear && !stack) ||
          (route == kInterleaved && method != kCubic && stack) ||
-         (taps(route) && method == kCubic && !stack &&
-          (route == kTaps ? ndims == 2 : ndims >= 3));
+         (taps(route) && method == kCubic && (route == kTaps ? ndims == 2 : ndims >= 3));
 }
 
 struct GridArgs {
@@ -519,27 +538,32 @@ __global__ void __launch_bounds__(threads_of<ROUTE>())
         }
       }
       using Axis = RegularCubicAxis<T>;
-      if constexpr (kStack) {  // the block's tables one after another
+      if constexpr (taps(ROUTE)) {
+        // the table (a stack's tables one after another, `table` entries
+        // apart) through its cubic pack
+        for (int c = 0; c < (kStack ? count : 1); ++c) {
+          const Taps<T> leaf{src + c * table, ax[0], lin};
+          if constexpr (kGroup == 4) {
+            // lane j of the query's four runs child j of the outermost axis;
+            // each lane gathers the four and evaluates its node, lane 0 stores
+            const int j = threadIdx.x & 3;
+            const unsigned group = 0xFu << (threadIdx.x & 28);
+            const T y = CubicTree<T, Axis, NDIMS - 1, 1>::eval(
+                leaf, base + j * stride[NDIMS - 1], stride, ax, lin);
+            const T v0 = __shfl_sync(group, y, 0, 4);
+            const T v1 = __shfl_sync(group, y, 1, 4);
+            const T v2 = __shfl_sync(group, y, 2, 4);
+            const T v3 = __shfl_sync(group, y, 3, 4);
+            if (j == 0) dst[c * n + i] = ax[NDIMS - 1].node(v0, v1, v2, v3, lin);
+          } else {
+            dst[c * n + i] = CubicTree<T, Axis, NDIMS, 1>::eval(leaf, base, stride, ax, lin);
+          }
+        }
+      } else if constexpr (kStack) {  // the block's tables one after another
         for (int c = 0; c < count; ++c) {
           dst[c * n + i] = CubicTree<T, Axis, NDIMS>::eval(
               Channels<T, 1, kShared>{src + c * table, 1, false}, base, stride, ax, lin);
         }
-      } else if constexpr (kGroup == 4) {
-        // lane j of the query's four runs child j of the outermost axis;
-        // each lane gathers the four and evaluates its node, lane 0 stores
-        const Taps<T> leaf{vals, ax[0], lin};
-        const int j = threadIdx.x & 3;
-        const unsigned group = 0xFu << (threadIdx.x & 28);
-        const T y = CubicTree<T, Axis, NDIMS - 1, 1>::eval(leaf, base + j * stride[NDIMS - 1],
-                                                           stride, ax, lin);
-        const T v0 = __shfl_sync(group, y, 0, 4);
-        const T v1 = __shfl_sync(group, y, 1, 4);
-        const T v2 = __shfl_sync(group, y, 2, 4);
-        const T v3 = __shfl_sync(group, y, 3, 4);
-        if (j == 0) out[i] = ax[NDIMS - 1].node(v0, v1, v2, v3, lin);
-      } else if constexpr (taps(ROUTE)) {
-        out[i] = CubicTree<T, Axis, NDIMS, 1>::eval(Taps<T>{vals, ax[0], lin}, base, stride, ax,
-                                                    lin);
       } else {
         out[i] = CubicTree<T, Axis, NDIMS>::eval(Channels<T, 1, kShared>{src, 1, false}, base,
                                                  stride, ax, lin);
@@ -638,23 +662,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The pack of the taps routes: cell q = (i, r) of the (d0-3, rest) cells,
-// rest = d1 * ... * dN-1, holds axis 0's four taps (i + a, r), a = 0..3,
-// side by side. Entry (i, r) of the table is at i * rest + r = q. Each
-// thread stores one 16-byte vector of the pack (a cell of f32, half a cell
-// of f64), so a warp's store is one contiguous run of 512 bytes. Plain
-// version: `ops/fused.py::plain_cubic_pack`.
+// The pack of the taps routes of the (nch, table) stack `vals` (one table:
+// nch = 1): cell q = (i, r) of table c's (d0-3, rest) cells, rest = d1 *
+// ... * dN-1, holds axis 0's four taps (i + a, r), a = 0..3, side by side,
+// table c's cells after table c-1's. Entry (i, r) of table c is at c *
+// table + q. The whole pack holds fewer than 2^31 values. Each thread
+// stores one 16-byte vector of the pack (a cell of f32, half a cell of
+// f64), so a warp's store is one contiguous run of 512 bytes. Plain
+// version: `ops/fused.py::plain_cubic_pack` (`plain_cubic_stack_pack`).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    cubic_pack_kernel(const T* __restrict__ vals, T* __restrict__ out, int cells, int rest) {
+    cubic_pack_kernel(const T* __restrict__ vals, T* __restrict__ out, int cells, int rest,
+                      int64_t table, int nch) {
   using V = typename Vec16<T>::type;
   constexpr int kPer = 16 / sizeof(T);  // taps a vector
-  const int64_t vecs = static_cast<int64_t>(cells) * (4 / kPer);
+  const int64_t vecs = static_cast<int64_t>(cells) * nch * (4 / kPer);
   const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; v < vecs;
        v += nthreads) {
-    const int q = static_cast<int>(v / (4 / kPer));
-    const T* p = vals + q + static_cast<int64_t>(v % (4 / kPer)) * kPer * rest;
+    const int cq = static_cast<int>(v / (4 / kPer));  // the cell of the whole pack
+    const int c = cq / cells;
+    const T* p = vals + c * table + (cq - c * cells) +
+                 static_cast<int64_t>(v % (4 / kPer)) * kPer * rest;
     if constexpr (sizeof(T) == 4) {
       reinterpret_cast<V*>(out)[v] =
           make_float4(__ldg(p), __ldg(p + rest), __ldg(p + 2 * rest), __ldg(p + 3 * rest));
@@ -735,19 +764,20 @@ cudaError_t launch_pack(int ndims, const int* dims, const T* vals, T* out, cudaS
 }
 
 // Launches the pack of the taps routes on `stream`: `out` receives the
-// (d0-3) prod(d1..) cells of 4 values.
+// (d0-3) prod(d1..) cells of 4 values of each of the nch tables of the
+// (nch, table) stack `vals`, table after table (one table: nch = 1).
 template <typename T>
 cudaError_t launch_cubic_pack(int ndims, const int* dims, const T* vals, T* out,
-                              cudaStream_t stream) {
+                              int64_t table, int nch, cudaStream_t stream) {
   int rest = 1;
   for (int k = 1; k < ndims; ++k) rest *= dims[k];
   const int cells = (dims[0] - 3) * rest;
   const auto kernel = cubic_pack_kernel<T>;
   int blocks = 0;
   const cudaError_t err = grid_blocks(occupancy_cache<CubicPackKey<T>>(), kernel, kThreads, 0,
-                                      static_cast<int64_t>(cells) * sizeof(T) / 4, &blocks);
+                                      static_cast<int64_t>(cells) * nch * sizeof(T) / 4, &blocks);
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, kThreads, 0, stream>>>(vals, out, cells, rest);
+  kernel<<<blocks, kThreads, 0, stream>>>(vals, out, cells, rest, table, nch);
   return cudaGetLastError();
 }
 
@@ -768,10 +798,11 @@ cudaError_t launch_interleave(const T* vals, T* out, int64_t table, int nch,
 }
 
 // Launches the layout that `route` reads into `work` on `stream`: the cubic
-// pack (taps routes) or the pack (quads) of one table, the interleave
-// (interleaved) of the stack `vals`; nothing on the other routes. Only the
-// layout kernels that the family F serves (F::served) are instantiated, so
-// that each source builds those it launches and no other.
+// pack (taps routes) of one table or of each table of the stack `vals`, the
+// pack (quads) of one table, the interleave (interleaved) of the stack;
+// nothing on the other routes. Only the layout kernels that the family F
+// serves (F::served) are instantiated, so that each source builds those it
+// launches and no other.
 template <typename F, bool kStack>
 cudaError_t launch_layout(int route, int is_f64, int ndims, const int* dims, const void* vals,
                           void* work, int64_t table, int nch, cudaStream_t stream) {
@@ -780,9 +811,9 @@ cudaError_t launch_layout(int route, int is_f64, int ndims, const int* dims, con
   if constexpr (kTapsServed) {
     if (taps(route)) {
       return is_f64 ? launch_cubic_pack(ndims, dims, static_cast<const double*>(vals),
-                                        static_cast<double*>(work), stream)
+                                        static_cast<double*>(work), table, nch, stream)
                     : launch_cubic_pack(ndims, dims, static_cast<const float*>(vals),
-                                        static_cast<float*>(work), stream);
+                                        static_cast<float*>(work), table, nch, stream);
     }
   }
   if constexpr (F::served(kQuads, kLinear, kStack, 2)) {
@@ -956,7 +987,7 @@ int regular_entry(int method, int linearize, int is_f64, int ndims, const int* d
   // strides of the layout read: the table's in entries (times nch for an
   // interleaved stack; another stack's tables lie one after another); a
   // packed copy's in cells, over (d0-1, d1-1, d2, ...) for quads and
-  // (d0-3, d1, ...) for taps
+  // (d0-3, d1, ...) for taps (a stack's packs one after another)
   int acc = route == kInterleaved ? nch : 1;
   int64_t table = 1;
   for (int k = ndims - 1; k >= 0; --k) {
@@ -977,7 +1008,8 @@ int regular_entry(int method, int linearize, int is_f64, int ndims, const int* d
   a.obs = obs;
   a.starts = starts;
   a.steps = steps;
-  a.table = table;
+  // entries of one table of the layout read: a stack's pack holds 4 a cell
+  a.table = kStack && taps(route) ? 4 * static_cast<int64_t>(acc) : table;
   a.nch = nch;
   a.out = out;
   a.n = n;

@@ -6,9 +6,10 @@
   `eval_regular_stack` (K5). The layout their kernel reads is
   `regular_route`'s alone: the table staged in shared memory, a cubic
   stack's groups of tables staged one to a block, its packed quads, its
-  cubic pack of axis 0's taps (one or four lanes a query), or a stack
-  channel-interleaved (each laid out every call by the same entry; `pack`,
-  `cubic_pack` and `interleave` alone), or the table itself.
+  cubic pack of axis 0's taps (one or four lanes a query; a cubic stack's
+  packs table after table), or a stack channel-interleaved (each laid out
+  every call by the same entry; `pack`, `cubic_pack`, `cubic_stack_pack`
+  and `interleave` alone), or the table itself.
 * `eval_rectilinear` / `eval_rectilinear_stack` launch
   `csrc/fused_rectilinear.cu` / `fused_rectilinear_stack.cu`, the
   counterpart of `pallas_v3.eval_rectilinear_pre` (K2: linear, cubic),
@@ -82,6 +83,8 @@ _SINGLE = (*(f"{grid}_{m}" for grid in ("regular", "rectilinear") for m in METHO
 PACK = "regular_pack"  # the quads route's pack, in csrc/fused_regular.cu
 CUBIC_PACK = "regular_cubic_pack"  # the taps routes' pack, in csrc/fused_regular.cu
 INTERLEAVE = "regular_interleave"  # the interleaved route's, in csrc/fused_regular_stack.cu
+# the taps routes' pack of a cubic stack, in csrc/fused_regular_stack.cu
+CUBIC_STACK_PACK = "regular_cubic_stack_pack"
 # the same layout kernels in the rectilinear sources, launched by K2's and
 # K6's entries
 RECT_CUBIC_PACK = "rectilinear_cubic_pack"
@@ -89,7 +92,7 @@ RECT_INTERLEAVE = "rectilinear_interleave"
 # and the interleave in csrc/fused_bspline_stack.cu, launched by K7's entry
 BSPLINE_INTERLEAVE = "bspline_interleave"
 KERNELS = (*_SINGLE, *(f"{name}_stack" for name in _SINGLE), *F64_ENGINES, PACK, CUBIC_PACK,
-           INTERLEAVE, RECT_CUBIC_PACK, RECT_INTERLEAVE, BSPLINE_INTERLEAVE)
+           INTERLEAVE, CUBIC_STACK_PACK, RECT_CUBIC_PACK, RECT_INTERLEAVE, BSPLINE_INTERLEAVE)
 
 # Kernel launches by name; a run resets and reads them to show that its main
 # path went through the kernels.
@@ -100,8 +103,10 @@ launches = dict.fromkeys(KERNELS, 0)
 ROUTES = ("direct", "staged", "quads", "interleaved", "taps", "tap_lanes", "staged_tables",
           "staged_groups", "guided")
 TAP_ROUTES = ROUTES[4:6]  # the routes that read the cubic pack
-# the layout kernel that the entry launches before the kernel, by route
-LAYOUTS = {"quads": PACK, "interleaved": INTERLEAVE, **dict.fromkeys(TAP_ROUTES, CUBIC_PACK)}
+# the layout kernel that the entry launches before the kernel, by route (of
+# one regular table, of a regular stack)
+LAYOUTS = {"quads": PACK, **dict.fromkeys(TAP_ROUTES, CUBIC_PACK)}
+STACK_LAYOUTS = {"interleaved": INTERLEAVE, **dict.fromkeys(TAP_ROUTES, CUBIC_STACK_PACK)}
 RECT_LAYOUTS = {"interleaved": RECT_INTERLEAVE, **dict.fromkeys(TAP_ROUTES, RECT_CUBIC_PACK)}
 BSPLINE_LAYOUTS = {"interleaved": BSPLINE_INTERLEAVE}
 # An f32 linear table (a stack read table by table, regular or
@@ -123,7 +128,9 @@ QUAD_BYTES = 16 * 2**20
 TAP_BYTES = 32 * 2**20
 # An f64 cubic table at 2D or 3D of at most this many bytes reads direct: its
 # scalar reads hit the SM's L1 (256 KB with shared memory), where the pack,
-# 4x larger, would not (25^3 and 30^3 f64 ran 5-36% slower through it).
+# 4x larger, would not (25^3 and 30^3 f64 ran 5-36% slower through it). A
+# stack of such tables reads its packs: read direct one after another, its
+# tables do not fit L1 together.
 L1_BYTES = 256 * 1024
 # A linear or nearest stack (regular or rectilinear) with this many bytes of
 # channels a table entry or more (8 f32, 4 f64 tables) is read
@@ -140,7 +147,8 @@ RUN_BYTES = 32
 # stages its group in shared memory ('staged_groups'; kGroupBytes in
 # csrc/regular.cuh, whose entries count the groups and refuse a larger
 # table): about all the shared memory a block may use, at one 1024-thread
-# block an SM. One B-spline table (K4) within it is staged the same way.
+# block an SM. One B-spline table (K4) within it is staged the same way. A
+# cubic stack of larger tables reads their cubic packs (`_stack_route`).
 GROUP_BYTES = 224 * 1024
 # One linear or nearest rectilinear table (K2, K3) locates each query from
 # its block's copy of the grid columns and their bucket starts
@@ -190,7 +198,8 @@ def reset_launches() -> None:
 # the regular and rectilinear sources' other entries: method, is_f64, ndims,
 # route, out[4] (`interpn_{regular,rectilinear}[_stack]_info`); is_f64,
 # ndims, dims, vals, out, stream
-# (`interpn_regular_pack`, `interpn_regular_cubic_pack`); is_f64, table,
+# (`interpn_regular_pack`, `interpn_regular_cubic_pack`; the stack's takes
+# nch before vals); is_f64, table,
 # nch, vals, out, stream (`interpn_{regular,rectilinear}_stack_interleave`)
 _ENTRY_ARGTYPES = {
     "_info": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
@@ -200,6 +209,8 @@ _ENTRY_ARGTYPES = {
     ("fused_i8", "_info"): [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
     "_pack": [_INT, *_DIMS, _VOIDP, _VOIDP, _VOIDP],
     "_cubic_pack": [_INT, *_DIMS, _VOIDP, _VOIDP, _VOIDP],
+    # is_f64, ndims, dims, nch, vals, out, stream
+    ("fused_regular_stack", "_cubic_pack"): [_INT, *_DIMS, _INT, _VOIDP, _VOIDP, _VOIDP],
     "_interleave": [_INT, ctypes.c_longlong, _INT, _VOIDP, _VOIDP, _VOIDP],
 }
 
@@ -268,6 +279,13 @@ def plain_cubic_pack(dims, vals):
     v = vals.reshape(dims)
     last = dims[0] - 3
     return torch.stack([v[a:a + last] for a in range(4)], dim=-1)
+
+
+def plain_cubic_stack_pack(dims, vals_stack):
+    """The taps routes' cubic pack of an (nch, prod(dims)) stack (what
+    `cubic_stack_pack` launches the kernel of): (nch, d0-3, d1, ..., 4),
+    `plain_cubic_pack` of each table, table after table."""
+    return _per_channel(lambda v: plain_cubic_pack(dims, v), vals_stack)
 
 
 def plain_interleave(vals_stack):
@@ -352,9 +370,13 @@ def regular_route(dims, dtype, method, nch=None, free=None) -> str:
     ROUTES: for a linear or nearest stack `_channel_route`'s; for one f32
     linear table 'staged' (within STAGE_BYTES, copied into shared memory by
     each block) or 'quads' (above that, packed copy within QUAD_BYTES); for
-    one cubic table `_cubic_route`'s, for a cubic stack `_stack_route`'s;
-    else 'direct' (linear f64 is never staged nor packed). A function of
-    these arguments alone, and the only place the choice is made."""
+    one cubic table `_cubic_route`'s; for a cubic stack `_stack_route`'s:
+    staged groups of tables within GROUP_BYTES each, else each table
+    through its cubic pack where one such table would read its pack, the
+    packs of the whole stack laid out each call within `free`, else
+    'direct'; else 'direct' (linear f64 is never staged nor packed). A
+    function of these arguments alone, and the only place the choice is
+    made."""
     if method == "cubic":
         return (_cubic_route(dims, dtype) if nch is None
                 else _stack_route(dims, dtype, nch, False, free))
@@ -485,28 +507,50 @@ def _channel_route(dims, dtype, method, nch, free=None) -> str:
 
 def _stack_route(dims, dtype, nch, interleave, free=None) -> str:
     """The route of a stack of nch cubic (K5) or B-spline (K7) tables:
-    'staged_groups' where each table fits GROUP_BYTES; else, where
-    `interleave` (K7, whose tree keeps one running sum a channel a level;
-    eight Hermite trees at once would not fit the registers),
-    'interleaved' where `_interleaves`; else 'direct'."""
+    'staged_groups' where each table fits GROUP_BYTES. Above that, where
+    `interleave` (K7, whose tree keeps one running sum a channel a level),
+    'interleaved' where `_interleaves`, else 'direct'. K5, whose eight
+    Hermite trees at once would not fit the registers, reads its tables one
+    after another, each through its cubic pack on the route of
+    `_cubic_route` ('taps' at 2D, 'tap_lanes' from 3D; neither at 1D, for a
+    pack above TAP_BYTES, or for f64 tables of L1_BYTES or less together at
+    2-3D), while the packs of all nch tables, which the entry lays
+    out table after table each call ('regular_cubic_stack_pack'), hold
+    fewer than 2^31 entries and fit the `free` bytes of the tables' device
+    (None: no bound), so that a stack the card holds never runs out of
+    memory on this route where 'direct' would not; else 'direct'. Against
+    'direct', one lane running each table's whole tree, stacks of 8 ran
+    2.1-8.8x ahead at 1e6 queries on an H100 (20^4 f64 3.564 against 13.82
+    ms with the packs laid out; 31^3 f64, each table within L1_BYTES, 0.641
+    against 2.217, and two such tables 1.7x), and the kernels 2.0-4.3x at
+    1e4, where 8 x 40^3 f32, whose call is bound by the host, ran 15% behind
+    back to back, its call ~15 us longer on the host (PERF.md,
+    `scripts/torch_regular_ab.py`); one 31^3 f64 table read direct 6%
+    ahead."""
     if math.prod(dims) * dtype.itemsize <= GROUP_BYTES:
         return "staged_groups"
-    return "interleaved" if interleave and _interleaves(dims, dtype, nch, free) else "direct"
+    if interleave:
+        return "interleaved" if _interleaves(dims, dtype, nch, free) else "direct"
+    route = _cubic_route(dims, dtype, nch)
+    pack = nch * _taps_size(dims)
+    fits = pack < _INT32_LIMIT and (free is None or pack * dtype.itemsize <= free)
+    return route if route in TAP_ROUTES and fits else "direct"
 
 
-def _cubic_route(dims, dtype) -> str:
-    """The route of one cubic table: the table staged in shared memory
-    where it fits STAGE_BYTES; else, while its cubic pack fits TAP_BYTES,
-    the pack read by one lane a query at 2D and four from 3D, but for an f64
-    table of L1_BYTES or less at 2D or 3D; else (and at 1D, whose four taps
-    lie side by side in the table already) the table itself."""
+def _cubic_route(dims, dtype, nch=1) -> str:
+    """The route of one cubic table (`nch` tables read one after another):
+    the table staged in shared memory where it fits STAGE_BYTES; else, while
+    its cubic pack fits TAP_BYTES, the pack read by one lane a query at 2D
+    and four from 3D, but for f64 tables of L1_BYTES or less together at 2D
+    or 3D; else (and at 1D, whose four taps lie side by side in the table
+    already) the table itself."""
     table = math.prod(dims) * dtype.itemsize
     nd = len(dims)
     if table <= STAGE_BYTES:
         return "staged"
     if nd == 1 or _taps_size(dims) * dtype.itemsize > TAP_BYTES:
         return "direct"
-    if dtype == torch.float64 and nd <= 3 and table <= L1_BYTES:
+    if dtype == torch.float64 and nd <= 3 and table * nch <= L1_BYTES:
         return "direct"
     return "taps" if nd == 2 else "tap_lanes"
 
@@ -517,10 +561,11 @@ def _taps_size(dims) -> int:
 
 
 def _layout_size(dims, route, vals) -> int | None:
-    """Entries of the buffer that the entry lays the table out in for
-    `route`, None where the route reads `vals` as it is."""
+    """Entries of the buffer that the entry lays the table (a stack: each
+    table, (nch, prod(dims))) out in for `route`, None where the route reads
+    `vals` as it is."""
     if route in TAP_ROUTES:
-        return _taps_size(dims)
+        return _taps_size(dims) * (vals.shape[0] if vals.dim() == 2 else 1)
     return {"quads": _packed_size(dims), "interleaved": vals.numel()}.get(route)
 
 
@@ -562,6 +607,36 @@ def cubic_pack(dims, vals):
             or _taps_size(dims) >= _INT32_LIMIT):
         raise ValueError(f"no cubic pack of a grid of dims {dims}")
     return _launch_pack(CUBIC_PACK, dims, vals, (dims[0] - 3, *dims[1:], 4))
+
+
+def cubic_stack_pack(dims, vals_stack):
+    """The taps routes' cubic pack of the (nch, prod(dims)) stack
+    `vals_stack` (f32 or f64, dims[0] >= 4), shaped as
+    `plain_cubic_stack_pack`'s: its kernel alone
+    (`interpn_regular_stack_cubic_pack`; `eval_regular_stack` launches it
+    with the kernel that reads it) on a CUDA tensor,
+    `plain_cubic_stack_pack` on a CPU one."""
+    dims = tuple(int(d) for d in dims)
+    if _device((vals_stack,)).type == "cpu":
+        return plain_cubic_stack_pack(dims, vals_stack)
+    nch = int(vals_stack.shape[0]) if vals_stack.dim() == 2 else 0
+    if (not 1 <= len(dims) <= _MAX_DIMS or dims[0] < 4 or min(dims) < 1 or nch == 0
+            or nch * _taps_size(dims) >= _INT32_LIMIT):
+        raise ValueError(f"no cubic pack of a stack of {nch} tables of dims {dims}")
+    if vals_stack.shape != (nch, math.prod(dims)) or not vals_stack.is_contiguous():
+        raise ValueError(f"vals_stack must be a contiguous (nch, {math.prod(dims)}) tensor")
+    if vals_stack.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernel takes float32 or float64, got {vals_stack.dtype}")
+    out = torch.empty((nch, dims[0] - 3, *dims[1:], 4), dtype=vals_stack.dtype,
+                      device=vals_stack.device)
+    with torch.cuda.device(vals_stack.device):
+        rc = _c_call(_fn("fused_regular_stack", "_cubic_pack"), _is_f64(vals_stack), len(dims),
+                     (_INT * len(dims))(*dims), nch, vals_stack.data_ptr(), out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_regular_stack cubic pack launch failed: CUDA error {rc}")
+    launches[CUBIC_STACK_PACK] += 1
+    return out
 
 
 def _launch_pack(name, dims, vals, shape):
@@ -665,8 +740,8 @@ def _regular_wrapper(dims, starts, steps, vals, obs, method, linearize, stacked)
         return plain(dims, starts, steps, vals, obs, method, linearize)
     n = _check(dims, starts, steps, vals, obs, method, stacked)
     route = _chosen(regular_route, dims, vals, method, stacked)
-    return _relaid_launch("regular", route, LAYOUTS, dims, vals, obs, method, linearize, n,
-                          stacked, starts.data_ptr(), steps.data_ptr())
+    return _relaid_launch("regular", route, STACK_LAYOUTS if stacked else LAYOUTS, dims, vals,
+                          obs, method, linearize, n, stacked, starts.data_ptr(), steps.data_ptr())
 
 
 def _relaid_launch(family, route, layouts, dims, vals, obs, method, linearize, n, stacked,

@@ -12,11 +12,12 @@ name, and each builds the sources its cases launch (SOURCES) with its own
 `_build.py`, both checkouts' at once.
 
 Each case of CASES is a table on a [0, 10] grid (random values from a
-seed) and 1e6 queries uniform in [-0.5, 10.5]: every K1 and K5 path of
-`chip_smoke.py`, the routes' crossings, stacks at 4, 5 and 8D, and cubic
-stacks of 1-4 groups (the C entry counts a stack's groups; a copy built
-with another `kGroupBytes`, csrc/regular.cuh, splits it otherwise, and is
-timed as the earlier checkout). On each:
+seed) and 1e6 queries (`--queries`) uniform in [-0.5, 10.5]: every K1 and
+K5 path of `chip_smoke.py`, the routes' crossings, stacks at 4, 5 and 8D,
+cubic stacks of 1-4 groups (the C entry counts a stack's groups; a copy
+built with another `kGroupBytes`, csrc/regular.cuh, splits it otherwise,
+and is timed as the earlier checkout), and cubic stacks of larger tables
+through their cubic packs. On each:
 
 1. the kernels: each checkout's public evaluator
    (`ops.fused.eval_regular[_stack]`; this checkout's on the route that
@@ -33,10 +34,10 @@ timed as the earlier checkout). On each:
    checkout's where it has it, and the PyTorch call that makes the same
    copy, in turns;
 2. back to back: the two public evaluators in turns (earlier, this, this,
-   earlier), each over five passes of the 20 batches after three warm-up
-   calls: CUDA events around each pass (the time a caller that loops
-   sees, host included) and the host clock around queueing it (the host's
-   own time a call); on a single table also each checkout's `raw` entry
+   earlier), each over five passes (`--passes`) of the 20 batches after
+   three warm-up calls: CUDA events around each pass (the time a caller
+   that loops sees, host included) and the host clock around queueing it
+   (the host's own time a call); on a single table also each checkout's `raw` entry
    from CUDA tensors into a preallocated `out`, in turns, on the host clock
    over one pass of the batches ending in a synchronize.
 
@@ -159,8 +160,20 @@ CASES = [
     ("cubic", 20, 3, "f32", 3, ("direct",)),
     ("cubic", 20, 3, "f32", 9, ("direct",)),
     ("cubic", 20, 3, "f64", 4, ("direct",)),
-    ("cubic", 40, 3, "f32", 8, ()),
+    ("cubic", 40, 3, "f32", 8, ("tap_lanes", "direct")),
     ("cubic", 12, 4, "f32", 8, ("direct",)),
+    # K5 cubic stacks of tables above GROUP_BYTES: each table through its
+    # cubic pack against direct; 31^3 and 170^2 f64 within L1_BYTES, alone
+    # and stacked, 240^2 f32 at 2D
+    ("cubic", 20, 4, "f64", 8, ("tap_lanes", "direct")),
+    ("cubic", 20, 4, "f32", 8, ("tap_lanes", "direct")),
+    ("cubic", 12, 5, "f64", 8, ("tap_lanes", "direct")),
+    ("cubic", 31, 3, "f64", 8, ("tap_lanes", "direct")),
+    ("cubic", 31, 3, "f64", 1, ("tap_lanes", "direct")),
+    ("cubic", 31, 3, "f64", 2, ("tap_lanes", "direct")),
+    ("cubic", 170, 2, "f64", 1, ("taps", "direct")),
+    ("cubic", 170, 2, "f64", 8, ("taps", "direct")),
+    ("cubic", 240, 2, "f32", 8, ("taps", "direct")),
     ("linear", 20, 3, "f32", 1, ("staged", "interleaved", "direct")),
     ("linear", 20, 3, "f32", 3, ("staged", "interleaved", "direct")),
     ("linear", 20, 3, "f64", 4, ("interleaved", "direct")),
@@ -238,6 +251,8 @@ GATHER_TOL = {torch.float32: 1e-4, torch.float64: 1e-13}
 # whether the earlier checkout's rectilinear results are held against this
 # one's (not with --unchecked: a copy whose kernel skips part of the work)
 COMPARE_EARLIER = True
+# passes of the batches in each turn of the back-to-back timing (--passes)
+PASSES = 5
 
 
 def label(case, family="regular") -> str:
@@ -300,15 +315,15 @@ def public(fused_module, case, st, sp, vals):
     return lambda ob: f((n,) * nd, st, sp, vals, ob, method)
 
 
-def back_to_back(fn, main, passes=5):
-    """Per call, over `passes` passes of the batches: the events' time of
+def back_to_back(fn, main):
+    """Per call, over PASSES passes of the batches: the events' time of
     each pass (host included) and the host's time to queue it."""
     for b in main[:3]:
         fn(b)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     loop, issue = [], []
-    for _ in range(passes):
+    for _ in range(PASSES):
         torch.cuda.synchronize()
         start.record()
         t0 = time.perf_counter()
@@ -369,6 +384,9 @@ def layout_fns(case, route, earlier, vals) -> dict:
     and the earlier's where it has one) and the PyTorch call that makes the
     same copy, each a function of the table."""
     dims = (case[1],) * case[2]
+    if route in fused.TAP_ROUTES and case[4]:
+        return {"cubic_stack_pack": lambda v: fused.cubic_stack_pack(dims, v),
+                "torch": lambda v: v.reshape(-1, *dims).unfold(1, 4, 1).contiguous()}
     if route in fused.TAP_ROUTES:
         return {"cubic_pack": lambda v: fused.cubic_pack(dims, v),
                 "torch": lambda v: v.reshape(dims).unfold(0, 4, 1).contiguous()}
@@ -751,7 +769,7 @@ def print_engine(entry, smi) -> None:
           f"{whole['earlier'] / whole['this']:.1f}x; against the native kernel (K1, K2, K4 "
           f"in float64), whole call by events over 4 batches, best of two: native "
           f"{native['native']:.4f}, this engine {native['this']:.4f}; "
-          "the op back to back, median of 10 "
+          f"the op back to back, median of {2 * PASSES} "
           "passes: " + ", ".join(f"{k} {statistics.median(v):.4f}"
                                  for k, v in entry["loop_ms"].items())
           + "; host ms/call: " + ", ".join(f"{k} {statistics.median(v):.4f}"
@@ -774,7 +792,9 @@ def ptxas_table(build, source) -> dict:
 
 def compare_registers(earlier_build, smi) -> None:
     """--registers: every kernel that both checkouts build, its ptxas
-    numbers side by side; the ones that differ printed."""
+    numbers side by side; the ones that differ printed, and those that one
+    checkout builds alone (a kernel whose parameters changed among them)
+    with their numbers."""
     for source in SOURCES:
         this, other = ptxas_table(_build, source), ptxas_table(earlier_build, source)
         both = sorted(this.keys() & other.keys())
@@ -783,10 +803,15 @@ def compare_registers(earlier_build, smi) -> None:
         print(f"{source} [{smi}]: {len(both)} kernels in both checkouts, {len(differ)} with "
               f"other registers / stack frame / spill stores; {len(this.keys() - other.keys())} "
               f"only in this one, {len(other.keys() - this.keys())} only in the earlier one"
-              + "".join(f"\n  {d}" for d in differ), flush=True)
+              + "".join(f"\n  {d}" for d in differ)
+              + "".join(f"\n  only in this one: {name} {this[name]}"
+                        for name in sorted(this.keys() - other.keys()))
+              + "".join(f"\n  only in the earlier one: {name} {other[name]}"
+                        for name in sorted(other.keys() - this.keys())), flush=True)
 
 
 def main() -> None:
+    global COMPARE_EARLIER, N, PASSES
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", type=Path, required=True,
                         help="root of the earlier checkout")
@@ -797,12 +822,17 @@ def main() -> None:
     parser.add_argument("--unchecked", action="store_true",
                         help="time the earlier checkout's rectilinear kernels without holding "
                         "their results against this one's (a copy whose kernel skips work)")
+    parser.add_argument("--queries", type=int, default=N,
+                        help=f"queries a batch (default {N})")
+    parser.add_argument("--passes", type=int, default=PASSES,
+                        help=f"passes of the batches a turn back to back (default {PASSES})")
     parser.add_argument("--registers", action="store_true",
                         help="compare the ptxas numbers of every kernel both checkouts build "
                         "and time nothing")
     args = parser.parse_args()
-    global COMPARE_EARLIER
     COMPARE_EARLIER = not args.unchecked
+    PASSES = args.passes
+    N = args.queries
     if not torch.cuda.is_available():
         sys.exit("torch_regular_ab: torch.cuda.is_available() is False; needs a CUDA device")
     cuda = torch.device("cuda", 0)
@@ -862,7 +892,7 @@ def main() -> None:
                 f"{k} {min(v):.4f}" for k, v in entry["in_grid_ms"].items())
         print(f"{entry['case']} ({entry['route']}) [{smi}]: kernel ms, best of two: {kern}; "
               f"{best['earlier'] / best[entry['route']]:.2f}x; back to back ms/call, median "
-              f"of 10 passes: {loop}; host ms/call: {issue}{extra}", flush=True)
+              f"of {2 * PASSES} passes: {loop}; host ms/call: {issue}{extra}", flush=True)
     print(smi)
     print(json.dumps({"card": smi, "cases": record}))
     if any("mismatch" in entry for entry in record):

@@ -1,7 +1,9 @@
-"""The cubic pack that K1's taps routes read, on the CPU: its index contract,
-an evaluation read through it as the kernel reads it (one thread a query,
-and four lanes a query) bit for bit equal to the plain version
-(`plain_regular` cubic) at 1-8D with extrapolated, NaN and +-inf queries,
+"""The cubic pack that K1's taps routes read, and the packs of a stack that
+K5's read, on the CPU: their index contract, an evaluation read through
+them as the kernels read them (one thread a query, and four lanes a query;
+a stack's tables one after another, each through its pack at its offset)
+bit for bit equal to the plain version (`plain_regular` cubic,
+`plain_regular_stack`) at 1-8D with extrapolated, NaN and +-inf queries,
 the same read against the JAX package's cubic gather tree at its bars (f32
 rtol 1e-4, f64 rtol 1e-13, exact at nodes), and `regular_route` for cubic
 at and across each cap.
@@ -64,6 +66,26 @@ def test_cubic_pack_index_contract(dims):
             assert packed[cell][a] == v[(cell[0] + a, *cell[1:])]
 
 
+@pytest.mark.parametrize("nch", [1, 3, 8, 9])
+@pytest.mark.parametrize("dims", DIMS[:5], ids=lambda d: f"{len(d)}d")
+def test_cubic_stack_pack_is_each_table_pack(dims, nch):
+    """The packs of a stack lie table after table: row c of
+    `plain_cubic_stack_pack` is `plain_cubic_pack` of table c, the whole
+    is `_layout_size` entries on the taps routes, and the pack's CPU route
+    is its plain version."""
+    rng = np.random.default_rng(nch)
+    stack = torch.from_numpy(rng.standard_normal((nch, math.prod(dims))))
+    packed = fused.cubic_stack_pack(dims, stack)
+    assert torch.equal(packed, fused.plain_cubic_stack_pack(dims, stack))
+    assert packed.shape == (nch, dims[0] - 3, *dims[1:], 4)
+    for c in range(nch):
+        assert torch.equal(packed[c], fused.plain_cubic_pack(dims, stack[c]))
+    for route in fused.TAP_ROUTES:
+        assert fused._layout_size(dims, route, stack) == packed.numel()
+        assert fused._layout_size(dims, route, stack) == nch * fused._taps_size(dims)
+        assert fused._layout_size(dims, route, stack[0]) == fused._taps_size(dims)
+
+
 # --- the route ------------------------------------------------------------------------
 
 
@@ -75,7 +97,8 @@ def test_cubic_route_at_each_cap(ndims, dtype):
     four from 3D, while the pack fits TAP_BYTES, but direct for an f64
     table of at most L1_BYTES at 2-3D; then direct. A 1-D table reads
     direct beyond the staging cap. A stack of cubic tables is staged in
-    groups within GROUP_BYTES a table, else read direct (`_stack_route`,
+    groups within GROUP_BYTES a table, else read through the tables' packs
+    where one table would be (`_stack_route`,
     tests/test_torch_stack_cubic.py)."""
     item = torch.empty((), dtype=dtype).element_size()
     rest = 4 ** (ndims - 1)
@@ -96,7 +119,7 @@ def test_cubic_route_at_each_cap(ndims, dtype):
     at_tap = fused.TAP_BYTES // (4 * rest * item) + 3
     assert fused._taps_size((at_tap, *(4,) * (ndims - 1))) * item <= fused.TAP_BYTES
     assert route(at_tap) == packed and route(at_tap + 1) == "direct"
-    assert route(at_tap, 8) == "direct"
+    assert route(at_tap, 8) == packed
 
 
 def test_cubic_route_of_the_bench_tables():
@@ -114,18 +137,20 @@ def test_cubic_route_of_the_bench_tables():
 # --- evaluation through the pack, as the kernel reads it ----------------------------
 
 
-def _through_taps(dims, starts, steps, vals, obs, lin, read):
+def _through_taps(dims, starts, steps, vals, obs, lin, read, packed=None):
     """Cubic evaluation read as the taps routes read: each query's cell in
     the cubic pack (the located corner over the pack's strides), one cell a
     vertex of the other axes' 4^(N-1) stencil, each cell's four taps reduced
     by axis 0's node, then the tree over axes 1, 2, ... in groups of four
     (axis 1 in the lowest digit). On "four_lanes" the four children of the
     outermost axis are reduced apart, each over axes 1..N-2 as a lane runs
-    its subtree, and joined by the outermost axis's node."""
+    its subtree, and joined by the outermost axis's node. `packed` is the
+    flat pack read (the table's own by default)."""
     nd = len(dims)
     per = [locate_regular_cubic(obs[k], starts[k], steps[k], dims[k]) for k in range(nd)]
-    packed = fused.cubic_pack(dims, vals)
-    strides = _c_strides(tuple(packed.shape[:-1]))
+    if packed is None:
+        packed = fused.cubic_pack(dims, vals).reshape(-1)
+    strides = _c_strides((dims[0] - 3, *dims[1:]))
     base = sum(cl.loc * s for cl, s in zip(per, strides))
 
     def node(k, v):
@@ -158,6 +183,27 @@ def test_taps_read_equals_plain(dims, dtype, lin, read):
     st, sp, vals, obs = _case(dims, dtype, _n(dims), seed=len(dims))
     _bitwise(_through_taps(dims, st, sp, vals, obs, lin, read),
              fused.plain_regular(dims, st, sp, vals, obs, "cubic", lin))
+
+
+@pytest.mark.parametrize("dims", DIMS[1:], ids=lambda d: f"{len(d)}d")
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+@pytest.mark.parametrize("lin", [True, False], ids=["linearize", "quadratic"])
+@pytest.mark.parametrize("read", READS)
+def test_stack_taps_read_equals_plain(dims, dtype, lin, read):
+    """A stack of 3 tables read as K5's taps routes read it: the flat packs
+    of the whole stack, table c's `_layout_size` / nch entries in at its
+    offset, each table's tree over its own pack: bitwise the plain stack."""
+    nch = 3
+    st, sp, vals, obs = _case(dims, dtype, _n(dims) // 3, seed=20 + len(dims))
+    rng = np.random.default_rng(len(dims))
+    stack = torch.as_tensor(rng.standard_normal((nch, math.prod(dims))), dtype=dtype)
+    stack[1, rng.integers(0, stack.shape[1], 3)] = torch.tensor([np.nan, np.inf, -np.inf],
+                                                               dtype=dtype)
+    flat = fused.cubic_stack_pack(dims, stack).reshape(-1)
+    table = fused._layout_size(dims, "tap_lanes", stack) // nch
+    got = torch.stack([_through_taps(dims, st, sp, None, obs, lin, read,
+                                     flat[c * table:(c + 1) * table]) for c in range(nch)])
+    _bitwise(got, fused.plain_regular_stack(dims, st, sp, stack, obs, "cubic", lin))
 
 
 @pytest.mark.parametrize("dims", DIMS, ids=lambda d: f"{len(d)}d")

@@ -833,13 +833,24 @@ def _at_offset(vals, offset):
 def _stack_routes(dims, dtype, kernel):
     """Every route of a K5 cubic (`kernel` "regular") or K7 ("bspline")
     stack that takes these tables: staged groups (each table within
-    GROUP_BYTES), interleaved (K7), direct."""
+    GROUP_BYTES), the cubic packs of K5 (taps at 2D, tap lanes from 3D, at
+    any size, so wherever the rule admits them), interleaved (K7),
+    direct."""
     routes = ["direct"]
     if math.prod(dims) * torch.empty((), dtype=dtype).element_size() <= fused.GROUP_BYTES:
         routes.append("staged_groups")
+    if kernel == "regular" and len(dims) >= 2:
+        routes.append("taps" if len(dims) == 2 else "tap_lanes")
     if kernel == "bspline":
         routes.append("interleaved")
     return routes
+
+
+def _on_stack_route(dims, st, sp, vals, ob, lin, route):
+    """K5 cubic through `fused._relaid_launch` on `route`, with the buffer of
+    its layout (the stack's cubic packs on the taps routes)."""
+    return fused._relaid_launch("regular", route, fused.STACK_LAYOUTS, dims, vals, ob, "cubic",
+                                lin, ob[0].shape[0], True, st.data_ptr(), sp.data_ptr())
 
 
 # stacks of 1 to 6 groups of 20^3 and 21^3 tables: 7 f32 and 3 f64 20^3
@@ -872,13 +883,64 @@ def test_cubic_stack_routes(cuda, n, nch, offset, dtype):
         _equal(fused.eval_regular_stack(dims, st, sp, vals, ob, "cubic", lin), want)
         assert fused.launches == {k: int(k == "regular_cubic_stack") for k in fused.launches}
         for r in _stack_routes(dims, dtype, "regular"):
-            got = fused._launch("fused_regular_stack", "regular_cubic_stack",
-                                (1, int(lin), fused._is_f64(vals)), dims, vals, ob,
-                                ob[0].shape[0], True, st.data_ptr(), sp.data_ptr(), None,
-                                route=r)
+            got = _on_stack_route(dims, st, sp, vals, ob, lin, r)
             _equal(got, want)
             for c in range(nch):
                 _equal(got[c], rows[c])
+
+
+# tables just above GROUP_BYTES (229,376 bytes) at 2-5D: the f64 2D and 3D
+# ones within L1_BYTES, which the rule leaves direct in a stack of one
+PACKED_STACK_DIMS = {torch.float32: [(240, 240), (39,) * 3, (16, 16, 16, 15), (9,) * 5],
+                     torch.float64: [(170, 170), (31,) * 3, (13, 13, 13, 14), (8,) * 5]}
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3], ids=["2d", "3d", "4d", "5d"])
+@pytest.mark.parametrize("nch", [1, 3, 8, 9])
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_cubic_stack_packed_routes(cuda, which, nch, offset, dtype):
+    """K5 cubic on stacks of tables just above GROUP_BYTES, aligned and as a
+    view at an odd offset, with a NaN, +inf and -inf in the tables, both
+    extrapolation modes: the wrapper's route (the tables' cubic packs, one
+    lane a query at 2D and four from 3D, but direct for one f64 table
+    within L1_BYTES at 2D and 3D)
+    one K5 launch and, where it packs, one launch of the stack's pack and
+    none of K1's; every route bitwise against the plain version and the
+    direct route, each row against K1 on its table; the stack's pack alone
+    equal to `plain_cubic_stack_pack`."""
+    dims = PACKED_STACK_DIMS[dtype][which]
+    item = torch.empty((), dtype=dtype).element_size()
+    assert math.prod(dims) * item > fused.GROUP_BYTES
+    dims, st, sp, _, ob = _case(dims, dtype, cuda, n=10_000, seed=nch + len(dims))
+    rng = np.random.default_rng(nch + offset)
+    vals = torch.as_tensor(rng.standard_normal((nch, math.prod(dims))), dtype=dtype,
+                           device=cuda)
+    vals.view(-1)[torch.as_tensor(rng.choice(vals.numel(), 3, replace=False), device=cuda)] = (
+        torch.tensor(BAD, dtype=dtype, device=cuda))
+    vals = _at_offset(vals, offset) if offset else vals
+    route = fused.regular_route(dims, dtype, "cubic", nch)
+    in_l1 = dtype == torch.float64 and len(dims) <= 3 and nch == 1
+    assert route == ("direct" if in_l1 else "taps" if len(dims) == 2 else "tap_lanes")
+    for lin in (True, False):
+        want = fused.plain_regular_stack(dims, st, sp, vals, ob, "cubic", lin)
+        rows = [fused.eval_regular(dims, st, sp, vals[c], ob, "cubic", lin) for c in range(nch)]
+        direct = _on_stack_route(dims, st, sp, vals, ob, lin, "direct")
+        _equal(direct, want)
+        fused.reset_launches()
+        _equal(fused.eval_regular_stack(dims, st, sp, vals, ob, "cubic", lin), want)
+        packs = {"regular_cubic_stack": 1, fused.CUBIC_STACK_PACK: int(route != "direct")}
+        assert fused.launches == {k: packs.get(k, 0) for k in fused.launches}
+        for r in _stack_routes(dims, dtype, "regular"):
+            got = _on_stack_route(dims, st, sp, vals, ob, lin, r)
+            _equal(got, want)
+            _equal(got, direct)
+            for c in range(nch):
+                _equal(got[c], rows[c])
+    fused.reset_launches()
+    packed = fused.cubic_stack_pack(dims, vals.contiguous())
+    assert fused.launches[fused.CUBIC_STACK_PACK] == 1
+    _equal(packed, fused.plain_cubic_stack_pack(dims, vals.contiguous()))
 
 
 @pytest.mark.parametrize("nch", STACKS)

@@ -62,11 +62,11 @@ def test_f64_reads_its_table_direct():
     wide stack interleaved. One cubic f64 table is staged within STAGE_BYTES
     and read through its cubic pack beyond L1_BYTES (`_cubic_route`); a
     cubic stack is staged in groups of tables where each fits GROUP_BYTES,
-    else read direct (`_stack_route`)."""
+    else read through the tables' packs as one table is (`_stack_route`)."""
     cubic = {(50,): "staged", (20,) * 3: "staged", (12,) * 4: "tap_lanes",
              (100,) * 3: "tap_lanes"}
     # a stack's tables within GROUP_BYTES, but 100^3
-    stack = {(100,) * 3: "direct"}
+    stack = {(100,) * 3: "tap_lanes"}
     for dims in ((50,), (20,) * 3, (12,) * 4, (100,) * 3):
         for method in ("linear", "cubic", "nearest"):
             for nch in (None, 1, 3, 8):

@@ -186,10 +186,11 @@ def _stack_dims(table_bytes, dtype, ndims=3):
 @pytest.mark.parametrize("ndims", [1, 3, 5])
 def test_stack_routes_at_the_caps(dtype, nch, ndims):
     """K5 cubic and K7 stacks at and one row over each cap: tables within
-    GROUP_BYTES in groups (the whole stack one group where it fits), larger
-    ones direct, but interleaved for K7 from RUN_BYTES of channels; a
-    single spline table within GROUP_BYTES staged as its one group, a larger
-    one direct."""
+    GROUP_BYTES in groups (the whole stack one group where it fits); larger
+    ones through their cubic packs on four lanes a query for K5 (direct at
+    1D and for one f64 table within L1_BYTES at 3D), interleaved for K7 from
+    RUN_BYTES of channels, else direct; a single spline table within
+    GROUP_BYTES staged as its one group, a larger one direct."""
     item = dtype.itemsize
     cases = [_stack_dims(fused.STAGE_BYTES // nch, dtype, ndims),
              _stack_dims(fused.GROUP_BYTES, dtype, ndims)]
@@ -198,13 +199,98 @@ def test_stack_routes_at_the_caps(dtype, nch, ndims):
         if math.prod(dims) * item <= fused.GROUP_BYTES:
             want = spline = "staged_groups"
         else:
-            want = "direct"
+            in_l1 = dtype == F64 and ndims <= 3 and nch * math.prod(dims) * item <= fused.L1_BYTES
+            want = "direct" if ndims == 1 or in_l1 else "tap_lanes"
             spline = "interleaved" if nch * item >= fused.RUN_BYTES else "direct"
         assert fused.regular_route(dims, dtype, "cubic", nch) == want, dims
         for k in fused.DEGREES:
             assert fused.bspline_route(dims, dtype, k, nch) == spline, (dims, k)
             one = "staged_groups" if math.prod(dims) * item <= fused.GROUP_BYTES else "direct"
             assert fused.bspline_route(dims, dtype, k) == one
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+@pytest.mark.parametrize("nch", [1, 3, 8, 9])
+@pytest.mark.parametrize("ndims", range(1, 9))
+def test_cubic_stack_reads_its_packs_at_each_cap(ndims, dtype, nch):
+    """K5 cubic stacks of tables (d0, 4, ..., 4) one row over GROUP_BYTES,
+    at and one row over L1_BYTES, and at and one row over the pack's
+    TAP_BYTES: each table through its cubic pack (taps at 2D, tap lanes from
+    3D), as one table reads it (`_cubic_route`), but for f64 tables within
+    L1_BYTES at 2-3D only where the stack fits L1_BYTES in all (one table:
+    read direct one after another, more do not fit L1 together); direct at
+    1D and for a pack above TAP_BYTES."""
+    item, rest = dtype.itemsize, 4 ** (ndims - 1)
+    at = [fused.GROUP_BYTES // (rest * item) + 1, fused.L1_BYTES // (rest * item),
+          fused.TAP_BYTES // (4 * rest * item) + 3]
+    for d0 in sorted({d for a in at for d in (a, a + 1)}):
+        dims = (d0, *(4,) * (ndims - 1))
+        if math.prod(dims) * item <= fused.GROUP_BYTES:
+            continue
+        packed = {1: "direct", 2: "taps"}.get(ndims, "tap_lanes")
+        in_l1 = dtype == F64 and ndims <= 3 and nch * math.prod(dims) * item <= fused.L1_BYTES
+        over = fused._taps_size(dims) * item > fused.TAP_BYTES
+        want = "direct" if in_l1 or over else packed
+        assert fused.regular_route(dims, dtype, "cubic", nch) == want, dims
+        if nch == 1:  # a stack of one reads as its table does
+            assert want == fused.regular_route(dims, dtype, "cubic"), dims
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+@pytest.mark.parametrize("nch", [1, 8, 9])
+@pytest.mark.parametrize("dims", [(40,) * 3, (20,) * 4, (12,) * 5, (300, 300)],
+                         ids=lambda d: f"{d[0]}^{len(d)}")
+def test_cubic_stack_pack_needs_its_copy_to_fit_free_memory(dims, dtype, nch):
+    """Each call allocates the packs of the whole stack beside it, so a K5
+    cubic stack reads them only while they fit the free bytes of its
+    device: its packed route with exactly the packs' bytes free, direct
+    with one byte fewer; with no bound (None, as on the CPU) packed."""
+    packed = "taps" if len(dims) == 2 else "tap_lanes"
+    copy = nch * fused._taps_size(dims) * dtype.itemsize
+    assert fused.regular_route(dims, dtype, "cubic", nch) == packed
+    assert fused.regular_route(dims, dtype, "cubic", nch, copy) == packed
+    assert fused.regular_route(dims, dtype, "cubic", nch, copy - 1) == "direct"
+    assert fused.regular_route(dims, dtype, "cubic", nch, 0) == "direct"
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+@pytest.mark.parametrize("ndims", [2, 3, 5])
+def test_cubic_stack_packs_past_int32_indices_read_direct(dtype, ndims):
+    """A K5 cubic stack whose packs together would hold 2^31 entries or more
+    reads direct, though each table's pack fits TAP_BYTES; one table fewer
+    reads its packs."""
+    rest = 4 ** (ndims - 1)
+    per = fused.TAP_BYTES // dtype.itemsize  # one table's pack at TAP_BYTES
+    dims = (per // (4 * rest) + 3, *(4,) * (ndims - 1))
+    assert fused._taps_size(dims) == per
+    nch = 2**31 // per
+    packed = "taps" if ndims == 2 else "tap_lanes"
+    assert fused.regular_route(dims, dtype, "cubic", nch) == "direct"
+    assert fused.regular_route(dims, dtype, "cubic", nch - 1) == packed
+
+
+def _k7_route_before(dims, dtype, nch, free):
+    """K7's stack route as it stood before K5 read its packs: staged
+    groups, else interleaved where `_interleaves`, else direct."""
+    if math.prod(dims) * dtype.itemsize <= fused.GROUP_BYTES:
+        return "staged_groups"
+    return "interleaved" if fused._interleaves(dims, dtype, nch, free) else "direct"
+
+
+@pytest.mark.parametrize("dtype", [F32, F64], ids=str)
+@pytest.mark.parametrize("k", fused.DEGREES)
+def test_k7_stack_routes_do_not_move(dtype, k):
+    """K7 keeps its own routes on every stack where K5 cubic now reads its
+    packs, whatever the free bytes: no spline stack takes a taps route."""
+    moved = 0
+    for dims in ((40,) * 3, (20,) * 4, (12,) * 5, (300, 300), (31,) * 3, (100,) * 3):
+        for nch in (1, 3, 4, 8, 9):
+            for free in (None, 0, 10**6, 10**10):
+                got = fused.bspline_route(dims, dtype, k, nch, free)
+                assert got == _k7_route_before(dims, dtype, nch, free), (dims, nch, free)
+                assert got not in fused.TAP_ROUTES
+                moved += fused.regular_route(dims, dtype, "cubic", nch, free) in fused.TAP_ROUTES
+    assert moved > 0
 
 
 @pytest.mark.parametrize("dtype", [F32, F64], ids=str)
@@ -291,11 +377,12 @@ def test_stack_routes_of_the_bench_stacks():
     want = {((20,) * 3, F32, 8): ("staged_groups", 2), ((20,) * 3, F32, 3): ("staged_groups", 1),
             ((20,) * 3, F32, 9): ("staged_groups", 2), ((20,) * 3, F64, 4): ("staged_groups", 2),
             ((21,) * 3, F64, 3): ("staged_groups", 1), ((21,) * 3, F64, 8): ("staged_groups", 3),
-            ((40,) * 3, F32, 8): ("direct", None), ((12,) * 4, F32, 8): ("staged_groups", 4),
-            ((40,) * 3, F64, 3): ("direct", None)}
+            ((40,) * 3, F32, 8): ("tap_lanes", None), ((12,) * 4, F32, 8): ("staged_groups", 4),
+            ((40,) * 3, F64, 3): ("tap_lanes", None), ((20,) * 4, F64, 8): ("tap_lanes", None)}
     for (dims, dtype, nch), (route, groups) in want.items():
         assert fused.regular_route(dims, dtype, "cubic", nch) == route, (dims, dtype, nch)
-        spline = "interleaved" if (dims, nch) == ((40,) * 3, 8) else route
+        spline = {"tap_lanes": "direct"}.get(route, route)
+        spline = "interleaved" if (dims, nch) in (((40,) * 3, 8), ((20,) * 4, 8)) else spline
         assert fused.bspline_route(dims, dtype, 3, nch) == spline, (dims, dtype, nch)
         if groups:
             assert _groups(math.prod(dims) * dtype.itemsize, nch) == groups, (dims, dtype, nch)
