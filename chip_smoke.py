@@ -908,20 +908,20 @@ def flag_build_log(ptxas, built):
     """Phase 1 for the flag's kernel: registers and spill stores of its f32
     and f64 instantiations from the ptxas log, and the registers, shared
     and local bytes and blocks an SM that its launch sizes the grid by
-    (`raw._flag_info`)."""
-    from interpn_tpu_torch import raw
+    (`ops.unrep.info`)."""
+    from interpn_tpu_torch.ops import unrep
 
     found = re.findall(
         r"unrep_flag_kernelI([fd])E\S*' for \S+\n[^\n]*\n\s+(\d+) bytes stack frame, "
         r"(\d+) bytes spill stores[^\n]*\n[^\n]*Used (\d+) registers", ptxas)
     if sorted(t for t, _, _, _ in found) != ["d", "f"]:
         raise AssertionError(f"{FLAG}: kernels in the ptxas log {found}, expected f32 and f64")
-    raw._flag_entry()  # load and bind
+    unrep.entry()  # load and bind
     log(f"phase 1 build: {FLAG}.cu {built}")
     cells = []
     for t, stack, spill, regs in sorted(found, reverse=True):
         dtype = F32 if t == "f" else F64
-        i = raw._flag_info(dtype)
+        i = unrep.info(dtype)
         cells.append(f"{SHORT[dtype]} {regs}/{spill}/{stack} ({i['registers']}/"
                      f"{i['static_smem']}/{i['local_bytes']}/{i['blocks_per_sm']})")
     log(f"phase 1   {FLAG} registers/spill-store bytes/stack-frame bytes (registers/static "
@@ -2020,8 +2020,8 @@ def drive_path(p: Path, cuda, rng):
     (launches of its kernel, kernel-vs-plain max_abs_err, launches of its
     companion by name, launches of the flag's kernel)."""
     import interpn_tpu_torch
-    from interpn_tpu_torch import convert, raw
-    from interpn_tpu_torch.ops import fused
+    from interpn_tpu_torch import convert
+    from interpn_tpu_torch.ops import fused, unrep
 
     npd = np.float32 if p.dtype == F32 else np.float64
     axes, grid_np, vals = path_inputs(p)
@@ -2052,13 +2052,13 @@ def drive_path(p: Path, cuda, rng):
     torch.cuda.synchronize()
 
     fused.reset_launches()
-    raw.flag_launches = 0
+    unrep.launches = 0
     results, counts, flags = {}, [], []
     with weight_builds() as built:  # the torch float64 weight build, on no path
         for name, call in calls.items():
             results[name] = call()
             counts.append(fused.launches[p.counter])
-            flags.append(raw.flag_launches)
+            flags.append(unrep.launches)
     torch.cuda.synchronize()
     others = {k: v for k, v in fused.launches.items() if k not in (p.counter, p.companion) and v}
     expected = list(range(1, len(calls) + 1))
@@ -2330,13 +2330,13 @@ LAYOUT_PATHS = {"regular_pack": Path("regular_linear", F32, 100, 3),
 
 
 def flag_vs_plain(p: Path, grid, obs_t) -> str:
-    """The flag's kernel (`raw._unrep_flag` on CUDA tensors) against its
-    plain version (`raw._unrep_passes`) on the path's grid and queries: as
+    """The flag's kernel (`ops.unrep.flag` on CUDA tensors) against its
+    plain version (`ops.unrep.plain`) on the path's grid and queries: as
     they are (all representable), then with one value planted in turn (NaN
     at the first query, +inf at the last, -inf and a far-out finite value
     in the middle of the last axis, NaN in the scalar head of a column one
     value off 16 bytes); one launch a call. Returns the log's note."""
-    from interpn_tpu_torch import raw
+    from interpn_tpu_torch.ops import unrep
 
     starts, steps = grid[0], grid[1]
     far = torch.finfo(p.dtype).max / 2  # (far - start) / step is beyond 2^63
@@ -2351,13 +2351,13 @@ def flag_vs_plain(p: Path, grid, obs_t) -> str:
             cols[axis][i] = value
         if what.endswith("unaligned head"):  # every column starts one value on
             cols = [c[1:] for c in cols]
-        before = raw.flag_launches
-        got = raw._unrep_flag(starts, steps, cols)
-        want = raw._unrep_passes(starts, steps, cols)
-        if raw.flag_launches != before + 1 or bool(got) != bool(want) or bool(got) != (
+        before = unrep.launches
+        got = unrep.flag(starts, steps, cols)
+        want = unrep.plain(starts, steps, cols)
+        if unrep.launches != before + 1 or bool(got) != bool(want) or bool(got) != (
                 axis is not None):
             raise AssertionError(f"{p.label} flag {what}: kernel {bool(got)}, plain "
-                                 f"{bool(want)}, launches {raw.flag_launches - before}")
+                                 f"{bool(want)}, launches {unrep.launches - before}")
     return (f"the flag's kernel equal to its plain version at {n} x {len(obs_t)} queries as "
             f"drawn and with {', '.join(w for w, *_ in plants[1:])} planted, one launch each")
 
@@ -2450,15 +2450,15 @@ FLAG_PATH = PATHS[0]  # 20^3 f32 linear: its kernels-record entry
 
 
 def flag_phase(cuda, smi, driven) -> dict:
-    """Phase 5 for the flag's kernel (`raw._unrep_flag` on CUDA tensors) at
+    """Phase 5 for the flag's kernel (`ops.unrep.flag` on CUDA tensors) at
     each of FLAG_SIZES on the 20^3 grid: unset on the drawn queries, as its
-    plain version (`raw._unrep_passes`) is, one launch a call; its device
+    plain version (`ops.unrep.plain`) is, one launch a call; its device
     time and the plain version's by CUDA events behind a head start, in
     turns (plain, kernel, kernel, plain), over distinct batches where
     N_BATCHES of them fit in 1 GiB (one batch again and again above, each
     far beyond the L2); and its bound (the columns read once). Returns its
     entry of the kernels record, at the first size."""
-    from interpn_tpu_torch import raw
+    from interpn_tpu_torch.ops import unrep
     from interpn_tpu_torch.utils.profiling import cuda_time
 
     gen = torch.Generator(device=cuda)
@@ -2475,11 +2475,11 @@ def flag_phase(cuda, smi, driven) -> dict:
 
         def kern(ob):
             calls.append(1)
-            return raw._unrep_flag(starts, steps, ob)
+            return unrep.flag(starts, steps, ob)
 
         def plain(ob):
-            return raw._unrep_passes(starts, steps, ob)
-        before = raw.flag_launches
+            return unrep.plain(starts, steps, ob)
+        before = unrep.launches
         if bool(kern(obs)) or bool(plain(obs)):
             raise AssertionError(f"flag at {ndims} x {n} {SHORT[dtype]}: set on drawn queries")
         timed = (batches * N_BATCHES)[:N_BATCHES]
@@ -2487,7 +2487,7 @@ def flag_phase(cuda, smi, driven) -> dict:
         for step in ("plain", "kernel", "kernel", "plain"):
             (k_runs if step == "kernel" else p_runs).append(
                 cuda_time(kern if step == "kernel" else plain, timed))
-        launched = raw.flag_launches - before
+        launched = unrep.launches - before
         if launched != len(calls):
             raise AssertionError(f"flag at {ndims} x {n} {SHORT[dtype]}: {launched} launches "
                                  f"in {len(calls)} calls")
@@ -2770,7 +2770,7 @@ def classes_phase(cuda, smi) -> list[dict]:
 
     import interpn_tpu_torch as itt
     from interpn_tpu_torch import convert, ops, raw
-    from interpn_tpu_torch.ops import fused
+    from interpn_tpu_torch.ops import fused, unrep
 
     rows = []
     x, vals = bench_grid(20, 3)
@@ -2802,7 +2802,7 @@ def classes_phase(cuda, smi) -> list[dict]:
         cached = model._dev.tensors(cuda)
         ptrs = [t.data_ptr() for t in cached if isinstance(t, torch.Tensor)]
         fused.reset_launches()
-        raw.flag_launches = 0
+        unrep.launches = 0
         got = model.eval_torch(obs_t)
         torch.cuda.synchronize()
         launched = {c: n for c, n in fused.launches.items() if n}
@@ -2810,16 +2810,16 @@ def classes_phase(cuda, smi) -> list[dict]:
         bitwise(again, got, f"{name} {method}: second eval_torch")
         if (counter and launched.get(counter) != 1) or (not counter and launched):
             raise AssertionError(f"{name} {method}: launches {launched}, want {counter} once")
-        if raw.flag_launches:
+        if unrep.launches:
             raise AssertionError(f"{name} {method}: eval_torch launched the flag's kernel "
-                                 f"{raw.flag_launches} times, want none")
+                                 f"{unrep.launches} times, want none")
         checked = ""
         if regular and method in reference.values():
             # eval into a CUDA out (the checked cell's call): the flag once, on the card
             out_t = torch.full_like(got, math.nan)
-            if model.eval(list(obs_t), out=out_t) is not out_t or raw.flag_launches != 1:
+            if model.eval(list(obs_t), out=out_t) is not out_t or unrep.launches != 1:
                 raise AssertionError(f"{name} {method}: eval into a CUDA out, flag launches "
-                                     f"{raw.flag_launches}, want 1")
+                                     f"{unrep.launches}, want 1")
             bitwise(out_t, got, f"{name} {method}: eval into a CUDA out vs eval_torch")
             checked = ("; eval into a CUDA out bitwise equal to eval_torch, the flag's kernel "
                        "launched once there and not by eval_torch")

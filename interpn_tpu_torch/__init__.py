@@ -38,10 +38,12 @@ import torch
 from numpy.typing import NDArray
 
 from . import convert, ops, raw
+from ._entry import copy_into as _copy_into
 from .config import default_device
 from .ops import bspline as _bspline
 from .ops import pchip as _pchip
 from .ops.df64 import host_tensor
+from .utils.tracing import host_numpy as _host_numpy
 
 # The persistent model classes need pydantic; the functional API works
 # without it, as in the JAX package.
@@ -162,7 +164,7 @@ def interpn(
             grid = convert.rectilinear_grid_from_numpy(grids, vals, device=device, dtype=tdtype)
             fn = ops.pchip_rectilinear
         res = fn(*grid, convert.obs_from_numpy(obs, device=device, dtype=tdtype))
-        np.copyto(out, res.cpu().numpy())
+        _copy_into(res, out)
     elif method in _SPLINE_DEGREE:
         k = _SPLINE_DEGREE[method]
         arrays = [(f"grids[{i}]", g) for i, g in enumerate(grids)] + [("vals", vals)]
@@ -176,7 +178,7 @@ def interpn(
         kt = convert.obs_from_numpy(knots, device=device, dtype=tdtype)
         cf = host_tensor(np.asarray(coeffs), device=device, dtype=tdtype)
         res = ops.bspline_eval(kt, cf, convert.obs_from_numpy(obs, device=device, dtype=tdtype), k)
-        np.copyto(out, res.cpu().numpy())
+        _copy_into(res, out)
     elif method not in ("linear", "cubic", "nearest"):
         raise ValueError(
             "Unsupported interpolation configuration:"
@@ -295,7 +297,7 @@ def interpn_stack(
             fn = getattr(ops, f"{method}_rectilinear_stack")
             grids_t = convert.obs_from_numpy(grids, device=device, dtype=tdtype)
             out = fn(grids_t, vals_t, obs_t, *lin)
-    return out.cpu().numpy().reshape((nch,) + outshape)
+    return _host_numpy(out).reshape((nch,) + outshape)
 
 
 def _check_regular(grids: Sequence[NDArray]) -> bool:

@@ -45,13 +45,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import convert, native, ops, raw
+from .. import _entry, convert, native, ops, raw
 from ..config import default_device
 from ..ops import bspline as _bspline
+from ..ops import unrep
 from ..utils import tracing
 
 SPLINE_DEGREE = {"cubic_spline": 3, "quintic": 5}
-METHODS = ("linear", "cubic", "nearest", "pchip", *SPLINE_DEGREE)
+REFERENCE_METHODS = ("linear", "cubic", "nearest")
+METHODS = (*REFERENCE_METHODS, "pchip", *SPLINE_DEGREE)
 _TORCH_DTYPE = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
 
@@ -88,7 +90,7 @@ class DeviceCore(torch.nn.Module):
     def __init__(self, interp: "DeviceInterpolator", device: torch.device):
         super().__init__()
         self.method = interp.method
-        self.dims = interp.dims if interp.regular else None
+        self.dims = interp.grid_dims
         self.linearize = interp.linearize
         grid = interp.tensors(device)
         # regular: (starts, steps, vals); rectilinear: (grids, vals); spline: (knots, coeffs)
@@ -125,6 +127,7 @@ class DeviceInterpolator:
         else:
             self.grids = [np.ascontiguousarray(np.asarray(g).ravel()) for g in grids]
             self.dims = tuple(g.size for g in self.grids)
+        self.grid_dims = self.dims if self.regular else None  # what `evaluate` takes
         self.linearize = bool(linearize_extrapolation)
         self.grid_ok = all(d >= min_grid for d in self.dims)
         self.min_grid_msg = min_grid_msg
@@ -175,26 +178,11 @@ class DeviceInterpolator:
 
     # --- evaluation ------------------------------------------------------------
 
-    def _eval(self, grid, obs_t, flag: bool = False):
-        """(result, unrepresentable flag or None) at the flat query tensors
-        `obs_t` on the cached tensors `grid` of their device: the flag only
-        where `flag` is asked for and the reference raises it (the
-        reference methods on a regular grid), a 0-d bool tensor queued
-        after the evaluation (`raw._unrep_flag`: on a CUDA tensor one launch
-        of its kernel, which reads each query column once) and not yet read
-        to the host."""
-        result = evaluate(self.method, self.dims if self.regular else None, self.linearize,
-                          grid, obs_t)
-        bad = None
-        if flag and self.regular and self.method in ("linear", "cubic", "nearest"):
-            bad = raw._unrep_flag(grid[0], grid[1], obs_t)
-        return result, bad
-
     def _prepare_native(self):
         """The engine's prepared call for this grid and method (JAX: each
         class's `_prepare_native`), or None: the spline methods, or more
         axes than the engine takes."""
-        if self.method not in ("linear", "cubic", "nearest"):
+        if self.method not in REFERENCE_METHODS:
             return None
         dt = self.dtype.type
         lin = (self.linearize,) if self.method == "cubic" else ()
@@ -260,32 +248,30 @@ class DeviceInterpolator:
         pairs = [("obs", o) for o in obs] + ([("out", out)] if out is not None else [])
         for name, a in pairs:
             dt = getattr(a, "dtype", None)
-            if dt is not None and raw._dtype_name(dt) != want:
+            if dt is not None and _entry.dtype_name(dt) != want:
                 raise TypeError(
-                    f"argument '{name}': expected a {want} array, got {raw._dtype_name(dt)}"
+                    f"argument '{name}': expected a {want} array, got {_entry.dtype_name(dt)}"
                 )
 
     def _check_float(self) -> None:
         if self.dtype not in (np.float64, np.float32):
             raise TypeError(f"Unexpected data type: {self.dtype}")
 
+    @tracing.traced(tracing.ENTRY)
     def eval_torch(self, obs) -> torch.Tensor:
         """The flat result on the queries' device (numpy queries: the
         default device), with no host sync. NaN and inf coordinates give
         NaN or extrapolate; nothing raises for them."""
-        if tracing.profiler._is_profiler_enabled:
-            with tracing.span(tracing.ENTRY):
-                grid, obs_t = tracing.call(tracing.CHECKS, self._torch_inputs, obs)
-                return self._eval(grid, obs_t)[0]
-        return self._eval(*self._torch_inputs(obs))[0]
+        return evaluate(self.method, self.grid_dims, self.linearize, *self._torch_inputs(obs))
 
+    @tracing.traced(tracing.CHECKS)
     def _torch_inputs(self, obs):
         """`eval_torch`'s checks; (the cached tensors, the flat query
         tensors) on the queries' device."""
         self._check_float()
         self.check_grid_sizes()
         self.check_obs_sizes(obs)
-        obs_t = self._obs_to_device(obs, raw._device(*obs))
+        obs_t = self._obs_to_device(obs, _entry.call_device(*obs))
         return self.tensors(obs_t[0].device), obs_t
 
     def eval(self, obs, out=None):
@@ -297,29 +283,23 @@ class DeviceInterpolator:
         self.eval_unchecked(obs, out)
         return out
 
+    @tracing.traced(tracing.ENTRY)
     def eval_unchecked(self, obs, out=None):
         """`eval` with the reference's checks of sizes and dtypes; on a
         regular grid, AssertionError "Unrepresentable coordinate value" for
-        a NaN, inf or far-out coordinate of a reference method."""
-        if tracing.profiler._is_profiler_enabled:
-            return tracing.call(tracing.ENTRY, self._eval_unchecked, obs, out)
-        return self._eval_unchecked(obs, out)
-
-    def _eval_unchecked(self, obs, out):
-        nat = self._native
-        if nat and type(out) is np.ndarray and self._host_native(obs, out):
+        a NaN, inf or far-out coordinate of a reference method, raised
+        before `out` is written."""
+        if self._native and type(out) is np.ndarray and self._host_native(obs, out):
             return out  # a prepared call exists, so the checks below passed once
-        if tracing.profiler._is_profiler_enabled:
-            out, grid, obs_t = tracing.call(tracing.CHECKS, self._out_inputs, obs, out)
-        else:
-            out, grid, obs_t = self._out_inputs(obs, out)
+        out, grid, obs_t = self._out_inputs(obs, out)
         if grid is None:  # the native engine wrote `out`
             return out
-        result, bad = self._eval(grid, obs_t, flag=True)
-        if bad is not None:
-            raw._raise_unrep(bad)
-        return raw._finish(result, out)
+        result = evaluate(self.method, self.grid_dims, self.linearize, grid, obs_t)
+        if self.regular and self.method in REFERENCE_METHODS:
+            return _entry.write_checked(result, unrep.flag(grid[0], grid[1], obs_t), out)
+        return _entry.copy_into(result, out)
 
+    @tracing.traced(tracing.CHECKS)
     def _out_inputs(self, obs, out):
         """`eval_unchecked`'s checks; (out, the cached tensors, the flat
         query tensors) on the call's device, or (out, None, None) where the
@@ -331,25 +311,22 @@ class DeviceInterpolator:
         self._check_float()
         if self._host_native(obs, out):
             return out, None, None
-        obs_t = self._obs_to_device(obs, raw._device(*obs, out))
+        obs_t = self._obs_to_device(obs, _entry.call_device(*obs, out))
         return out, self.tensors(obs_t[0].device), obs_t
 
+    @tracing.traced(tracing.ENTRY)
     def gradient_torch(self, obs) -> tuple[torch.Tensor, ...]:
         """ndims flat tensors, d(interpolant)/d(x_k) at each query, by
         reverse mode through the evaluation (the kernels' backward is their
         gather tree's). Piecewise polynomials: not defined exactly at cell
         boundaries; zero for nearest."""
-        if tracing.profiler._is_profiler_enabled:
-            return tracing.call(tracing.ENTRY, self._gradient_torch, obs)
-        return self._gradient_torch(obs)
-
-    def _gradient_torch(self, obs) -> tuple[torch.Tensor, ...]:
         self.check_grid_sizes()
         self.check_obs_sizes(obs)
         obs_t = tuple(x.detach().requires_grad_() for x in
-                      self._obs_to_device(obs, raw._device(*obs)))
+                      self._obs_to_device(obs, _entry.call_device(*obs)))
         with torch.enable_grad():
-            y = self._eval(self.tensors(obs_t[0].device), obs_t)[0]
+            y = evaluate(self.method, self.grid_dims, self.linearize,
+                         self.tensors(obs_t[0].device), obs_t)
         if not y.requires_grad:  # nearest's gather tree: no path from the queries
             return tuple(torch.zeros_like(x) for x in obs_t)
         return torch.autograd.grad(y.sum(), obs_t)

@@ -184,10 +184,7 @@ def table_split(vals):
     def build():
         v = torch.as_tensor(vals).detach().reshape(-1).to(_F64)
         vh, vl = split_f64(v)
-        finite = torch.isfinite(v).all()
-        if tracing.profiler._is_profiler_enabled:
-            finite = tracing.call(tracing.SYNC, bool, finite)
-        return vh.contiguous(), vl.contiguous(), bool(finite)
+        return vh.contiguous(), vl.contiguous(), tracing.host_bool(torch.isfinite(v).all())
 
     return _SPLITS.get(vals, (), build)
 
@@ -372,17 +369,11 @@ def _flat(obs):
     return tuple(o.reshape(-1).contiguous() for o in obs)
 
 
+@tracing.traced(tracing.WRAPPER)
 def eval_regular(dims, starts, steps, vals, obs, method, linearize=True):
     """Double-float f64 evaluation on a regular grid (linear or cubic, 2-8D):
     the counterpart of `pallas_df64.eval_regular`. Returns (n,) float64:
     the plain chain on CPU tensors, one launch of K8 on CUDA tensors."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.WRAPPER, _eval_regular, dims, starts, steps, vals, obs,
-                            method, linearize)
-    return _eval_regular(dims, starts, steps, vals, obs, method, linearize)
-
-
-def _eval_regular(dims, starts, steps, vals, obs, method, linearize):
     dims = tuple(int(d) for d in dims)
     obs = _flat(obs)
     if _on_cpu((vals, starts, steps, *obs)):
@@ -392,15 +383,9 @@ def _eval_regular(dims, starts, steps, vals, obs, method, linearize):
                               fp, linearize)
 
 
+@tracing.traced(tracing.WRAPPER)
 def eval_rectilinear(grids, vals, obs, method, linearize=True):
     """Double-float f64 evaluation on a rectilinear grid."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.WRAPPER, _eval_rectilinear, grids, vals, obs, method,
-                            linearize)
-    return _eval_rectilinear(grids, vals, obs, method, linearize)
-
-
-def _eval_rectilinear(grids, vals, obs, method, linearize):
     grids, obs = tuple(grids), _flat(obs)
     if _on_cpu((vals, *grids, *obs)):
         return plain_rectilinear(grids, vals, obs, method, linearize)
@@ -410,15 +395,10 @@ def _eval_rectilinear(grids, vals, obs, method, linearize):
                               linearize)
 
 
+@tracing.traced(tracing.WRAPPER)
 def eval_bspline(knots, coeffs, obs, k: int):
     """Double-float f64 evaluation of a degree-k (3 or 5) tensor-product
     B-spline: the counterpart of `pallas_df64.eval_bspline`."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.WRAPPER, _eval_bspline, knots, coeffs, obs, k)
-    return _eval_bspline(knots, coeffs, obs, k)
-
-
-def _eval_bspline(knots, coeffs, obs, k):
     knots, obs = tuple(knots), _flat(obs)
     if _on_cpu((coeffs, *knots, *obs)):
         return plain_bspline(knots, coeffs, obs, k)

@@ -311,16 +311,11 @@ def kernel_route(family: str, method, key, lin: bool = True) -> Route:
     return Route(parts[0], parts[1], nparams, False, stack, method != "nearest")
 
 
+@tracing.traced(tracing.DISPATCH)
 def _route(route, params, vals, obs):
     """route.gather(*params, vals, *obs) on the CPU; on a CUDA tensor the
     kernel on flat contiguous queries, reshaped to (*obs[0].shape) or, on a
     stack route, (nch, *obs[0].shape)."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.DISPATCH, _routed, route, params, vals, obs)
-    return _routed(route, params, vals, obs)
-
-
-def _routed(route, params, vals, obs):
     if _impl(vals) == "gather":
         return route.gather(*params, vals, *obs)
     shape = obs[0].shape
@@ -338,14 +333,8 @@ _FACTORIZED_RECT = {"linear": _fz.linear_rectilinear_factorized,
                     "nearest": _fz.nearest_rectilinear_factorized}
 
 
+@tracing.traced(tracing.ENTRY)
 def _regular(method, dims, starts, steps, vals, obs, *lin):
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.ENTRY, _regular_call, method, dims, starts, steps, vals,
-                            obs, *lin)
-    return _regular_call(method, dims, starts, steps, vals, obs, *lin)
-
-
-def _regular_call(method, dims, starts, steps, vals, obs, *lin):
     dims = tuple(int(d) for d in dims)
     if impl_mode() == "factorized":
         return _FACTORIZED_REGULAR[method](dims, starts, steps, vals, obs, *lin)
@@ -369,13 +358,8 @@ def nearest_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
     return _regular("nearest", dims, starts, steps, vals, obs)
 
 
+@tracing.traced(tracing.ENTRY)
 def _rect_route(method, grids, vals, obs, *lin):
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.ENTRY, _rect_call, method, grids, vals, obs, *lin)
-    return _rect_call(method, grids, vals, obs, *lin)
-
-
-def _rect_call(method, grids, vals, obs, *lin):
     grids = tuple(grids)
     if impl_mode() == "factorized":
         return _FACTORIZED_RECT[method](grids, vals, obs, *lin)
@@ -398,17 +382,12 @@ def nearest_rectilinear(grids, vals, obs, *, vals_finite=None):
     return _rect_route("nearest", grids, vals, obs)
 
 
+@tracing.traced(tracing.ENTRY)
 def bspline_eval(knots, coeffs, obs, k: int, *, vals_finite=None):
     """Tensor-product B-spline of degree k (3: cubic_spline, 5: quintic) at
     `obs`, shaped like obs[0]. `knots` and `coeffs` come from
     `ops.bspline.prep_bspline` (carried into tensors by
     `convert.bspline_from_numpy`); out-of-bounds queries extrapolate the end
     span's polynomial."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.ENTRY, _bspline_call, knots, coeffs, obs, k)
-    return _bspline_call(knots, coeffs, obs, k)
-
-
-def _bspline_call(knots, coeffs, obs, k):
     knots = tuple(knots)
     return _route(kernel_route("bspline", int(k), len(knots)), knots, coeffs, obs)

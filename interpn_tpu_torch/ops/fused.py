@@ -229,6 +229,13 @@ def _fn(source: str, entry: str = ""):
 
 
 @cache
+def _launcher(source: str, entry: str = ""):
+    """`_fn(source, entry)` inside a `launch` span: the ctypes call of a
+    launch."""
+    return tracing.traced(tracing.LAUNCH)(_fn(source, entry))
+
+
+@cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -630,9 +637,9 @@ def cubic_stack_pack(dims, vals_stack):
     out = torch.empty((nch, dims[0] - 3, *dims[1:], 4), dtype=vals_stack.dtype,
                       device=vals_stack.device)
     with torch.cuda.device(vals_stack.device):
-        rc = _c_call(_fn("fused_regular_stack", "_cubic_pack"), _is_f64(vals_stack), len(dims),
-                     (_INT * len(dims))(*dims), nch, vals_stack.data_ptr(), out.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
+        rc = _launcher("fused_regular_stack", "_cubic_pack")(
+            _is_f64(vals_stack), len(dims), (_INT * len(dims))(*dims), nch,
+            vals_stack.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_regular_stack cubic pack launch failed: CUDA error {rc}")
     launches[CUBIC_STACK_PACK] += 1
@@ -650,9 +657,9 @@ def _launch_pack(name, dims, vals, shape):
     out = torch.empty(shape, dtype=vals.dtype, device=vals.device)
     entry = name.removeprefix("regular")
     with torch.cuda.device(vals.device):
-        rc = _c_call(_fn("fused_regular", entry), _is_f64(vals), len(dims),
-                     (_INT * len(dims))(*dims), vals.data_ptr(), out.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
+        rc = _launcher("fused_regular", entry)(
+            _is_f64(vals), len(dims), (_INT * len(dims))(*dims), vals.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_regular{entry} launch failed: CUDA error {rc}")
     launches[name] += 1
@@ -682,8 +689,9 @@ def interleave(vals_stack, family="regular"):
     out = torch.empty((table, nch), dtype=vals_stack.dtype, device=vals_stack.device)
     source = f"fused_{family}_stack"
     with torch.cuda.device(vals_stack.device):
-        rc = _c_call(_fn(source, "_interleave"), _is_f64(vals_stack), table, nch,
-                     vals_stack.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        rc = _launcher(source, "_interleave")(
+            _is_f64(vals_stack), table, nch, vals_stack.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{source} interleave launch failed: CUDA error {rc}")
     launches[names[family]] += 1
@@ -708,30 +716,18 @@ def regular_info(method, dtype, ndims, route, stacked=False, family="regular") -
     return dict(zip(("registers", "static_smem", "local_bytes", "blocks_per_sm"), got))
 
 
+@tracing.traced(tracing.ROUTE)
 def _chosen(rule, dims, vals, method, stacked) -> str:
     """The route that `rule` (`regular_route`, `rectilinear_route`,
     `bspline_route`; `method` a B-spline's degree) picks for this call, a
-    stack's with the free bytes of its device now; in a `route` span while
-    a profiler records."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.ROUTE, _choose, rule, dims, vals, method, stacked)
-    return _choose(rule, dims, vals, method, stacked)
-
-
-def _choose(rule, dims, vals, method, stacked) -> str:
+    stack's with the free bytes of its device now."""
     if stacked:
         return rule(dims, vals.dtype, method, int(vals.shape[0]), free_bytes(vals))
     return rule(dims, vals.dtype, method)
 
 
+@tracing.traced(tracing.WRAPPER)
 def _regular(dims, starts, steps, vals, obs, method, linearize, *, stacked):
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.WRAPPER, _regular_wrapper, dims, starts, steps, vals, obs,
-                            method, linearize, stacked)
-    return _regular_wrapper(dims, starts, steps, vals, obs, method, linearize, stacked)
-
-
-def _regular_wrapper(dims, starts, steps, vals, obs, method, linearize, stacked):
     _method(method)  # refuses an unknown method on every device
     dims = tuple(int(d) for d in dims)
     obs = tuple(obs)
@@ -784,14 +780,8 @@ def eval_rectilinear_stack(grids, vals_stack, obs, method="linear", linearize=Tr
     return _rectilinear(grids, vals_stack, obs, method, linearize, stacked=True)
 
 
+@tracing.traced(tracing.WRAPPER)
 def _rectilinear(grids, vals, obs, method, linearize, *, stacked):
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.WRAPPER, _rectilinear_wrapper, grids, vals, obs, method,
-                            linearize, stacked)
-    return _rectilinear_wrapper(grids, vals, obs, method, linearize, stacked)
-
-
-def _rectilinear_wrapper(grids, vals, obs, method, linearize, stacked):
     _method(method)  # refuses an unknown method on every device
     grids = tuple(grids)
     obs = tuple(obs)
@@ -821,13 +811,8 @@ def eval_bspline_stack(knots, coeffs_stack, obs, k: int):
     return _bspline(knots, coeffs_stack, obs, k, stacked=True)
 
 
+@tracing.traced(tracing.WRAPPER)
 def _bspline(knots, coeffs, obs, k, *, stacked):
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.WRAPPER, _bspline_wrapper, knots, coeffs, obs, k, stacked)
-    return _bspline_wrapper(knots, coeffs, obs, k, stacked)
-
-
-def _bspline_wrapper(knots, coeffs, obs, k, stacked):
     if k not in DEGREES:
         raise ValueError(f"spline degree must be one of {DEGREES}, got {k!r}")
     knots = tuple(knots)
@@ -903,14 +888,6 @@ def _check_common(dims, vals, obs, params, need, stacked) -> int:
     return n
 
 
-def _c_call(entry, *args) -> int:
-    """entry(*args): the ctypes call of a launch, in a `launch` span while
-    a profiler records (`utils/tracing.py`)."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.LAUNCH, entry, *args)
-    return entry(*args)
-
-
 def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route):
     """Launch `csrc/<source>.cu` on `route` on the current stream; count the
     launch."""
@@ -923,8 +900,7 @@ def _launch(source, kernel, head, dims, vals, obs, n, stacked, *grid_args, route
     if index is None:
         index = torch.cuda.current_device()
     with torch.cuda.device(index):
-        rc = _c_call(
-            _fn(source),
+        rc = _launcher(source)(
             *head,
             ndims,
             (_INT * ndims)(*dims),
@@ -1012,8 +988,8 @@ def _launch_engine(source, head, dims, grid_args, tables, obs, n, threads, devic
     index = device.index if device.index is not None else torch.cuda.current_device()
     blocks = min(-(-n // threads), _sm_count(index) * _BLOCKS_PER_SM * _THREADS // threads)
     with torch.cuda.device(index):
-        rc = _c_call(
-            _fn(source), *head, len(dims), (_INT * len(dims))(*dims), *grid_args, *tables,
+        rc = _launcher(source)(
+            *head, len(dims), (_INT * len(dims))(*dims), *grid_args, *tables,
             (_VOIDP * len(dims))(*(o.data_ptr() for o in obs)), out.data_ptr(), n, blocks,
             torch.cuda.current_stream().cuda_stream,
         )

@@ -148,10 +148,6 @@ def decompose(dims, vals):
 _PREPS = TableCache(8)
 
 
-def _to_numpy(vals: torch.Tensor) -> np.ndarray:
-    return vals.detach().cpu().numpy()
-
-
 def prepare(dims, vals):
     """(pieces (prod(dims), 8) int8 cell-major, ch, cl, sv (lead,) float32,
     c0), on the table's device, or None for a table with a non-finite entry
@@ -161,8 +157,7 @@ def prepare(dims, vals):
     def build():
         host = host_array(vals)
         if host is None:
-            host = (tracing.call(tracing.SYNC, _to_numpy, vals)
-                    if tracing.profiler._is_profiler_enabled else _to_numpy(vals))
+            host = tracing.host_numpy(vals)
         host = np.asarray(host, dtype=np.float64).reshape(-1)
         if not np.isfinite(host).all():
             return None
@@ -350,18 +345,12 @@ def plain_rectilinear(grids, vals, obs, method, linearize=True, prep=None):
     return _plain(dims, None, None, grids, vals, obs, method, linearize, prep)
 
 
+@tracing.traced(tracing.WRAPPER)
 def eval_regular(dims, starts, steps, vals, obs, method, linearize=True, prep=None):
     """int8-multipass f64 evaluation on a regular grid (linear or cubic,
     2-8D): the counterpart of `pallas_i8.eval_regular`. `prep` is
     `prepare(dims, vals)`, where the caller has it. Returns (n,) float64:
     the plain chain on CPU tensors, one launch of K9 on CUDA tensors."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.WRAPPER, _eval_regular, dims, starts, steps, vals, obs,
-                            method, linearize, prep)
-    return _eval_regular(dims, starts, steps, vals, obs, method, linearize, prep)
-
-
-def _eval_regular(dims, starts, steps, vals, obs, method, linearize, prep):
     dims = tuple(int(d) for d in dims)
     obs = _flat(obs)
     if _fused._device((vals, starts, steps, *obs)).type == "cpu":
@@ -370,15 +359,9 @@ def _eval_regular(dims, starts, steps, vals, obs, method, linearize, prep):
                             FOOTPRINT[method], linearize, _choose_group(dims))
 
 
+@tracing.traced(tracing.WRAPPER)
 def eval_rectilinear(grids, vals, obs, method, linearize=True, prep=None):
     """int8-multipass f64 evaluation on a rectilinear grid."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.WRAPPER, _eval_rectilinear, grids, vals, obs, method,
-                            linearize, prep)
-    return _eval_rectilinear(grids, vals, obs, method, linearize, prep)
-
-
-def _eval_rectilinear(grids, vals, obs, method, linearize, prep):
     grids = tuple(grids)
     obs = _flat(obs)
     dims = tuple(int(g.shape[0]) for g in grids)

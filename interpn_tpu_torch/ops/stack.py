@@ -23,27 +23,15 @@ from ..utils import tracing
 from .dispatch import _route, kernel_route
 
 
+@tracing.traced(tracing.ENTRY)
 def _regular_stack(method, dims, starts, steps, vals_stack, obs, *lin):
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.ENTRY, _regular_stack_call, method, dims, starts, steps,
-                            vals_stack, obs, *lin)
-    return _regular_stack_call(method, dims, starts, steps, vals_stack, obs, *lin)
-
-
-def _regular_stack_call(method, dims, starts, steps, vals_stack, obs, *lin):
     dims = tuple(int(d) for d in dims)
     route = kernel_route("regular", method, dims, *lin).stack
     return _route(route, (starts, steps), vals_stack, tuple(obs))
 
 
+@tracing.traced(tracing.ENTRY)
 def _rectilinear_stack(method, grids, vals_stack, obs, *lin):
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.ENTRY, _rectilinear_stack_call, method, grids, vals_stack,
-                            obs, *lin)
-    return _rectilinear_stack_call(method, grids, vals_stack, obs, *lin)
-
-
-def _rectilinear_stack_call(method, grids, vals_stack, obs, *lin):
     grids = tuple(grids)
     route = kernel_route("rectilinear", method, len(grids), *lin).stack
     return _route(route, grids, vals_stack, tuple(obs))
@@ -83,15 +71,10 @@ def cubic_rectilinear_stack(grids, vals_stack, obs, linearize_extrapolation: boo
     return _rectilinear_stack("cubic", grids, vals_stack, obs, bool(linearize_extrapolation))
 
 
+@tracing.traced(tracing.ENTRY)
 def bspline_eval_stack(knots, coeffs_stack, obs, k: int, *, vals_finite=None):
     """An (nch, prod(dims)) stack of B-spline coefficient tables sharing one
     knot set, at `obs`: (nch, *obs[0].shape)."""
-    if tracing.profiler._is_profiler_enabled:
-        return tracing.call(tracing.ENTRY, _bspline_stack_call, knots, coeffs_stack, obs, k)
-    return _bspline_stack_call(knots, coeffs_stack, obs, k)
-
-
-def _bspline_stack_call(knots, coeffs_stack, obs, k):
     knots = tuple(knots)
     route = kernel_route("bspline", int(k), len(knots)).stack
     return _route(route, knots, coeffs_stack, tuple(obs))

@@ -5,20 +5,24 @@ What the port reports about itself, in one place:
 * `ops.fused.launches`: the launch counter, one count a wrapper launch by
   kernel name, layout launches (pack, cubic pack, interleave) included;
   `fused.reset_launches()` zeroes it. It counts always.
-* `raw.flag_launches`: the unrepresentable-value flag's kernel launches
+* `ops.unrep.launches`: the unrepresentable-value flag's kernel launches
   (`csrc/unrep_flag.cu`), kept apart from `ops.fused.launches`. It counts
   always.
 * the spans below, recorded only while a `torch.profiler` session records.
 
-**Switch.** Each span site tests `tracing.profiler._is_profiler_enabled`:
-torch's own module-level bool (`torch.autograd.profiler`), True while a
-profiler session records. With no profiler open a site costs that one
-attribute test and goes on: no clock read, no allocation, no profiler
-range. Nothing records while a graph is traced
+**Switch.** Each span is declared once, by the decorator `traced(sid)` on
+the function it brackets; this module alone tests the switch. A call of a
+traced function tests `profiler._is_profiler_enabled`: torch's own
+module-level bool (`torch.autograd.profiler`), True while a profiler
+session records. With no profiler open the call costs that one attribute
+test and the wrapper's frame, and goes on: no clock read, no allocation, no
+profiler range. Nothing records while a graph is traced
 (`torch.compiler.is_compiling()`, which `torch.export` sets), so a span
-adds no node to an exported program.
+adds no node to an exported program. The reads of a device value to the
+host are traced here too, `host_bool` and `host_numpy`, so that the port
+reads the device through them alone.
 
-**On.** A span (`span`, `call`) does two things:
+**On.** A span does two things:
 
 1. At its close it writes (span id, start ns, end ns, depth, event slot)
    into `RING`, a preallocated ring of `CAPACITY` records; both stamps
@@ -38,15 +42,15 @@ class method nests them in this order):
 
 | Span | Brackets |
 |---|---|
-| `entry` | the public call: the classes' `eval_torch`, `eval_unchecked`, `gradient_torch`; the `ops` evaluators of one table and of a stack; `raw`'s evaluators |
-| `checks` | `eval_torch` / `eval_unchecked`: size, dtype and grid checks, the native engine's test, the queries to the device, the cached tensors |
-| `unrep_flag` | `raw._unrep_flag`: on a CUDA tensor the flag's zeroing and its kernel's launch (`csrc/unrep_flag.cu`), and a pair of CUDA events around them, its device time; on a CPU tensor its plain passes |
-| `sync` | a read of a device value to the host: `raw._raise_unrep`'s `bool`, `raw._host`'s `.cpu()` (the copy into a numpy `out`, a tensor grid's checks), the f64 engines' table caches; their count is the host-sync counter |
-| `finish` | `raw._finish`, the copy into `out` |
+| `entry` | the public call: the classes' `eval_torch`, `eval_unchecked`, `gradient_torch`; the `ops` evaluators of one table (`ops/dispatch.py::_regular`, `_rect_route`, `bspline_eval`) and of a stack (`ops/stack.py`); `raw`'s evaluators (`_interpn_regular`, `_interpn_rectilinear`) |
+| `checks` | `eval_torch` / `eval_unchecked`: size, dtype and grid checks, the native engine's test, the queries to the device, the cached tensors (`_torch_inputs`, `_out_inputs`) |
+| `unrep_flag` | `ops.unrep.flag`: on a CUDA tensor the flag's zeroing and its kernel's launch (`csrc/unrep_flag.cu`), and a pair of CUDA events around them, its device time; on a CPU tensor its plain passes |
+| `sync` | a read of a device value to the host, `host_bool` or `host_numpy`: the flag's read in `_entry.write_checked`, a copy into a numpy `out`, a tensor grid's checks in `raw`, the f64 engines' table caches; their count is the host-sync counter |
+| `finish` | `_entry.copy_into`, the copy into `out` |
 | `dispatch` | `ops/dispatch.py::_route`: `KernelRoute.apply` and the custom op's dispatcher down to the wrapper (on a CPU tensor, the gather tree) |
 | `wrapper` | the kernel wrappers `fused._regular`, `_rectilinear`, `_bspline` and the f64 engines' `eval_*` |
-| `route` | the route choice in `fused._regular`, `_rectilinear`, `_bspline` with the free-bytes query it takes (CUDA only) |
-| `launch` | the ctypes call of `fused._launch`, `_launch_pack`, `interleave`, `_launch_engine`, layout launches included |
+| `route` | the route choice, `fused._chosen`, with the free-bytes query it takes (CUDA only) |
+| `launch` | the ctypes call of every launch in `ops/fused.py` (`fused._launcher`), layout launches included |
 
 **Reading.** `RING.between(lo, hi)` gives the records that opened at or
 after `lo` and closed at or before `hi`, or None where the ring has
@@ -59,6 +63,7 @@ reused since.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import threading
 import time
@@ -75,7 +80,7 @@ CAPACITY = 1 << 20
 EVENT_PAIRS = 1 << 14  # CUDA event pairs a device at most, then reused in turn
 
 
-# the switch the sites test: `profiler._is_profiler_enabled`
+# the switch `traced` tests: `profiler._is_profiler_enabled`
 profiler = torch.autograd.profiler
 _RANGE = torch._C._profiler._RecordFunctionFast
 _compiling = torch.compiler.is_compiling
@@ -204,17 +209,41 @@ def _leave(sid: int, depth: int) -> None:
         state[1] = False
 
 
-def call(sid: int, fn, *args):
-    """fn(*args) inside span `sid`; the sites call it only while
-    `profiler._is_profiler_enabled`."""
+def traced(sid: int, events: bool = False):
+    """Decorator: the function runs inside span `sid` while a profiler
+    records, and as it is otherwise. The switch,
+    `profiler._is_profiler_enabled`, is read at each call. Keyword
+    arguments pass through, and `functools.wraps` keeps the function's
+    name, docstring and signature. With `events` (the one span whose device
+    time is read, `unrep_flag`) the span also records a pair of CUDA events
+    around the work the function queues, where its first argument is a
+    CUDA tensor."""
+
+    def decorate(fn):
+        @functools.wraps(fn)
+        def traced_fn(*args, **kwargs):
+            if not profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            if events:
+                with _Span(sid, args[0].device):
+                    return fn(*args, **kwargs)
+            return _call(sid, fn, args, kwargs)
+
+        return traced_fn
+
+    return decorate
+
+
+def _call(sid: int, fn, args, kwargs):
+    """fn(*args, **kwargs) inside span `sid`."""
     depth = _enter(sid)
     if depth < 0:
-        return fn(*args)
+        return fn(*args, **kwargs)
     rng = _RANGE(RANGES[sid])
     rng.__enter__()
     start = _clock()
     try:
-        return fn(*args)
+        return fn(*args, **kwargs)
     finally:
         end = _clock()
         rng.__exit__(None, None, None)
@@ -222,16 +251,14 @@ def call(sid: int, fn, *args):
         _leave(sid, depth)
 
 
-class span:
-    """Span `sid` as a context manager, as `call` records it; the sites
-    open it only while `profiler._is_profiler_enabled`. `device`: the
-    device whose work the span brackets, for the one span whose device time
-    is read (`unrep_flag`); on a CUDA device it records a pair of events
-    there, around the work the span's code queues."""
+class _Span:
+    """Span `sid` as a context manager, as `_call` records it. `device`:
+    the device whose work the span brackets; on a CUDA device it records a
+    pair of events there, around the work the span's code queues."""
 
     __slots__ = ("sid", "device", "depth", "start", "range", "pool", "slot", "stream")
 
-    def __init__(self, sid: int, device: torch.device | None = None):
+    def __init__(self, sid: int, device: torch.device):
         self.sid = sid
         self.device = device
 
@@ -242,7 +269,7 @@ class span:
         self.pool = None
         self.slot = -1
         dev = self.device
-        if dev is not None and dev.type == "cuda":
+        if dev.type == "cuda":
             index = dev.index if dev.index is not None else torch.cuda.current_device()
             pool = RING.events.get(index)
             if pool is None:
@@ -266,3 +293,15 @@ class span:
         RING.write(self.sid, self.start, end, self.depth, self.slot)
         _leave(self.sid, self.depth)
         return False
+
+
+# The port's reads of a device value to the host, each in a `sync` span:
+# their count is the host-sync counter. `host_bool` is `bool` itself
+# behind the switch.
+host_bool = traced(SYNC)(bool)
+
+
+@traced(SYNC)
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """`t` copied to the host as a numpy array."""
+    return t.detach().cpu().numpy()

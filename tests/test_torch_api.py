@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from interpn_tpu.ops import cubic as jcubic
 from interpn_tpu.ops import linear as jlinear
 from interpn_tpu.ops import nearest as jnearest
-from interpn_tpu_torch import config
+from interpn_tpu_torch import _entry, config
 from interpn_tpu_torch import raw as traw
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -140,16 +140,16 @@ def test_raw_check_bounds_matches_jax(dtype):
 def test_numpy_inputs_go_to_the_default_device(monkeypatch):
     """Numpy inputs go to the card when there is one, to the requested
     device when the caller asks, and raise without either."""
-    assert traw._device(np.zeros(2), np.zeros(3)) == torch.device("cpu")  # the fixture's request
+    assert _entry.call_device(np.zeros(2), np.zeros(3)) == torch.device("cpu")  # the fixture's request
     with config.device(None):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-        assert traw._device(np.zeros(2)) == torch.device("cuda", 0)
+        assert _entry.call_device(np.zeros(2)) == torch.device("cuda", 0)
         with config.device("meta"):
-            assert traw._device(np.zeros(2)) == torch.device("meta")
+            assert _entry.call_device(np.zeros(2)) == torch.device("meta")
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match=r"set_device\('cpu'\)"):
-            traw._device(np.zeros(2))
+            _entry.call_device(np.zeros(2))
         dims, starts, steps, vals, obs = _grid((7, 5), np.float32, n=8)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             traw.interpn_linear_regular_f32(dims, starts, steps, vals, obs, np.zeros(8, np.float32))

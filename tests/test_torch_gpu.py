@@ -20,7 +20,8 @@ import torch
 import interpn_tpu_torch
 from interpn_tpu_torch import config, convert, raw
 from interpn_tpu_torch.models import MulticubicRegular, MultilinearRegular, NearestRegular
-from interpn_tpu_torch.ops import bspline, cubic, df64, dispatch, fused, i8, linear, nearest, stack
+from interpn_tpu_torch.ops import (bspline, cubic, df64, dispatch, fused, i8, linear, nearest, stack,
+                                   unrep)
 from interpn_tpu_torch.utils import profiling
 from interpn_tpu_torch.utils.testing import unrep_edge_cases
 
@@ -1368,10 +1369,10 @@ FLAG_NS = (1, 3, 4, 5, 1023, 1_000_003)
 def _flag_equal(starts, steps, cols, expect=None):
     """The kernel's flag is the plain passes' on the same inputs, after one
     launch; and `expect` where given."""
-    before = raw.flag_launches
-    got = raw._unrep_flag(starts, steps, cols)
-    assert raw.flag_launches == before + 1
-    want = raw._unrep_passes(starts, steps, cols)
+    before = unrep.launches
+    got = unrep.flag(starts, steps, cols)
+    assert unrep.launches == before + 1
+    want = unrep.plain(starts, steps, cols)
     assert got.dtype == torch.bool and got.shape == () and got.device == starts.device
     assert bool(got) == bool(want)
     if expect is not None:
@@ -1386,7 +1387,7 @@ def test_unrep_flag_kernel_equals_plain(cuda, dtype, ndims):
     at the first queries (the head), the middle, and the last (the tail)
     of an axis that turns with the case."""
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
-    info = raw._flag_info(dtype)
+    info = unrep.info(dtype)
     assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
     rng = np.random.default_rng(ndims)
     s0 = rng.uniform(-1, 1, ndims)
@@ -1420,9 +1421,9 @@ def test_unrep_flag_kernel_launches_nothing_for_no_queries(cuda):
         starts = torch.zeros(3, dtype=dtype, device=cuda)
         steps = torch.ones(3, dtype=dtype, device=cuda)
         cols = [torch.empty(0, dtype=dtype, device=cuda)] * 3
-        before = raw.flag_launches
-        got = raw._unrep_flag(starts, steps, cols)
-        assert raw.flag_launches == before and got.device == starts.device and not bool(got)
+        before = unrep.launches
+        got = unrep.flag(starts, steps, cols)
+        assert unrep.launches == before and got.device == starts.device and not bool(got)
 
 
 FLAG_MODELS = {"linear": MultilinearRegular, "cubic": MulticubicRegular,
@@ -1458,9 +1459,9 @@ def test_checked_entries_raise_before_writing_out(cuda, dtype, method):
     }
     for name, call in calls.items():
         out = torch.full((10_000,), 7.0, dtype=tdtype, device=cuda)
-        before = raw.flag_launches
+        before = unrep.launches
         assert call(obs, out) is out
-        assert raw.flag_launches == before + 1, name
+        assert unrep.launches == before + 1, name
         _equal(out, want)
         for bad in (np.nan, np.inf, 1e30):
             worse = [o.clone() for o in obs]
@@ -1471,10 +1472,10 @@ def test_checked_entries_raise_before_writing_out(cuda, dtype, method):
             torch.cuda.synchronize()
             assert (out == 7.0).all(), (name, bad)
     out = np.full(10_000, 7.0, dtype=dtype)
-    before = raw.flag_launches
+    before = unrep.launches
     interpn_tpu_torch.interpn(obs_np, grids, vals.reshape(dims), method=method, out=out,
                               assume_regular=True)
-    assert raw.flag_launches == before + 1
+    assert unrep.launches == before + 1
     np.testing.assert_array_equal(out, want.cpu().numpy())
     worse = [o.copy() for o in obs_np]
     worse[2][-1] = np.nan

@@ -21,6 +21,8 @@ no range lands on the device's timeline. The file imports no jax:
 
 from __future__ import annotations
 
+import importlib
+import inspect
 import math
 import sys
 from pathlib import Path
@@ -158,12 +160,15 @@ def _one(rows, name):
 
 
 def test_nothing_records_without_a_profiler(monkeypatch):
+    """No span opens, no range opens and no record is written with no
+    profiler; with one, the same patches see the spans open."""
     model = _model()
     obs = _obs()
     calls = _calls(model, obs, torch.empty(N))
     opened = []
-    monkeypatch.setattr(tracing, "call", lambda *a: opened.append(a))
-    monkeypatch.setattr(tracing, "span", lambda *a: opened.append(a))
+    monkeypatch.setattr(tracing, "_enter", lambda sid: opened.append(sid) or -1)
+    monkeypatch.setattr(tracing, "_RANGE", lambda name: opened.append(name))
+    monkeypatch.setattr(tracing.RING, "write", lambda *a: opened.append(a))
     before = tracing.RING.written
     for _ in range(100):
         for call in calls.values():
@@ -171,6 +176,57 @@ def test_nothing_records_without_a_profiler(monkeypatch):
     assert tracing.RING.written == before
     assert opened == []
     assert not tracing.profiler._is_profiler_enabled
+    with profile(activities=[ProfilerActivity.CPU]):
+        calls["eval_torch"]()
+    assert tracing.ENTRY in opened and tracing.DISPATCH in opened
+
+
+SWITCH = ("_is_profiler_enabled", "tracing.call(", "tracing.span(")
+
+
+def test_only_the_tracing_module_reads_the_switch():
+    """Every span is declared by `tracing.traced`: no other module of the
+    package tests the profiler's switch or opens a span by hand."""
+    package = ROOT / "interpn_tpu_torch"
+    found = [f"{path.relative_to(ROOT)}: {word}"
+             for path in sorted(package.rglob("*.py")) if path != package / "utils" / "tracing.py"
+             for word in SWITCH if word in path.read_text()]
+    assert found == []
+
+
+# each function declared in a span by `tracing.traced`, by module and name
+TRACED = {
+    "raw": ["_interpn_regular", "_interpn_rectilinear"],
+    "_entry": ["copy_into"],
+    "models._device.DeviceInterpolator": ["eval_torch", "_torch_inputs", "eval_unchecked",
+                                          "_out_inputs", "gradient_torch"],
+    "ops": ["bspline_eval", "bspline_eval_stack"],
+    "ops.dispatch": ["_route", "_regular", "_rect_route"],
+    "ops.stack": ["_regular_stack", "_rectilinear_stack"],
+    "ops.fused": ["_chosen", "_regular", "_rectilinear", "_bspline"],
+    "ops.df64": ["eval_regular", "eval_rectilinear", "eval_bspline"],
+    "ops.i8": ["eval_regular", "eval_rectilinear"],
+    "ops.unrep": ["flag"],
+    "utils.tracing": ["host_numpy"],
+}
+
+
+def _traced(where, name):
+    module = where.removesuffix(".DeviceInterpolator")
+    obj = importlib.import_module(f"interpn_tpu_torch.{module}")
+    return getattr(obj.DeviceInterpolator if where != module else obj, name)
+
+
+@pytest.mark.parametrize("where,name", [(w, n) for w, names in TRACED.items() for n in names],
+                         ids=[f"{w}.{n}" for w, names in TRACED.items() for n in names])
+def test_a_traced_function_keeps_its_signature_and_docstring(where, name):
+    fn = _traced(where, name)
+    plain = fn.__wrapped__  # the undecorated function
+    assert inspect.signature(fn) == inspect.signature(plain)
+    assert (fn.__name__, fn.__qualname__, fn.__doc__) == (plain.__name__, plain.__qualname__,
+                                                          plain.__doc__)
+    if not name.startswith("_"):
+        assert plain.__doc__
 
 
 @pytest.mark.parametrize("name", ["eval_torch", "eval_out", "gradient_torch", "ops", "stack",

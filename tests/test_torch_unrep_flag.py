@@ -1,6 +1,6 @@
 """The regular grids' unrepresentable-coordinate flag on the CPU
-(`raw._unrep_flag`): on CPU tensors it is its plain passes
-(`raw._unrep_passes`) and launches nothing; the plain predicate is numpy's
+(`ops.unrep.flag`): on CPU tensors it is its plain passes
+(`ops.unrep.plain`) and launches nothing; the plain predicate is numpy's
 floor((x - start) / step) outside [-2^63, 2^63) on adversarial queries
 (`utils.testing.unrep_edge_cases`) at the first, middle and last query of
 1, 3 and 8 axes, and so is the same predicate without the floor, which the
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from interpn_tpu_torch import raw
+from interpn_tpu_torch.ops import unrep
 from interpn_tpu_torch.utils.testing import unrep_edge_cases
 
 N = 7
@@ -58,12 +58,12 @@ CASES += [pytest.param(None, kind, id=f"refuses-{kind}")
 
 @pytest.mark.parametrize("dtype,case", CASES)
 def test_unrep_flag_on_the_cpu(dtype, case):
-    before = raw.flag_launches
+    before = unrep.launches
     if dtype is None:
         starts, steps, obs, error = _refused(case)
         with pytest.raises(error):
-            raw._unrep_flag(starts, steps, obs)
-        assert raw.flag_launches == before
+            unrep.flag(starts, steps, obs)
+        assert unrep.launches == before
         return
     _, x, s, h, expect = next(c for c in unrep_edge_cases(dtype) if c[0] == case)
     rng = np.random.default_rng(3)
@@ -79,8 +79,8 @@ def test_unrep_flag_on_the_cpu(dtype, case):
             obs[axis][pos] = x
             want = _numpy_flag(starts, steps, obs)
             assert want == expect == _numpy_flag(starts, steps, obs, floor=False)
-            plain = raw._unrep_passes(*_tensors(starts, steps, obs))
-            got = raw._unrep_flag(*_tensors(starts, steps, obs))
+            plain = unrep.plain(*_tensors(starts, steps, obs))
+            got = unrep.flag(*_tensors(starts, steps, obs))
             assert got.dtype == torch.bool and got.shape == () and got.device.type == "cpu"
             assert bool(plain) == bool(got) == want, (ndims, pos)
-    assert raw.flag_launches == before
+    assert unrep.launches == before
